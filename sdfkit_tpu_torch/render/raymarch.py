@@ -1,0 +1,201 @@
+"""Sphere-tracing renderer: the plain PyTorch path and the backend choice.
+
+Counterpart of ``sdfkit_tpu/render/raymarch.py``, with the reference's
+RayMarcher semantics:
+
+* depth starts at ``near - 0.1``;
+* a **fixed** number of march iterations, with no early exit and no hit
+  threshold (misses keep accumulating depth far past the far plane);
+* the diffuse color is the RGB of the *last* march sample;
+* normals from 6-tap central differences with eps 1e-5;
+* one point light at (5,5,10), Lambert ``max(dot(n,l),0)*diffuse + 0.1``;
+* sky color (0.5, 0.75, 1.0) where ``depth > far``.
+
+The functions here are the plain version of the CUDA kernel in
+``render/cuda/raymarch_kernel.py``: the same math in torch ops, differentiable
+by autograd. ``RayMarcher(backend="auto")`` takes the kernel when the scene's
+parameters are on CUDA and this path when they are on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from sdfkit_tpu_torch import ops
+from sdfkit_tpu_torch.sdf.expr import SdfExpr, scene_device
+from sdfkit_tpu_torch.utils.camera import camera_rays, default_view, look_at
+from sdfkit_tpu_torch.utils.v3 import V3
+
+DEFAULT_NEAR = 1.0
+DEFAULT_FAR = 100.0
+DEFAULT_VFOV_DEGREES = 60.0
+DEFAULT_DEPTH_ITERATIONS = 40
+GRAD_OFFSET = 1e-5
+LIGHT_POSITION = (5.0, 5.0, 10.0)
+AMBIENT = 0.1
+SKY_COLOR = (0.5, 0.75, 1.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static render settings (the reference's RayMarcher properties)."""
+
+    width: int
+    height: int
+    vfov_degrees: float = DEFAULT_VFOV_DEGREES
+    near: float = DEFAULT_NEAR
+    far: float = DEFAULT_FAR
+    depth_iterations: int = DEFAULT_DEPTH_ITERATIONS
+
+
+def _march(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig, want_color: bool):
+    """Fixed-iteration sphere trace. Returns (depth, last-sample color)."""
+    depth = torch.full_like(ro.x, cfg.near - 0.1)
+    n = cfg.depth_iterations
+    for _ in range(n if not want_color else n - 1):
+        depth = depth + sdf.distance(ro + rd * depth)
+    if not want_color:
+        return depth, None
+    color, dist = sdf.eval(ro + rd * depth)
+    color = V3(*(ops.broadcast_to(c, dist.shape) for c in (color.x, color.y, color.z)))
+    return depth + dist, color
+
+
+def _distance_gradient(sdf: SdfExpr, p: V3) -> V3:
+    """6-tap central-difference gradient with the reference's eps (not
+    autograd: pixel parity needs the same estimator)."""
+    e = GRAD_OFFSET
+
+    def d(dx, dy, dz):
+        return sdf.distance(V3(p.x + dx, p.y + dy, p.z + dz))
+
+    return V3(
+        d(e, 0.0, 0.0) - d(-e, 0.0, 0.0),
+        d(0.0, e, 0.0) - d(0.0, -e, 0.0),
+        d(0.0, 0.0, e) - d(0.0, 0.0, -e),
+    )
+
+
+def render_depth_rays(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig) -> torch.Tensor:
+    depth, _ = _march(sdf, ro, rd, cfg, want_color=False)
+    return depth
+
+
+def render_rays(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig) -> torch.Tensor:
+    """An (..., 3) RGB image for the given rays."""
+    depth, diffuse = _march(sdf, ro, rd, cfg, want_color=True)
+    bg = depth > cfg.far
+    # Shade miss pixels at a benign depth: their accumulated depth is ~2^n
+    # sensitive to the parameters, and a masked-out branch fed with it would
+    # leak inf*0 = NaN into the backward. Hit pixels are untouched.
+    shade_depth = torch.where(bg, torch.full_like(depth, cfg.near), depth)
+    surface = ro + rd * shade_depth
+    normal = _distance_gradient(sdf, surface).safe_normalize()
+    light = (V3(*LIGHT_POSITION) - surface).safe_normalize()
+    lambert = torch.clamp_min(normal.dot(light), 0.0)
+    lighting = diffuse * lambert + AMBIENT
+    sky = V3(*(torch.full_like(depth, c) for c in SKY_COLOR))
+    return lighting.where(~bg, sky).to_array()
+
+
+def render_image_torch(sdf: SdfExpr, view: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """(H, W, 3) RGB on the plain path."""
+    ro, rd = camera_rays(cfg.width, cfg.height, view, cfg.vfov_degrees, cfg.near, cfg.far)
+    return render_rays(sdf, ro, rd, cfg)
+
+
+def render_depth_image_torch(sdf: SdfExpr, view: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
+    """(H, W) depth on the plain path."""
+    ro, rd = camera_rays(cfg.width, cfg.height, view, cfg.vfov_degrees, cfg.near, cfg.far)
+    return render_depth_rays(sdf, ro, rd, cfg)
+
+
+BACKENDS = ("auto", "kernel", "torch")
+
+
+class RayMarcher:
+    """Object-style API mirroring the reference RayMarcher.
+
+    ``render()`` returns an (H, W, 3) RGB tensor and ``render_depth()`` an
+    (H, W) depth tensor, on the scene's device. The device is that of the
+    scene's parameters; the view must be on it too, or the call raises.
+
+    backend: 'kernel' = the hand-written CUDA kernel (CUDA scenes only),
+    'torch' = the plain path (any device, differentiable by autograd),
+    'auto' = the kernel for a scene on CUDA, the plain path on the CPU.
+    The kernel rounds differently from the plain path (FMA contraction
+    compounds over the 40 steps), so pixel comparisons against goldens
+    should use the plain path or the distributional contract of
+    ``tests/test_goldens.py``.
+    """
+
+    def __init__(self, width: int, height: int, sdf: SdfExpr, view=None,
+                 vfov_degrees: float = DEFAULT_VFOV_DEGREES, near: float = DEFAULT_NEAR,
+                 far: float = DEFAULT_FAR, depth_iterations: int = DEFAULT_DEPTH_ITERATIONS,
+                 backend: str = "auto"):
+        if backend not in BACKENDS:
+            raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+        self.device = scene_device(sdf)
+        if backend == "auto":
+            backend = "kernel" if self.device.type == "cuda" else "torch"
+        if backend == "kernel" and self.device.type != "cuda":
+            raise ValueError(
+                f"backend='kernel' needs the scene on a CUDA device, not {self.device}"
+            )
+        self.backend = backend
+        self.sdf = sdf
+        self.view = default_view(self.device) if view is None else self._check_view(view)
+        self.config = RenderConfig(
+            width=int(width), height=int(height), vfov_degrees=float(vfov_degrees),
+            near=float(near), far=float(far), depth_iterations=int(depth_iterations),
+        )
+
+    def _check_view(self, view) -> torch.Tensor:
+        if not isinstance(view, torch.Tensor):
+            view = torch.as_tensor(view, dtype=torch.float32, device=self.device)
+        if view.device != self.device:
+            raise ValueError(f"the view is on {view.device} but the scene is on {self.device}")
+        if view.shape != (4, 4) or view.dtype != torch.float32:
+            raise ValueError(f"the view must be a (4, 4) float32 matrix, got {tuple(view.shape)} {view.dtype}")
+        return view
+
+    def _view(self, camera):
+        return self.view if camera is None else self._check_view(camera)
+
+    def render(self, camera=None) -> torch.Tensor:
+        view = self._view(camera)
+        if self.backend == "kernel":
+            from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_image_kernel
+
+            return render_image_kernel(self.sdf, view, self.config)
+        return render_image_torch(self.sdf, view, self.config)
+
+    def render_depth(self, camera=None) -> torch.Tensor:
+        view = self._view(camera)
+        if self.backend == "kernel":
+            from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_depth_image_kernel
+
+            return render_depth_image_kernel(self.sdf, view, self.config)
+        return render_depth_image_torch(self.sdf, view, self.config)
+
+
+def render(sdf: SdfExpr, width: int, height: int, camera_position=None,
+           camera_target=(0.0, 0.0, 0.0), camera_up=(0.0, 1.0, 0.0), view=None,
+           **kwargs) -> torch.Tensor:
+    """Functional entry point mirroring ``Sdf.ToImage``; the default view is
+    made on the scene's device."""
+    if view is None:
+        device = scene_device(sdf)
+        if camera_position is None:
+            view = default_view(device)
+        else:
+            view = look_at(camera_position, camera_target, camera_up, device=device)
+    return RayMarcher(width, height, sdf, view=view, **kwargs).render()
+
+
+def render_depth(sdf: SdfExpr, width: int, height: int, view=None, **kwargs) -> torch.Tensor:
+    if view is None:
+        view = default_view(scene_device(sdf))
+    return RayMarcher(width, height, sdf, view=view, **kwargs).render_depth()
