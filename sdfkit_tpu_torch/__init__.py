@@ -1,12 +1,19 @@
 """sdfkit_tpu_torch -- the PyTorch and CUDA port of sdfkit_tpu.
 
-What exists so far is the forward render: the SDF expression DSL (nodes are
-``nn.Module``s), the scene compiler, the plain PyTorch sphere tracer and the
-hand-written CUDA forward kernel for Hopper. The package imports torch and
-numpy, never JAX.
+What exists so far is the render and its gradient: the SDF expression DSL
+(nodes are ``nn.Module``s), the scene compiler and its adjoint, the plain
+PyTorch sphere tracer, the hand-written CUDA forward and backward kernels for
+Hopper, and image-loss fitting (``fit``) on top of them. The package imports
+torch and numpy, never JAX.
+
+Scenes and views are made on the card by default; ask for the CPU with
+``set_default_device("cpu")``, ``use_device("cpu")`` or ``device="cpu"`` on a
+factory (see ``sdfkit_tpu_torch.device``).
 """
 
 from sdfkit_tpu_torch import ops
+from sdfkit_tpu_torch.device import default_device, set_default_device, use_device
+from sdfkit_tpu_torch.fit import FitResult, fit
 from sdfkit_tpu_torch.render.raymarch import RayMarcher, RenderConfig, render, render_depth
 from sdfkit_tpu_torch.sdf import expr as sdf
 from sdfkit_tpu_torch.sdf.expr import (
@@ -39,6 +46,7 @@ __all__ = [
     "Box",
     "Capsule",
     "Cylinder",
+    "FitResult",
     "Plane",
     "RayMarcher",
     "RenderConfig",
@@ -49,6 +57,8 @@ __all__ = [
     "box",
     "capsule",
     "cylinder",
+    "default_device",
+    "fit",
     "leaves",
     "load_leaves",
     "look_at",
@@ -60,8 +70,10 @@ __all__ = [
     "render",
     "render_depth",
     "sdf",
+    "set_default_device",
     "solid",
     "sphere",
     "torus",
     "union",
+    "use_device",
 ]

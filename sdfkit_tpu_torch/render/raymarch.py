@@ -94,7 +94,9 @@ def render_rays(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig) -> torch.Tensor
     surface = ro + rd * shade_depth
     normal = _distance_gradient(sdf, surface).safe_normalize()
     light = (V3(*LIGHT_POSITION) - surface).safe_normalize()
-    lambert = torch.clamp_min(normal.dot(light), 0.0)
+    # maximum, not clamp_min: on a tie it halves the cotangent, as jnp.maximum
+    # and the backward kernel do (clamp_min would pass all of it).
+    lambert = ops.maximum(normal.dot(light), 0.0)
     lighting = diffuse * lambert + AMBIENT
     sky = V3(*(torch.full_like(depth, c) for c in SKY_COLOR))
     return lighting.where(~bg, sky).to_array()

@@ -21,8 +21,9 @@ def cell_color(i: V3, p: V3, c: V3, d) -> V3:
     )
 
 
-def sphere_repeat_scene() -> SdfExpr:
+def sphere_repeat_scene(device=None) -> SdfExpr:
+    """On ``device``, or the package's default device (the card)."""
     r = 0.5
-    spheres = sphere(r).repeat_xy(2.25 * r, 2.25 * r, cell_color)
-    boxes = box(r / 2).repeat_xz(3.0 * r, 3.0 * r, cell_color)
+    spheres = sphere(r, device=device).repeat_xy(2.25 * r, 2.25 * r, cell_color)
+    boxes = box(r / 2, device=device).repeat_xz(3.0 * r, 3.0 * r, cell_color)
     return spheres | boxes

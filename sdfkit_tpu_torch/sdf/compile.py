@@ -13,12 +13,19 @@ parameters from SMEM scalars). Here:
 * :func:`run` executes the program as torch ops (the CPU executor).
 * :func:`emit_cpp` writes the program as two C++ functions, ``sdf_dist`` and
   ``sdf_eval``, for the hand-written kernel template in ``csrc/``.
+* The adjoint replaces the ``jax.vjp`` the Pallas backward kernel ran on the
+  traced body: a reverse sweep over the same program, with the per-op rules
+  of ``jax.vjp`` and torch autograd (one rule table, :func:`_pullback`).
+  :func:`run_vjp` executes it as torch ops and :func:`emit_vjp_cpp` writes it
+  as ``sdf_dist_vjp`` and ``sdf_eval_vjp`` for the backward kernel.
 
 The program is cached by the tree's structure (node types, callbacks, flags
 and parameter shapes), and its hash is that of the emitted source, which
 holds parameter slots and never parameter values: editing a value changes
 nothing here and rebuilds nothing. A callback that closes over a Python
-value is structure, as it was for the JAX package's ``jit``.
+value is structure, as it was for the JAX package's ``jit``. The adjoint's
+source and hash are fields of their own, so a scene that is only rendered
+never pays for the backward's build.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ from torch import nn
 
 from sdfkit_tpu_torch import ops
 from sdfkit_tpu_torch.ops import Graph, SymTable, UnsupportedOpError
-from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves
+from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
 from sdfkit_tpu_torch.utils.v3 import V3
 
 
@@ -48,6 +55,8 @@ class Program:
     eval_live: tuple  # node ids colour + distance need, in order
     source: str  # the C++ of sdf_dist and sdf_eval
     hash: str
+    adjoint_source: str = ""  # the C++ of sdf_dist_vjp and sdf_eval_vjp
+    adjoint_hash: str = ""
 
 
 def _deps(node: tuple) -> tuple:
@@ -118,8 +127,11 @@ def trace(expr: SdfExpr) -> Program:
         source="", hash="",
     )
     source = emit_cpp(prog)
+    adjoint = emit_vjp_cpp(prog)
     return dataclasses.replace(
-        prog, source=source, hash=hashlib.sha256(source.encode()).hexdigest()[:16]
+        prog, source=source, hash=hashlib.sha256(source.encode()).hexdigest()[:16],
+        adjoint_source=adjoint,
+        adjoint_hash=hashlib.sha256((source + adjoint).encode()).hexdigest()[:16],
     )
 
 
@@ -154,7 +166,7 @@ def flat_params(expr: SdfExpr) -> torch.Tensor:
     (differentiable: a torch.cat of the leaves)."""
     ls = leaves(expr)
     if not ls:
-        return torch.zeros(0, dtype=torch.float32)
+        return torch.zeros(0, dtype=torch.float32, device=scene_device(expr))
     return torch.cat([leaf.reshape(-1) for leaf in ls])
 
 
@@ -186,12 +198,10 @@ _UNARY = {
 }
 
 
-def run(program: Program, p: V3, params: torch.Tensor, want_color: bool = True):
-    """Execute the program on tensors: returns (color V3, dist), or
-    (None, dist) with ``want_color=False``. Constant outputs come back as
-    Python floats."""
+def _forward(program: Program, live, p: V3, params: torch.Tensor) -> dict:
+    """The value of every node of ``live`` at the points ``p``."""
     vals = {}
-    for i in program.eval_live if want_color else program.dist_live:
+    for i in live:
         node = program.nodes[i]
         op = node[0]
         if op == "const":
@@ -210,10 +220,215 @@ def run(program: Program, p: V3, params: torch.Tensor, want_color: bool = True):
             vals[i] = _UNARY[op](vals[node[1]])
         else:
             vals[i] = _BINARY[op](vals[node[1]], vals[node[2]])
+    return vals
+
+
+def run(program: Program, p: V3, params: torch.Tensor, want_color: bool = True):
+    """Execute the program on tensors: returns (color V3, dist), or
+    (None, dist) with ``want_color=False``. Constant outputs come back as
+    Python floats."""
+    vals = _forward(program, program.eval_live if want_color else program.dist_live, p, params)
     dist = vals[program.dist]
     if not want_color:
         return None, dist
     return V3(*(vals[c] for c in program.color)), dist
+
+
+# ---------------------------------------------------------------------------
+# The adjoint: one rule table, three back ends (torch values, C++ text, a count).
+# ---------------------------------------------------------------------------
+
+
+def _pullback(op: str, g, out, args, be):
+    """The cotangent of each argument of ``out = op(*args)`` given the
+    cotangent ``g`` of ``out``; None where nothing flows (``floor``, the
+    comparisons, a condition). ``be`` builds the expressions. The rules are
+    those of ``jax.vjp`` and torch autograd: ``min``/``max`` halve the
+    cotangent on a tie, ``abs`` gives 0 at 0, and ``where`` selects the
+    cotangent (never multiplies the other branch's partial by zero, which is
+    what keeps ``zero_safe_length`` finite)."""
+    if op == "add":
+        return g, g
+    if op == "sub":
+        return g, be.neg(g)
+    if op == "mul":
+        return be.mul(g, args[1]), be.mul(g, args[0])
+    if op == "div":
+        q = be.div(g, args[1])
+        return q, be.neg(be.mul(q, out))
+    if op in ("min", "max"):
+        a, b = args
+        first, second = (be.lt, be.gt) if op == "min" else (be.gt, be.lt)
+        half = be.mul(0.5, g)
+        return (be.select(first(a, b), g, be.select(second(a, b), 0.0, half)),
+                be.select(first(b, a), g, be.select(second(b, a), 0.0, half)))
+    if op == "neg":
+        return (be.neg(g),)
+    if op == "abs":
+        a = args[0]
+        return (be.select(be.gt(a, 0.0), g, be.select(be.lt(a, 0.0), be.neg(g), 0.0)),)
+    if op == "sqrt":
+        return (be.div(g, be.mul(2.0, out)),)
+    if op == "sin":
+        return (be.mul(g, be.cos(args[0])),)
+    if op == "cos":
+        return (be.neg(be.mul(g, be.sin(args[0]))),)
+    if op == "where":
+        return None, be.select(args[0], g, 0.0), be.select(args[0], 0.0, g)
+    return (None,) * len(args)  # floor and the comparisons
+
+
+class _TorchOps:
+    """:func:`_pullback` on tensors (and the Python floats of constants)."""
+
+    neg = staticmethod(lambda a: -a)
+    mul = staticmethod(lambda a, b: a * b)
+    div = staticmethod(lambda a, b: a / b)
+    lt = staticmethod(lambda a, b: a < b)
+    gt = staticmethod(lambda a, b: a > b)
+    sin = staticmethod(ops.sin)
+    cos = staticmethod(ops.cos)
+    select = staticmethod(ops.where)
+
+
+class _CppOps:
+    """:func:`_pullback` as C++ expressions over the emitted names."""
+
+    @staticmethod
+    def _s(v) -> str:
+        return v if isinstance(v, str) else _literal(v)
+
+    neg = classmethod(lambda c, a: f"(-{c._s(a)})")
+    mul = classmethod(lambda c, a, b: f"({c._s(a)} * {c._s(b)})")
+    div = classmethod(lambda c, a, b: f"({c._s(a)} / {c._s(b)})")
+    lt = classmethod(lambda c, a, b: f"({c._s(a)} < {c._s(b)})")
+    gt = classmethod(lambda c, a, b: f"({c._s(a)} > {c._s(b)})")
+    sin = classmethod(lambda c, a: f"sinf({c._s(a)})")
+    cos = classmethod(lambda c, a: f"cosf({c._s(a)})")
+    select = classmethod(lambda c, m, a, b: f"({m} ? {c._s(a)} : {c._s(b)})")
+
+
+class _CountOps:
+    """:func:`_pullback` with every expression counted as one operation."""
+
+    def __init__(self):
+        self.n = 0
+
+    def _one(self, *_):
+        self.n += 1
+        return 0.0
+
+    neg = mul = div = lt = gt = sin = cos = select = _one
+
+
+# Nodes that pass no cotangent on: none is accumulated for them.
+_NO_COTANGENT = frozenset(("const", "floor")) | ops._BOOL_OPS
+
+
+def _reverse(program: Program, live, seeds, values, be, add, leaf):
+    """The reverse sweep over ``live``. ``seeds`` are (node id, cotangent)
+    pairs of the outputs, ``values[i]`` is node i's forward value, ``add(i,
+    g)`` accumulates a cotangent on node i and returns the running total's
+    handle, and ``leaf(i, node, total)`` receives the total of an input, a
+    parameter or a gather. Nodes that no cotangent reaches are skipped, so
+    the index arithmetic of a repetition costs nothing here."""
+    totals = {}
+    for i, g in seeds:
+        totals[i] = add(i, g)
+    for i in reversed(live):
+        if i not in totals:
+            continue
+        node = program.nodes[i]
+        op = node[0]
+        if op == "const":
+            continue
+        if op in ("input", "param", "gather"):
+            leaf(i, node, totals[i])
+            continue
+        deps = node[1:]
+        args = [values[j] for j in deps]
+        for j, gj in zip(deps, _pullback(op, totals[i], values[i], args, be)):
+            if gj is not None and program.nodes[j][0] not in _NO_COTANGENT:
+                totals[j] = add(j, gj)
+
+
+def run_vjp(program: Program, p: V3, params: torch.Tensor, cotangents,
+            want_color: bool = True):
+    """The program's adjoint as torch ops, the counterpart of :func:`run`.
+
+    ``cotangents`` is the distance's cotangent, or ``(gr, gg, gb, gd)`` with
+    ``want_color``; each has the points' shape. Returns ``(gp, gparams)``:
+    the cotangent of the points as a V3 and of the flat parameter buffer,
+    summed over the points."""
+    live = program.eval_live if want_color else program.dist_live
+    with torch.no_grad():
+        x = torch.broadcast_tensors(p.x, p.y, p.z)
+        values = _forward(program, live, V3(*x), params)
+
+        zero = torch.zeros_like(x[0])
+        gp = [zero, zero, zero]
+        gparams = torch.zeros_like(params)
+        totals = {}
+
+        def add(i, g):
+            g = torch.broadcast_to(torch.as_tensor(g, dtype=zero.dtype, device=zero.device),
+                                   zero.shape)
+            totals[i] = totals[i] + g if i in totals else g
+            return totals[i]
+
+        def leaf(i, node, total):
+            if node[0] == "input":
+                gp[node[1]] = total
+            elif node[0] == "param":
+                gparams[node[1]] += total.sum()
+            else:
+                _, base, rows, channel, pos = node
+                k = values[pos]
+                valid = (k >= 0) & (k < rows) & (k == torch.floor(k))
+                slot = base + 3 * torch.where(valid, k, torch.zeros_like(k)).long() + channel
+                slot = torch.broadcast_to(slot, zero.shape).reshape(-1)
+                hit = torch.broadcast_to(valid, zero.shape).reshape(-1)
+                gparams.index_add_(0, slot, torch.where(hit, total.reshape(-1), 0.0))
+
+        if want_color:
+            gr, gg, gb, gd = cotangents
+            seeds = [*zip(program.color, (gr, gg, gb)), (program.dist, gd)]
+        else:
+            seeds = [(program.dist, cotangents)]
+        _reverse(program, live, seeds, values, _TorchOps, add, leaf)
+    return V3(*gp), gparams
+
+
+def operation_counts(program: Program) -> dict:
+    """Scalar operations of one call of each emitted function, for a bound on
+    the kernels' work: one per arithmetic node (a division, a square root, a
+    select or a palette load counts as one), and for an adjoint its forward
+    recompute plus every expression and accumulation of its reverse sweep."""
+    def forward(live):
+        return sum(program.nodes[i][0] not in ("const", "input", "param") for i in live)
+
+    def reverse(live, roots):
+        be = _CountOps()
+        seen = set()
+
+        def add(i, g):
+            be.n += i in seen
+            seen.add(i)
+            return 0.0
+
+        def leaf(i, node, total):
+            be.n += 3 if node[0] == "input" else 1 if node[0] == "param" else 2 * node[2]
+
+        _reverse(program, live, [(r, 0.0) for r in roots], dict.fromkeys(live, 0.0), be, add, leaf)
+        return be.n
+
+    dist, both = forward(program.dist_live), forward(program.eval_live)
+    return {
+        "dist": dist,
+        "eval": both,
+        "dist_vjp": dist + reverse(program.dist_live, [program.dist]),
+        "eval_vjp": both + reverse(program.eval_live, [*program.color, program.dist]),
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +447,10 @@ def _literal(v: float) -> str:
     return f"{np.float32(v):.9e}f"
 
 
-def _emit_body(program: Program, live) -> tuple[list[str], dict]:
+def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[str], dict]:
+    """The forward lines of ``live`` and each node's C++ name. With
+    ``keep_rows`` a gather also leaves its palette row in ``k<id>`` (-1 for
+    no row), which the adjoint reads."""
     names = {}
     lines = []
     for i in live:
@@ -252,6 +470,14 @@ def _emit_body(program: Program, live) -> tuple[list[str], dict]:
             _, base, rows, channel, _ = node
             # Row pos of the palette, 0 unless pos is an integer in [0, rows).
             lines.append(f"float {v} = 0.0f;")
+            if keep_rows:
+                lines.append(f"int k{i} = -1;")
+                lines.append(
+                    f"if ({a[0]} >= 0.0f && {a[0]} < {float(rows):.1f}f) {{ "
+                    f"const int k = (int){a[0]}; "
+                    f"if ((float)k == {a[0]}) {{ k{i} = k; {v} = P[{base} + 3 * k + {channel}]; }} }}"
+                )
+                continue
             lines.append(
                 f"if ({a[0]} >= 0.0f && {a[0]} < {float(rows):.1f}f) {{ "
                 f"const int k{i} = (int){a[0]}; "
@@ -298,4 +524,69 @@ def emit_cpp(program: Program) -> str:
     return "\n".join(out)
 
 
-__all__ = ["Program", "compile_scene", "emit_cpp", "flat_params", "run", "trace"]
+def _emit_vjp(program: Program, live, seeds) -> list[str]:
+    """The body of one adjoint function: forward recompute, then the reverse
+    sweep. Cotangents are ``a<id>``; the point's go to gx, gy, gz and the
+    parameters' are added to ``gP[slot]``."""
+    lines, names = _emit_body(program, live, keep_rows=True)
+    lines.append("float gx = 0.0f, gy = 0.0f, gz = 0.0f;")
+    declared = set()
+
+    def add(i, g):
+        g = _CppOps._s(g)
+        if i in declared:
+            lines.append(f"a{i} += {g};")
+        else:
+            declared.add(i)
+            lines.append(f"float a{i} = {g};")
+        return f"a{i}"
+
+    def leaf(i, node, total):
+        if node[0] == "input":
+            lines.append(f"g{'xyz'[node[1]]} = {total};")
+        elif node[0] == "param":
+            lines.append(f"gP[{node[1]}] += {total};")
+        else:
+            # A run-time slot index would force the whole of gP out of
+            # registers, so a palette of T rows costs T compare-and-adds per
+            # channel here (the one-hot blend's VJP in the JAX package).
+            _, base, rows, channel, _ = node
+            for t in range(rows):
+                lines.append(f"gP[{base + 3 * t + channel}] += (k{i} == {t}) ? {total} : 0.0f;")
+
+    _reverse(program, live, seeds, names, _CppOps, add, leaf)
+    lines += ["*gpx = gx;", "*gpy = gy;", "*gpz = gz;", f"return {names[program.dist]};"]
+    return lines
+
+
+def emit_vjp_cpp(program: Program) -> str:
+    """``sdf_dist_vjp`` and ``sdf_eval_vjp`` as C++ for host and device:
+    each recomputes its forward at the point, then runs the reverse sweep in
+    the same straight-line function. They set ``*gpx, *gpy, *gpz`` to the
+    point's cotangent, add the parameters' cotangents to ``gP[slot]`` and
+    return the distance."""
+    head = "__host__ __device__ __forceinline__ float"
+    dist = _emit_vjp(program, program.dist_live, [(program.dist, "g")])
+    seeds = [*zip(program.color, ("gr", "gg", "gb")), (program.dist, "gd")]
+    both = _emit_vjp(program, program.eval_live, seeds)
+    out = [
+        "// Scene adjoint emitted by sdfkit_tpu_torch.sdf.compile.",
+        f"#define SDF_N_PARAMS {program.n_params}",
+        f"{head} sdf_dist_vjp(float px, float py, float pz, const float* __restrict__ P,",
+        "                     float g, float* gpx, float* gpy, float* gpz,",
+        "                     float* __restrict__ gP) {",
+        *(f"  {ln}" for ln in dist),
+        "}",
+        "",
+        f"{head} sdf_eval_vjp(float px, float py, float pz, const float* __restrict__ P,",
+        "                     float gr, float gg, float gb, float gd,",
+        "                     float* gpx, float* gpy, float* gpz, float* __restrict__ gP) {",
+        *(f"  {ln}" for ln in both),
+        "}",
+        "",
+    ]
+    return "\n".join(out)
+
+
+__all__ = ["Program", "compile_scene", "emit_cpp", "emit_vjp_cpp", "flat_params",
+           "operation_counts", "run", "run_vjp", "trace"]

@@ -31,15 +31,18 @@ import torch
 from torch import nn
 
 from sdfkit_tpu_torch import ops
+from sdfkit_tpu_torch.device import default_device, resolve
 from sdfkit_tpu_torch.utils.v3 import V3, vmod
 
 
-def _param(v) -> nn.Parameter:
-    return nn.Parameter(torch.as_tensor(v, dtype=torch.float32).detach().clone())
+def _param(v, device: torch.device) -> nn.Parameter:
+    """A value as a float32 parameter of its own on ``device``."""
+    return nn.Parameter(torch.as_tensor(v, dtype=torch.float32).detach().to(device, copy=True))
 
 
 def _color3(c) -> torch.Tensor:
-    """A color spec (scalar, 3-seq, or tensor) as a (3,) float32 tensor."""
+    """A color spec (scalar, 3-seq, or tensor) as a (3,) float32 tensor.
+    Only the shape is settled here; the node's constructor places it."""
     c = torch.as_tensor(c, dtype=torch.float32)
     if c.ndim == 0:
         c = c.expand(3)
@@ -57,13 +60,18 @@ class SdfExpr(nn.Module):
 
     Subclasses list their parameter-or-child fields in ``fields`` (JAX
     pytree order) and their static fields (callbacks, flags) in ``statics``;
-    the constructor takes them positionally in that order, or by name."""
+    the constructor takes them positionally in that order, or by name.
+
+    Parameters are made on ``device``; without one, a node follows its
+    child's parameters (so ``scene.translate(...)`` stays where the scene
+    is), and a node with no child goes to the package's default device
+    (``sdfkit_tpu_torch.device``: the card, unless the CPU was asked for)."""
 
     fields: tuple[str, ...] = ()
     statics: tuple[str, ...] = ()
     scalar_lists: tuple[str, ...] = ()  # fields held as a tuple of scalars
 
-    def __init__(self, *args, **kwargs):
+    def __init__(self, *args, device=None, **kwargs):
         super().__init__()
         names = self.fields + self.statics
         if len(args) > len(names):
@@ -73,14 +81,20 @@ class SdfExpr(nn.Module):
         missing = [n for n in names if n not in bound]
         if missing or len(bound) != len(names):
             raise TypeError(f"{type(self).__name__} needs fields {names}, got {sorted(bound)}")
+        if device is None:
+            inherited = [p.device for v in bound.values() if isinstance(v, SdfExpr)
+                         for p in leaves(v)[:1]]
+            device = inherited[0] if inherited else None
         for name in self.fields:
             v = bound[name]
             if isinstance(v, SdfExpr):
                 self.add_module(name, v)
-            elif name in self.scalar_lists:
-                self.add_module(name, nn.ParameterList([_param(s) for s in v]))
+                continue
+            device = resolve(device)  # raises when there is no card and no request
+            if name in self.scalar_lists:
+                self.add_module(name, nn.ParameterList([_param(s, device) for s in v]))
             else:
-                self.register_parameter(name, _param(v))
+                self.register_parameter(name, _param(v, device))
         for name in self.statics:
             setattr(self, name, bound[name])
 
@@ -549,11 +563,12 @@ def load_leaves(expr: SdfExpr, arrays: Sequence) -> None:
 
 
 def scene_device(expr: SdfExpr) -> torch.device:
-    """The device of the scene's parameters (all must share one)."""
+    """The device of the scene's parameters (all must share one); the
+    package's default device for a scene with no parameters."""
     devs = {p.device for p in leaves(expr)}
     if len(devs) > 1:
         raise ValueError(f"scene parameters are on several devices: {sorted(map(str, devs))}")
-    return devs.pop() if devs else torch.device("cpu")
+    return devs.pop() if devs else default_device()
 
 
 # ---------------------------------------------------------------------------
@@ -563,40 +578,44 @@ def scene_device(expr: SdfExpr) -> torch.device:
 _WHITE = (1.0, 1.0, 1.0)
 
 
-def sphere(radius, color=_WHITE) -> Sphere:
-    return Sphere(radius, _color3(color))
+# ``device=None`` is the package's default device: the card, unless the CPU
+# was asked for (``sdfkit_tpu_torch.device``).
 
 
-def box(bounds, color=_WHITE) -> Box:
-    return Box(_color3(bounds), _color3(color))
+def sphere(radius, color=_WHITE, device=None) -> Sphere:
+    return Sphere(radius, _color3(color), device=device)
 
 
-def cylinder(radius, height, color=_WHITE) -> Cylinder:
-    return Cylinder(radius, height, _color3(color))
+def box(bounds, color=_WHITE, device=None) -> Box:
+    return Box(_color3(bounds), _color3(color), device=device)
 
 
-def plane(normal, offset=0.0, color=_WHITE) -> Plane:
-    return Plane(_color3(normal), offset, _color3(color))
+def cylinder(radius, height, color=_WHITE, device=None) -> Cylinder:
+    return Cylinder(radius, height, _color3(color), device=device)
 
 
-def plane_xy(z=0.0, color=_WHITE) -> Plane:
-    return plane((0.0, 0.0, 1.0), z, color)
+def plane(normal, offset=0.0, color=_WHITE, device=None) -> Plane:
+    return Plane(_color3(normal), offset, _color3(color), device=device)
 
 
-def plane_xz(y=0.0, color=_WHITE) -> Plane:
-    return plane((0.0, 1.0, 0.0), y, color)
+def plane_xy(z=0.0, color=_WHITE, device=None) -> Plane:
+    return plane((0.0, 0.0, 1.0), z, color, device=device)
 
 
-def solid(fn, color=_WHITE) -> Solid:
-    return Solid(_color3(color), fn)
+def plane_xz(y=0.0, color=_WHITE, device=None) -> Plane:
+    return plane((0.0, 1.0, 0.0), y, color, device=device)
 
 
-def torus(big_radius, small_radius, color=_WHITE) -> Torus:
-    return Torus(_color3(color), torch.tensor([float(big_radius), float(small_radius)]))
+def solid(fn, color=_WHITE, device=None) -> Solid:
+    return Solid(_color3(color), fn, device=device)
 
 
-def capsule(a, b, radius, color=_WHITE) -> Capsule:
-    return Capsule(_color3(a), _color3(b), radius, _color3(color))
+def torus(big_radius, small_radius, color=_WHITE, device=None) -> Torus:
+    return Torus(_color3(color), (float(big_radius), float(small_radius)), device=device)
+
+
+def capsule(a, b, radius, color=_WHITE, device=None) -> Capsule:
+    return Capsule(_color3(a), _color3(b), radius, _color3(color), device=device)
 
 
 def union(*exprs: SdfExpr) -> SdfExpr:

@@ -9,15 +9,18 @@ from __future__ import annotations
 
 import torch
 
+from sdfkit_tpu_torch.device import resolve
 from sdfkit_tpu_torch.utils.v3 import V3
 
 
-def _f32(v, device=None) -> torch.Tensor:
+def _f32(v, device) -> torch.Tensor:
     return torch.as_tensor(v, dtype=torch.float32, device=device)
 
 
 def look_at(camera_position, camera_target, camera_up, device=None) -> torch.Tensor:
-    """Row-vector view matrix, right-handed (System.Numerics CreateLookAt)."""
+    """Row-vector view matrix, right-handed (System.Numerics CreateLookAt),
+    on ``device`` or the package's default device (the card)."""
+    device = resolve(device)
     pos = _f32(camera_position, device)
     target = _f32(camera_target, device)
     up = _f32(camera_up, device)
@@ -40,7 +43,8 @@ def look_at(camera_position, camera_target, camera_up, device=None) -> torch.Ten
 
 def perspective_fov(vfov_radians, aspect, near, far, device=None) -> torch.Tensor:
     """Row-vector perspective matrix (System.Numerics
-    CreatePerspectiveFieldOfView)."""
+    CreatePerspectiveFieldOfView), on ``device`` or the default device."""
+    device = resolve(device)
     y_scale = 1.0 / torch.tan(_f32(vfov_radians, device) * 0.5)
     x_scale = y_scale / _f32(aspect, device)
     near_t = _f32(near, device)
@@ -109,5 +113,3 @@ DEFAULT_VIEW_EYE = (0.0, 0.0, 5.0)
 def default_view(device=None) -> torch.Tensor:
     """Reference default: look-at from (0,0,5) to origin, +Y up."""
     return look_at(DEFAULT_VIEW_EYE, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device=device)
-
-

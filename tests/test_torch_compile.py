@@ -19,6 +19,8 @@ from sdfkit_tpu_torch.utils.v3 import V3
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
 torch.set_num_threads(1)
+# The port's default device is the card; these tests ask for the CPU.
+st.set_default_device("cpu")
 
 
 def _p(seed=0, n=4096):

@@ -1,0 +1,321 @@
+"""The backward kernel's per-pixel code and the emitted adjoint, on the host.
+
+``csrc/raymarch_bwd.cuh`` holds host-and-device code with no CUDA header, as
+``raymarch_fwd.cuh`` does. Here it is compiled with g++ together with a
+scene's emitted forward and adjoint functions, the shim that defines the CUDA
+qualifiers away, and a host loop that sums the pixels in float64 (the kernel
+sums in float32, block by block). The host functions then stand in for the
+two kernel launches inside the port's ``autograd.Function``, so the wrapper's
+own plumbing (cotangent layout, the split into leaf and view cotangents, the
+view's gradient through ``view19``) is what the tests differentiate.
+
+Gradients are held against autograd of the port's plain path and against
+``jax.grad`` of both JAX backends. The tolerances start from the JAX
+package's own between its two backends (tests/test_pallas_kernel.py): leaves
+rtol 2e-3 / atol 1e-5; the view rtol 5e-2 / atol 1e-3, looser because the
+march amplifies ulp-level differences in the linearization point near
+silhouettes by (1 + grad d . rd) per step and the view's gradient sums 39
+such steps per pixel. Two things widen them here, each by what was measured:
+
+* Depth gradients against the plain path are two IEEE float32 programs with
+  the same operations (g++ emits no FMA): measured 1e-6 apart, held at rtol
+  1e-4 (leaves) and 5e-3 (view).
+* RGB gradients pass through the eps=1e-5 central-difference normal: the six
+  taps receive cotangents about 1/(2e-5) times the pixel's, which cancel in
+  pairs, and a float32 program loses about an ulp of that (4e-3 per hit
+  pixel at a cotangent of 5e4) in an order that differs between programs. So
+  any two float32 programs differ by noise that scales with the scene's
+  largest gradient, not with each entry: measured up to 3.0e-3 of the largest
+  leaf gradient against the plain path and 8.0e-3 against JAX's jnp path
+  (where XLA's rewriting of x/size also picks other cells at cell borders;
+  its depth gradients differ by up to 2.4e-3 for the same reason). RGB and
+  JAX comparisons therefore add an absolute term of 1e-2 (leaves) and 2e-2
+  (view) of the largest reference entry. Every comparison prints its measured
+  shares (``pytest -s``).
+"""
+
+import ctypes
+import functools
+import shutil
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import sdfkit_tpu_torch as st
+import torch_parity as tp
+from sdfkit_tpu_torch.render.cuda import build
+from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
+from sdfkit_tpu_torch.render.raymarch import (
+    RenderConfig,
+    render_depth_image_torch,
+    render_image_torch,
+)
+from sdfkit_tpu_torch.sdf.compile import compile_scene
+from test_torch_kernel_host import LOOP, SHIM, _gxx
+
+torch.set_num_threads(1)
+# The port's default device is the card; these tests ask for the CPU.
+st.set_default_device("cpu")
+
+LOOP_BWD = """
+#include "raymarch_bwd.cuh"
+
+extern "C" void raymarch_bwd_host(const float* P, const float* view19, int width,
+                                  int height, int pix0, int local_npix, int iters,
+                                  float depth0, float near_, float far_, int want_color,
+                                  const float* grad, double* out) {
+  RenderArgs a{width, height, pix0, local_npix, iters, depth0, near_, far_};
+  const int n_out = SDF_N_PARAMS + 19;
+  for (int j = 0; j < n_out; ++j) out[j] = 0.0;
+  for (int i = 0; i < local_npix; ++i) {
+    float acc[SDF_N_PARAMS + 19] = {0.0f};
+    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS);
+    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, acc + SDF_N_PARAMS);
+    for (int j = 0; j < n_out; ++j) out[j] += (double)acc[j];
+  }
+}
+"""
+
+_COMMON = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [ctypes.c_int]
+
+
+@pytest.fixture(scope="module")
+def host_libs(tmp_path_factory):
+    """program -> (forward, backward) host functions of that scene."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to build the kernel bodies")
+    build_dir = tmp_path_factory.mktemp("kernel_bwd_host")
+    libs = {}
+
+    def get(program):
+        if program.adjoint_hash not in libs:
+            src = build_dir / f"scene_{program.adjoint_hash}.cc"
+            src.write_text(SHIM + program.source + program.adjoint_source + LOOP + LOOP_BWD)
+            lib = _gxx(src, src.with_suffix(".so"))
+            lib.raymarch_fwd_host.restype = lib.raymarch_bwd_host.restype = None
+            lib.raymarch_fwd_host.argtypes = _COMMON + [ctypes.c_void_p]
+            lib.raymarch_bwd_host.argtypes = _COMMON + [ctypes.c_void_p, ctypes.c_void_p]
+            libs[program.adjoint_hash] = lib
+        return libs[program.adjoint_hash]
+
+    return get
+
+
+@pytest.fixture
+def host_kernels(host_libs, monkeypatch):
+    """Put the host-built per-pixel code in place of the two CUDA launches,
+    so ``rk.render_image_kernel`` and its backward run on CPU tensors."""
+    calls = {"fwd": 0, "bwd": 0}
+
+    def args(cfg, pix0, n, want_color):
+        return (cfg.width, cfg.height, pix0, n, cfg.depth_iterations, cfg.near - 0.1,
+                cfg.near, cfg.far, int(want_color))
+
+    def launch(lib, params, v19, cfg, want_color, pix0=0, local_npix=None):
+        n = cfg.width * cfg.height if local_npix is None else local_npix
+        out = torch.empty((n, 3) if want_color else (n,))
+        lib.raymarch_fwd_host(params.data_ptr(), v19.data_ptr(), *args(cfg, pix0, n, want_color),
+                              out.data_ptr())
+        calls["fwd"] += 1
+        return out
+
+    def launch_bwd(lib, params, v19, cfg, want_color, grad, pix0=0, local_npix=None):
+        n = cfg.width * cfg.height if local_npix is None else local_npix
+        assert grad.is_contiguous() and grad.shape == ((n, 3) if want_color else (n,))
+        out = np.empty(params.numel() + 19, np.float64)
+        lib.raymarch_bwd_host(params.data_ptr(), v19.data_ptr(), *args(cfg, pix0, n, want_color),
+                              grad.data_ptr(), out.ctypes.data)
+        calls["bwd"] += 1
+        return torch.from_numpy(out.astype(np.float32))
+
+    monkeypatch.setattr(rk, "launch", launch)
+    monkeypatch.setattr(rk, "launch_bwd", launch_bwd)
+    monkeypatch.setattr(rk, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(rk, "_check_cotangent", lambda grad: None)
+    monkeypatch.setattr(build, "load", host_libs)
+    monkeypatch.setattr(build, "load_bwd", host_libs)
+    return calls
+
+
+# -- the losses of tests/test_pallas_kernel.py, in both packages --------------
+
+def t_loss(img, want_color):
+    if want_color:
+        return (img ** 2).sum()
+    return (torch.where(img < 50.0, img, torch.zeros_like(img)) ** 2).sum()
+
+
+def j_loss(img, want_color):
+    if want_color:
+        return jnp.sum(img ** 2)
+    return jnp.sum(jnp.where(img < 50.0, img, 0.0) ** 2)
+
+
+def port_grads(texpr, view, cfg, want_color, backend):
+    """(leaf gradients in JAX leaf order, view gradient) of the loss through
+    the port: 'kernel' (the host-built kernel bodies) or 'torch' (autograd of
+    the plain path)."""
+    for p in st.leaves(texpr):
+        p.grad = None
+    view = view.clone().requires_grad_()
+    if backend == "kernel":
+        fn = rk.render_image_kernel if want_color else rk.render_depth_image_kernel
+    else:
+        fn = render_image_torch if want_color else render_depth_image_torch
+    t_loss(fn(texpr, view, cfg), want_color).backward()
+    return tp.leaf_grads(texpr), view.grad.numpy()
+
+
+def jax_grads(jexpr, view, cfg, want_color, backend):
+    from sdfkit_tpu.render import raymarch as jrm
+    from sdfkit_tpu.render.pallas import raymarch_kernel as jrk
+    from sdfkit_tpu.utils.camera import camera_rays
+
+    jcfg = jrm.RenderConfig(width=cfg.width, height=cfg.height)
+
+    def loss(s, v):
+        if backend == "fused":
+            fn = jrk.render_image_fused if want_color else jrk.render_depth_image_fused
+            return j_loss(fn(s, v, jcfg), want_color)
+        ro, rd = camera_rays(jcfg.width, jcfg.height, v, jcfg.vfov_degrees, jcfg.near, jcfg.far)
+        fn = jrm.render_rays if want_color else jrm.render_depth_rays
+        return j_loss(fn(s, ro, rd, jcfg), want_color)
+
+    gs, gv = jax.grad(loss, argnums=(0, 1))(jexpr, jnp.asarray(view.numpy()))
+    return tp.jax_leaf_grads(gs), np.asarray(gv)
+
+
+def assert_grads_close(got, want, exact_program=False):
+    """``exact_program``: the reference runs the same IEEE operations with no
+    cancellation noise (depth mode against the plain path); otherwise the
+    absolute term scales with the largest reference entry (module docstring)."""
+    (leaves, view), (ref_leaves, ref_view) = got, want
+    assert len(leaves) == len(ref_leaves)
+    largest = max(float(np.abs(b).max()) for b in ref_leaves)
+    print(f"largest error: leaves {max(float(np.abs(a - b).max()) for a, b in zip(leaves, ref_leaves)) / largest:.2e}"
+          f" of the largest leaf entry, view {float(np.abs(view - ref_view).max() / np.abs(ref_view).max()):.2e}"
+          f" of the largest view entry")
+    if exact_program:
+        rtol, atol, view_rtol, view_atol = 1e-4, 1e-5, 5e-3, 1e-3
+    else:
+        rtol, view_rtol = 2e-3, 5e-2
+        atol = 1e-5 + 1e-2 * largest
+        view_atol = 1e-3 + 2e-2 * float(np.abs(ref_view).max())
+    for i, (a, b) in enumerate(zip(leaves, ref_leaves)):
+        assert np.isfinite(a).all()
+        np.testing.assert_allclose(a, b, rtol=rtol, atol=atol, err_msg=f"leaf {i}")
+    assert np.isfinite(view).all()
+    np.testing.assert_allclose(view, ref_view, rtol=view_rtol, atol=view_atol, err_msg="view")
+
+
+VIEW = ((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+
+
+@functools.lru_cache(maxsize=None)
+def _union_reference(want_color, backend):
+    jexpr, texpr = tp.build("union")
+    view = st.look_at(*VIEW)
+    cfg = RenderConfig(24, 16)
+    if backend == "torch":
+        return port_grads(texpr, view, cfg, want_color, "torch")
+    return jax_grads(jexpr, view, cfg, want_color, backend)
+
+
+@pytest.mark.parametrize("reference", ["torch", "jnp", "fused"])
+@pytest.mark.parametrize("want_color", [True, False], ids=["rgb", "depth"])
+def test_union_scene_all_leaves_and_view(host_kernels, want_color, reference):
+    """The union scene of the JAX package's own gradient test, 24x16, seen
+    from (-2, 2, 4): every leaf and the 4x4 view, against autograd of the
+    plain path and jax.grad of the jnp and the Pallas (interpret) backends."""
+    _, texpr = tp.build("union")
+    got = port_grads(texpr, st.look_at(*VIEW), RenderConfig(24, 16), want_color, "kernel")
+    assert host_kernels == {"fwd": 1, "bwd": 1}
+    assert_grads_close(got, _union_reference(want_color, reference),
+                       exact_program=reference == "torch" and not want_color)
+
+
+@pytest.mark.parametrize("want_color", [True, False], ids=["rgb", "depth"])
+@pytest.mark.parametrize("name,w,h", [("repeat_xy", 17, 13), ("repeat_indexed", 40, 24),
+                                      ("sphere_repeat", 17, 13)])
+def test_repeated_scenes_match_the_plain_path_and_jax(host_kernels, name, w, h, want_color):
+    """Cell colours at a size no tile divides, the palette (its cotangent
+    goes to a run-time row) and the SphereRepeat structure."""
+    jexpr, texpr = tp.build(name)
+    view = st.look_at(*VIEW)
+    cfg = RenderConfig(w, h)
+    got = port_grads(texpr, view, cfg, want_color, "kernel")
+    assert_grads_close(got, port_grads(texpr, view, cfg, want_color, "torch"),
+                       exact_program=not want_color)
+    assert_grads_close(got, jax_grads(jexpr, view, cfg, want_color, "jnp"))
+
+
+def test_palette_gradient_reaches_the_table(host_kernels):
+    _, texpr = tp.build("repeat_indexed")
+    leaves, _ = port_grads(texpr, st.look_at(*VIEW), RenderConfig(40, 24), True, "kernel")
+    table = leaves[-1]
+    assert table.shape == (3, 3) and (np.abs(table) > 0).all()
+
+
+@pytest.mark.parametrize("want_color", [True, False], ids=["rgb", "depth"])
+def test_box_seen_from_inside_its_zero_region_is_finite(host_kernels, want_color):
+    """Inside the box the exterior term is exactly zero: zero_safe_length's
+    double where must select, not multiply, or sqrt'(0) * 0 leaks NaN."""
+    texpr = st.box((3.0, 2.5, 4.0), color=(0.3, 0.6, 0.9))
+    view = st.look_at((0.2, 0.1, 1.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = RenderConfig(16, 16)
+    got = port_grads(texpr, view, cfg, want_color, "kernel")
+    assert all(np.isfinite(g).all() for g in got[0]) and np.isfinite(got[1]).all()
+    assert_grads_close(got, port_grads(texpr, view, cfg, want_color, "torch"),
+                       exact_program=not want_color)
+
+
+def test_color_gradient_matches_finite_differences(host_kernels):
+    """Colour acts smoothly (no silhouette discontinuity), so the kernel's
+    gradient must match finite differences tightly (rtol 1e-2)."""
+    view = st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = RenderConfig(16, 16)
+
+    def loss(c):
+        s = st.sphere(1.0, color=(c, 0.3, 0.3))
+        return s, (rk.render_image_kernel(s, view, cfg) ** 2).mean()
+
+    s, value = loss(0.8)
+    value.backward()
+    e = 1e-2
+    with torch.no_grad():
+        fd = (loss(0.8 + e)[1] - loss(0.8 - e)[1]) / (2 * e)
+    np.testing.assert_allclose(float(s.rgb.grad[0]), float(fd), rtol=1e-2)
+
+
+def test_row_band_pullbacks_sum_to_the_frame(host_libs):
+    """pix0 and local_npix: the pullbacks of two row bands add up to the
+    whole frame's (the multi-device path hands each device one band)."""
+    _, texpr = tp.build("union")
+    cfg = RenderConfig(24, 16)
+    lib = host_libs(compile_scene(texpr))
+    params = st.sdf.leaves(texpr)
+    params = torch.cat([p.detach().reshape(-1) for p in params]).contiguous()
+    v19 = rk.view19(st.look_at(*VIEW), cfg)
+    grad = torch.from_numpy(np.random.default_rng(3).standard_normal((16 * 24, 3)).astype(np.float32))
+
+    def band(pix0, n):
+        out = np.empty(params.numel() + 19, np.float64)
+        lib.raymarch_bwd_host(params.data_ptr(), v19.data_ptr(), 24, 16, pix0, n, 40, 0.9, 1.0,
+                              100.0, 1, grad[pix0:pix0 + n].contiguous().data_ptr(),
+                              out.ctypes.data)
+        return out
+
+    whole = band(0, 16 * 24)
+    assert np.isfinite(whole).all() and np.abs(whole).max() > 0
+    np.testing.assert_allclose(band(0, 5 * 24) + band(5 * 24, 11 * 24), whole, rtol=1e-12, atol=1e-12)
+
+
+def test_march_iterations_above_the_history_raise():
+    cfg = RenderConfig(8, 4, depth_iterations=build.MAX_BWD_ITERS + 1)
+    z = torch.zeros(1)
+    with pytest.raises(ValueError, match="depth history"):
+        rk.launch_bwd(types.SimpleNamespace(), z, z, cfg, True, z)

@@ -34,6 +34,8 @@ from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
 torch.set_num_threads(1)
+# The port's default device is the card; these tests ask for the CPU.
+st.set_default_device("cpu")
 
 CSRC = pathlib.Path(st.__file__).parent / "csrc"
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"

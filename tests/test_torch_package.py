@@ -1,9 +1,10 @@
-"""The port as a package: no JAX, no nvcc at import, and the backend choice
-on a machine without CUDA."""
+"""The port as a package: no JAX, no nvcc at import, the default device, and
+the backend choice on a machine without CUDA."""
 
 import subprocess
 import sys
 import textwrap
+import types
 
 import pytest
 import torch
@@ -16,6 +17,8 @@ from sdfkit_tpu_torch.render.raymarch import RenderConfig
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
 torch.set_num_threads(1)
+# The port's default device is the card; these tests ask for the CPU.
+st.set_default_device("cpu")
 
 NO_JAX = textwrap.dedent("""
     import subprocess, sys
@@ -25,6 +28,7 @@ NO_JAX = textwrap.dedent("""
     subprocess.run = subprocess.Popen = refuse
     import torch
     import sdfkit_tpu_torch as st
+    st.set_default_device("cpu")
     from sdfkit_tpu_torch import scenes
     from sdfkit_tpu_torch.render.cuda import build, raymarch_kernel
     from sdfkit_tpu_torch.io import png
@@ -67,8 +71,17 @@ def test_kernel_wrapper_rejects_cpu_tensors_without_building():
 
 
 def test_kernel_backward_is_not_a_silent_fallback():
-    with pytest.raises(NotImplementedError, match="_pallas_render_image_bwd"):
-        rk._RenderImage.backward(None, torch.zeros(1))
+    """A cotangent on the CPU raises: the backward builds nothing, launches
+    nothing and does not go through the plain path instead."""
+    ctx = types.SimpleNamespace(saved_tensors=(torch.zeros(5), torch.zeros(19)), program=None,
+                                cfg=RenderConfig(8, 4), want_color=True)
+    builds, launches = build.BUILDS, rk.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="CUDA"):
+        rk._RenderImage.backward(ctx, torch.zeros(4, 8, 3))
+    with pytest.raises(ValueError, match="CUDA"):
+        rk.launch_bwd(None, torch.zeros(5), torch.zeros(19), RenderConfig(8, 4), True,
+                      torch.zeros(32, 3))
+    assert (build.BUILDS, rk.BWD_LAUNCHES) == (builds, launches)
 
 
 def test_view_on_another_device_or_shape_raises():
@@ -77,3 +90,90 @@ def test_view_on_another_device_or_shape_raises():
     meta = torch.eye(4, device="meta")
     with pytest.raises(ValueError, match="device|is on"):
         st.RayMarcher(8, 4, st.sphere(1.0), view=meta)
+
+
+# -- the default device ---------------------------------------------------------
+
+def test_building_a_scene_with_no_card_and_no_request_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is the card")
+    with st.use_device(None):
+        for make in (lambda: st.sphere(1.0), lambda: st.box(0.5).translate(1.0, 0.0, 0.0),
+                     lambda: st.look_at((0, 0, 5), (0, 0, 0), (0, 1, 0)),
+                     lambda: st.torus(1.0, 0.3), lambda: st.default_device()):
+            with pytest.raises(RuntimeError, match=r"set_default_device\('cpu'\)"):
+                make()
+    assert st.sphere(1.0).radius.device.type == "cpu"  # the module's request is back
+
+
+NO_REQUEST = textwrap.dedent("""
+    import torch
+    import sdfkit_tpu_torch as st
+    from sdfkit_tpu_torch import scenes
+    assert not torch.cuda.is_available()
+    for make in (scenes.sphere_repeat_scene, lambda: st.render(st.sphere(1.0), 8, 4)):
+        try:
+            make()
+        except RuntimeError as e:
+            assert "device='cpu'" in str(e), e
+        else:
+            raise AssertionError("a scene was built on the CPU without being asked")
+    img = st.render(st.sphere(1.0, device="cpu"), 8, 4)
+    assert img.device.type == "cpu" and img.shape == (4, 8, 3)
+    print("ok")
+""")
+
+
+def test_a_fresh_process_never_picks_the_cpu_silently():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA device: the default is the card")
+    proc = subprocess.run([sys.executable, "-c", NO_REQUEST], capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_the_three_ways_to_ask_for_the_cpu():
+    with st.use_device(None):
+        with st.use_device("cpu"):
+            assert st.sphere(1.0).radius.device.type == "cpu"
+        s = st.sphere(1.0, color=(0.2, 0.3, 0.4), device="cpu")
+        assert {p.device.type for p in st.leaves(s)} == {"cpu"}
+        assert st.look_at((0, 0, 5), (0, 0, 0), (0, 1, 0), device="cpu").device.type == "cpu"
+        # A modifier or a combinator follows the scene it wraps.
+        moved = (s.translate(1.0, 0.0, 0.0).scale(2.0) | s.round(0.1)).repeat_xy(3.0, 3.0)
+        assert {p.device.type for p in st.leaves(moved)} == {"cpu"}
+        assert st.render_depth(moved, 8, 4).device.type == "cpu"
+    st.set_default_device("cpu")
+    assert st.default_device() == torch.device("cpu")
+
+
+def test_factories_follow_the_requested_device():
+    with st.use_device("meta"):
+        scene = scenes_on_default()
+        assert {p.device.type for p in st.leaves(scene)} == {"meta"}
+        assert st.sdf.scene_device(scene).type == "meta"
+        assert st.look_at((0, 0, 5), (0, 0, 0), (0, 1, 0)).device.type == "meta"
+    assert st.sdf.scene_device(scenes_on_default()).type == "cpu"
+    assert st.box(0.5, device="meta").translate(1, 0, 0).offset.device.type == "meta"
+
+
+def scenes_on_default():
+    from sdfkit_tpu_torch import scenes
+
+    return scenes.sphere_repeat_scene() | st.torus(1.0, 0.2) | st.capsule((0, 0, 0), (1, 0, 0), 0.1)
+
+
+def test_default_device_is_the_card_when_there_is_one():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    with st.use_device(None):
+        scene = st.sphere(1.0)
+        assert scene.radius.device.type == "cuda"
+        assert st.RayMarcher(8, 4, scene).backend == "kernel"
+
+
+def test_fit_is_exported():
+    from sdfkit_tpu_torch.fit import FitResult, fit
+
+    assert st.fit is fit and st.FitResult is FitResult and "fit" in st.__all__

@@ -23,6 +23,8 @@ from sdfkit_tpu_torch.io.png import read_png
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
 torch.set_num_threads(1)
+# The port's default device is the card; these tests ask for the CPU.
+st.set_default_device("cpu")
 
 GOLDEN_DIR = pathlib.Path(__file__).parent / "goldens"
 W, H = 50, 30

@@ -12,12 +12,15 @@ import torch
 
 from sdfkit_tpu.utils import camera as jcam
 from sdfkit_tpu.utils import v3 as jv3
+import sdfkit_tpu_torch as st
 from sdfkit_tpu_torch.utils import camera as tcam
 from sdfkit_tpu_torch.utils import v3 as tv3
 
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
 torch.set_num_threads(1)
+# The port's default device is the card; these tests ask for the CPU.
+st.set_default_device("cpu")
 
 VIEWS = [
     ((0.0, 0.0, 5.0), (0.0, 0.0, 0.0)),

@@ -187,6 +187,21 @@ def jax_leaf_shapes(jexpr):
     return [tuple(np.shape(l)) for l in jax.tree_util.tree_leaves(jexpr)]
 
 
+def leaf_grads(texpr):
+    """The inverse of the weights' crossing, for gradients: the port's leaf
+    ``.grad``s as numpy arrays in ``jax.tree_util.tree_leaves`` order (zeros
+    for a leaf no gradient reached), to hold against ``jax.grad``'s leaves."""
+    return [
+        (np.zeros(tuple(p.shape), np.float32) if p.grad is None else p.grad.detach().cpu().numpy())
+        for p in st.leaves(texpr)
+    ]
+
+
+def jax_leaf_grads(jgrads):
+    """``jax.grad``'s pytree of cotangents as numpy arrays, leaf by leaf."""
+    return [np.asarray(l, np.float32) for l in jax.tree_util.tree_leaves(jgrads)]
+
+
 # -- contracts between two programs -------------------------------------------
 #
 # The port's plain path evaluates op by op in IEEE float32. The JAX jnp path
