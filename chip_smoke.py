@@ -4,7 +4,7 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from the sources in this checkout and drives
-both paths of the port at full size, SphereRepeat at 1920x1080 with 40
+every path of the port at full size, SphereRepeat at 1920x1080 with 40
 iterations:
 
 1-5  the forward: the kernel against the plain PyTorch path and the
@@ -16,7 +16,19 @@ iterations:
 8    ``fit`` for 5 steps at full size through the two kernels, and the
      gradient against the plain path's at the largest frame whose autograd
      tape fits;
-9    times with CUDA events, and a profile of the fit steps.
+9    times with CUDA events, and a profile of the fit steps;
+10   the ray-batch forward kernel on the frame's camera rays and on rays that
+     are no camera's, against the plain path and the image kernel;
+11   the ray-batch pullback against autograd of the plain path (every leaf,
+     ``ro``, ``rd``), two launches bit-identical, a gradient step through
+     ``render_rays_kernel``;
+12   the depth-history handoff: the forward's store against ``march_history``
+     and against depth renders of fewer iterations, the store-fed backward
+     against the replay, and the four times;
+13   two row bands and nine resumable tiles against the whole frame, bit for
+     bit, with three tiles deleted and resumed;
+14   ``sample`` of 1,000,003 points and ``voxelize`` at 256^3 on the card
+     against the CPU.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
@@ -33,6 +45,7 @@ import pathlib
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -49,6 +62,15 @@ KERNEL_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_fwd.cu"
 REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:354"
 BWD_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_bwd.cu"
 BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:479"
+RAYS_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_rays_fwd.cu"
+RAYS_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:197"
+RAYS_BWD_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_rays_bwd.cu"
+RAYS_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:842"
+STORE_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:357"
+STORE_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:486"
+TILE_ROWS = 128
+SAMPLE_POINTS = 1_000_003  # 488 batches of 2048 and a remainder of 579
+GRID = 256
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -545,6 +567,514 @@ def main() -> int:
             print(f"  {ms / FIT_STEPS:9.4f} ms/step  x{count / FIT_STEPS:g}  {key[:90]}")
     else:
         print("profile: the profiler showed no device time; idle share not measured")
+    # -- 10. the ray-batch forward kernel ------------------------------------
+    from sdfkit_tpu_torch.grid import voxelize
+    from sdfkit_tpu_torch.parallel import render_tiles_resumable
+    from sdfkit_tpu_torch.render.raymarch import (march_history, render_depth_rays,
+                                                  render_rays)
+    from sdfkit_tpu_torch.sdf.compile import flat_params
+    from sdfkit_tpu_torch.utils.camera import camera_rays, inv_view_proj
+
+    def v3(a, requires_grad=False):
+        """An (..., 3) numpy array as a V3 of tensors on the card."""
+        return st.V3(*(torch.from_numpy(np.ascontiguousarray(a[..., k])).cuda()
+                       .requires_grad_(requires_grad) for k in range(3)))
+
+    def scattered_rays(n, seed):
+        """Seeded rays that are no camera's: origins around (0, 0, 5), each
+        aimed at its own point of the z=0 plane."""
+        rng = np.random.default_rng(seed)
+        ro = (np.array([0.0, 0.0, 5.0]) + 0.3 * rng.standard_normal((n, 3))).astype(np.float32)
+        target = np.concatenate([rng.uniform(-1.5, 1.5, (n, 2)), np.zeros((n, 1))], axis=-1)
+        rd = target - ro
+        return ro, (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+
+    def hit_depth_close(a, b, far) -> tuple[bool, dict]:
+        """Depth of two marches of the same kernel code on rays made by two
+        programs (torch and the kernel round ray generation differently):
+        rtol 1e-4 where both hit, but for grazing rays, where an ulp of
+        direction compounds over the steps or decides between surface and
+        sky; at most 0.5% of the frame may be those (the share the
+        distributional contract allows beyond 1e-2)."""
+        both_hit = (a <= far) & (b <= far)
+        rel = np.abs(a - b)[both_hit] / np.abs(b)[both_hit]
+        stats = {"both_hit": int(both_hit.sum()), "max_rel": float(rel.max()),
+                 "median_rel": float(np.median(rel)), "px_gt_1e-4": int((rel > 1e-4).sum()),
+                 "hit_on_one_side_only": int(((a <= far) != (b <= far)).sum())}
+        ok = (stats["median_rel"] <= 1e-6
+              and stats["px_gt_1e-4"] + stats["hit_on_one_side_only"] <= 5e-3 * a.size)
+        return ok, stats
+
+    # Phases 10-14 run on the scene as phases 7-9 used it (the sphere radius
+    # at the fit's start, so that `target` gives a cotangent that is not zero):
+    # the whole-frame kernel and plain renders of that scene are what the new
+    # paths are held against.
+    with torch.no_grad():
+        frame_k = marcher.render().cpu().numpy()
+        frame_p = plain.render().cpu().numpy()
+    check(abs(radius.item() - START_RADIUS) < 1e-6, f"phases 10-14 see the radius {START_RADIUS}")
+
+    small_cfg = {}
+    for name in ("cell_colors", "palette"):
+        expr = small[name]()
+        for w, h in ((40, 24), (17, 13)):
+            c = st.RenderConfig(w, h)
+            small_cfg[(name, w, h)] = (expr, c)
+            with torch.no_grad():
+                ro, rd = camera_rays(w, h, view(), c.vfov_degrees, c.near, c.far)
+                kd = rk.render_depth_rays_kernel(expr, ro, rd, c).cpu().numpy()
+                kc = rk.render_rays_kernel(expr, ro, rd, c).cpu().numpy()
+                pd_ = render_depth_rays(expr, ro, rd, c).cpu().numpy()
+                pc = render_rays(expr, ro, rd, c).cpu().numpy()
+                image_d = rk.render_depth_image_kernel(expr, view(), c).cpu().numpy()
+            ok, stats = depth_close(kd, pd_)
+            check(ok and kd.shape == (h, w), f"{name} depth {w}x{h} ray kernel vs plain {stats}")
+            ok, stats = rgb_close(kc, pc)
+            check(ok and kc.shape == (h, w, 3), f"{name} rgb {w}x{h} ray kernel vs plain {stats}")
+            ok, stats = depth_close(kd, image_d)
+            check(ok, f"{name} depth {w}x{h} ray kernel vs image kernel {stats}")
+    n_scattered = 100_000
+    sro, srd = scattered_rays(n_scattered, 11)
+    with torch.no_grad():
+        kd = rk.render_depth_rays_kernel(hero, v3(sro), v3(srd), cfg).cpu().numpy()
+        kc = rk.render_rays_kernel(hero, v3(sro), v3(srd), cfg).cpu().numpy()
+        pd_ = render_depth_rays(hero, v3(sro), v3(srd), cfg).cpu().numpy()
+        pc = render_rays(hero, v3(sro), v3(srd), cfg).cpu().numpy()
+    # A batch this large holds a few grazing rays beyond the small-frame
+    # maximum of 1e-3 (measured 1.3e-3 on 3 rays), so they are counted
+    # instead: at most 0.1% of the rays above 1e-4, median at most 1e-5.
+    _, stats = depth_close(kd, pd_)
+    ok = stats["median_rel"] <= 1e-5 and stats["px_gt_1e-4"] <= 1e-3 * n_scattered
+    check(ok and kd.shape == (n_scattered,),
+          f"{n_scattered} scattered rays, depth: ray kernel vs plain {stats}")
+    ok, stats = distributional(kc, pc)
+    check(ok and kc.shape == (n_scattered, 3),
+          f"{n_scattered} scattered rays, rgb: ray kernel vs plain {stats}")
+    sro, srd = sro[:1000], srd[:1000]  # the pullback's share: autograd keeps a tape of these
+
+    # The slice at full size: the frame's camera rays through the ray kernel.
+    rays_lib = build.load_rays(prog)
+    print(f"build: ray-batch forward nvcc {rays_lib.build_seconds} s; registers per thread "
+          f"{rays_lib.registers}, local memory {rays_lib.local_memory}")
+    with torch.no_grad():
+        ro, rd = camera_rays(WIDTH, HEIGHT, hero_view, cfg.vfov_degrees, cfg.near, cfg.far)
+        torch.cuda.synchronize()
+        rk.RAYS_LAUNCHES = 0
+        rays_frame = rk.render_rays_kernel(hero, ro, rd, cfg)
+        rays_depth = rk.render_depth_rays_kernel(hero, ro, rd, cfg)
+        torch.cuda.synchronize()
+        rays_launches = rk.RAYS_LAUNCHES
+        image_depth = marcher.render_depth().cpu().numpy()
+    check(rays_launches == 2, f"the 1920x1080 camera rays went through the ray kernel, RGB and "
+                              f"depth (RAYS_LAUNCHES={rays_launches})")
+    rays_frame, rays_depth = rays_frame.cpu().numpy(), rays_depth.cpu().numpy()
+    check(rays_frame.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(rays_frame).all()),
+          f"ray-kernel frame {rays_frame.shape} is finite")
+    ok, rays_stats = distributional(rays_frame, frame_p)
+    check(ok, f"1920x1080 ray kernel vs plain render_rays {rays_stats}")
+    ok, stats = distributional(rays_frame, frame_k)
+    check(ok, f"1920x1080 ray kernel vs image kernel {stats}")
+    ok, stats = hit_depth_close(rays_depth, image_depth, cfg.far)
+    check(ok, f"1920x1080 depth, ray kernel vs image kernel where both hit {stats}")
+
+    with torch.no_grad():
+        origin_copy_ms = events(lambda: [c.contiguous() for c in (ro.x, ro.y, ro.z)])
+        rays6 = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+        turn = {"image": [], "rays": []}
+        for which in ("image", "rays", "rays", "image"):
+            turn[which].append(events(
+                (lambda: rk.launch(lib, params, v19, cfg, True)) if which == "image"
+                else (lambda: rk.launch_rays(rays_lib, params, rays6, cfg, True))))
+        rays_ms = float(np.mean(turn["rays"]))
+        rays_plain_ms = events(lambda: render_rays(hero, ro, rd, cfg), 1, 3)
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(f"timing ray-batch forward launch alone: {rays_ms:.4f} ms (rounds {turn['rays']}) "
+          f"beside the image kernel's {float(np.mean(turn['image'])):.4f} ms (rounds "
+          f"{turn['image']}) at {WIDTH}x{HEIGHT}x40; the three stride-0 origin components of "
+          f"camera_rays made contiguous: {origin_copy_ms:.4f} ms per frame; plain render_rays "
+          f"{rays_plain_ms:.4f} ms on {smi}")
+
+    # -- 11. the ray-batch pullback ---------------------------------------------
+    def ray_grads(expr, ro_np, rd_np, c, kernel, depth):
+        """(flat leaf gradients, (n, 3) d loss / d ro, d loss / d rd)."""
+        for q in st.leaves(expr):
+            q.grad = None
+        tro, trd = v3(ro_np, True), v3(rd_np, True)
+        if kernel:
+            fn = rk.render_depth_rays_kernel if depth else rk.render_rays_kernel
+        else:
+            fn = render_depth_rays if depth else render_rays
+        out = fn(expr, tro, trd, c)
+        if depth:
+            loss = (torch.where(out < 50.0, out, torch.zeros_like(out)) ** 2).sum()
+        else:
+            loss = (out ** 2).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        flat = torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad).reshape(-1)
+                          for q in st.leaves(expr)]).cpu().numpy()
+        stack = lambda v: np.stack([comp.grad.cpu().numpy() for comp in (v.x, v.y, v.z)], -1)
+        return flat, stack(tro), stack(trd)
+
+    def ray_grads_close(got, ref, depth) -> tuple[bool, dict]:
+        """Leaves as in phase 6 (rtol 2e-3 plus 1e-2 of the largest entry for
+        RGB, 2e-3 of it for depth). The per-ray cotangents of ``ro`` and
+        ``rd`` get 5e-2 of their largest entry for RGB: a single ray's tap
+        cancellation noise is not averaged over a frame as a leaf's is
+        (measured 2.0e-2 on the card, where the kernel contracts FMAs and the
+        plain path does not; 5e-3 between two IEEE programs on the CPU). They
+        are also held by their median, at most 1e-3 of the largest entry. In
+        depth mode they get 1e-2: a grazing ray's cotangent grows by
+        (1 + grad d . rd) per step, so the two programs' ulps compound on that
+        one ray as they do in its depth (measured 2.7e-3)."""
+        stats, ok = {}, True
+        for name, a, b in zip(("leaves", "ro", "rd"), got, ref):
+            if name == "leaves":
+                share = 2e-3 if depth else 1e-2
+            else:
+                share = 1e-2 if depth else 5e-2
+            largest = float(np.abs(b).max())
+            err = np.abs(a - b)
+            stats[name + "_err_of_largest"] = float(err.max() / max(largest, 1e-30))
+            stats["max_abs_err"] = max(stats.get("max_abs_err", 0.0), float(err.max()))
+            ok = (ok and bool(np.isfinite(a).all())
+                  and np.allclose(a, b, rtol=2e-3, atol=1e-5 + share * largest)
+                  and float(np.median(err)) <= 1e-3 * largest)
+        return ok, stats
+
+    rays_bwd_err = rays_bwd_share = 0.0
+    for (name, w, h), (expr, c) in small_cfg.items():
+        with torch.no_grad():
+            ro_s, rd_s = camera_rays(w, h, view((-2.0, 2.0, 4.0)), c.vfov_degrees, c.near, c.far)
+        ro_np = np.stack([comp.expand(h, w).cpu().numpy() for comp in (ro_s.x, ro_s.y, ro_s.z)], -1)
+        rd_np = np.stack([comp.cpu().numpy() for comp in (rd_s.x, rd_s.y, rd_s.z)], -1)
+        for depth in (False, True):
+            ok, stats = ray_grads_close(ray_grads(expr, ro_np, rd_np, c, True, depth),
+                                        ray_grads(expr, ro_np, rd_np, c, False, depth), depth)
+            check(ok, f"{name} {'depth' if depth else 'rgb'} {w}x{h} ray pullback vs autograd of "
+                      f"plain render_rays, every leaf, ro and rd {stats}")
+            if not depth:  # depth gradients reach ~1e6: their absolute errors say little
+                rays_bwd_err = max(rays_bwd_err, stats["max_abs_err"])
+                rays_bwd_share = max(rays_bwd_share, *(stats[k + "_err_of_largest"]
+                                                       for k in ("leaves", "ro", "rd")))
+    for depth in (False, True):
+        ok, stats = ray_grads_close(ray_grads(hero, sro, srd, cfg, True, depth),
+                                    ray_grads(hero, sro, srd, cfg, False, depth), depth)
+        check(ok, f"SphereRepeat, 1000 scattered rays, {'depth' if depth else 'rgb'}: ray pullback "
+                  f"vs autograd {stats}")
+
+    # A gradient step at full size through render_rays_kernel, as a user calls it.
+    for q in st.leaves(hero):
+        q.grad = None
+    torch.cuda.synchronize()
+    rk.RAYS_LAUNCHES = rk.RAYS_BWD_LAUNCHES = 0
+    torch.mean((rk.render_rays_kernel(hero, ro, rd, cfg) - target) ** 2).backward()
+    torch.cuda.synchronize()
+    rays_step_launches = (rk.RAYS_LAUNCHES, rk.RAYS_BWD_LAUNCHES)
+    rays_bwd_lib = build.load_rays_bwd(prog)
+    rays_leaf_grad = torch.cat([q.grad.reshape(-1) for q in st.leaves(hero)]).cpu().numpy()
+    print(f"build: ray-batch backward nvcc {rays_bwd_lib.build_seconds} s; registers per thread "
+          f"{rays_bwd_lib.registers}, local memory {rays_bwd_lib.local_memory}")
+    check(rays_step_launches == (1, 1),
+          f"a 1920x1080 gradient step through render_rays_kernel launched the ray kernels "
+          f"(RAYS_LAUNCHES, RAYS_BWD_LAUNCHES) = {rays_step_launches}")
+    # The same loss by autograd of plain render_rays on the same rays. This sum
+    # over 2M rays is ill conditioned whoever computes it (phase 8): a few
+    # grazing rays carry a visible share of it, and an ulp decides how each
+    # of them ends. The probe says how much: the plain path against itself
+    # with rd.x moved by one ulp. The ray kernels are held to twice the probe
+    # (or phase 8's 5e-2 of the largest entry, if the probe is smaller); what
+    # ties the full-size launch to the small-frame checks above is the next
+    # check, the launch against itself in pieces.
+    def plain_leaf_grad(rd_):
+        for q in st.leaves(hero):
+            q.grad = None
+        torch.mean((render_rays(hero, ro, rd_, cfg) - target) ** 2).backward()
+        torch.cuda.synchronize()
+        return torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad).reshape(-1)
+                          for q in st.leaves(hero)]).cpu().numpy()
+
+    plain_grad = plain_leaf_grad(rd)
+    with torch.no_grad():
+        rd_ulp = st.V3(torch.nextafter(rd.x, torch.full_like(rd.x, 2.0)), rd.y, rd.z)
+    probe_grad = plain_leaf_grad(rd_ulp)
+    del rd_ulp
+    largest = float(np.abs(plain_grad).max())
+    err = float(np.abs(rays_leaf_grad - plain_grad).max()) / largest
+    probe = float(np.abs(probe_grad - plain_grad).max()) / largest
+    check(bool(np.isfinite(rays_leaf_grad).all()) and err <= max(5e-2, 2.0 * probe),
+          f"leaf gradients of the 1920x1080 loss, ray kernels vs autograd of plain render_rays on "
+          f"the same rays: {err:.3g} of the largest entry; plain vs plain with rd.x moved by one "
+          f"ulp: {probe:.3g} (bound: twice that)")
+    print(f"INFO the same leaf gradients, ray kernels vs image kernels (rays that differ in "
+          f"their last bits): {float(np.abs(rays_leaf_grad - first[0]).max()) / largest:.3g} of "
+          f"the largest entry")
+    for q in st.leaves(hero):
+        q.grad = None
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        g1 = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot)
+        g2 = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot)
+        torch.cuda.synchronize()
+        check(bool(torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
+                   and torch.isfinite(g1[0]).all() and torch.isfinite(g1[1]).all()),
+              "two ray-pullback launches give bit-identical, finite gradients (parameters and rays)")
+        # The full-size launch walks its rays with a grid-stride loop, several
+        # rays a thread. In pieces small enough for one ray a thread (the
+        # regime of the small-frame checks) it must give the same ray
+        # cotangents bit for bit and the same parameter sums to float32
+        # addition order (1e-5 of the largest entry).
+        piece = rays_bwd_lib.rows(WIDTH * HEIGHT) * 128
+        pieces = torch.zeros_like(g1[0], dtype=torch.float64)
+        same_rays = True
+        for s0 in range(0, WIDTH * HEIGHT, piece):
+            gp, gr = rk.launch_rays_bwd(rays_bwd_lib, params, [c[s0:s0 + piece] for c in rays6],
+                                        cfg, True, cot[s0:s0 + piece])
+            pieces += gp.double()
+            same_rays = same_rays and torch.equal(gr, g1[1][:, s0:s0 + piece])
+        torch.cuda.synchronize()
+        piece_err = float((pieces - g1[0].double()).abs().max() / g1[0].abs().max())
+        check(same_rays and piece_err <= 1e-5,
+              f"the full-size ray pullback against itself in {-(-WIDTH * HEIGHT // piece)} pieces "
+              f"of one ray a thread: ray cotangents bit-identical, parameter sums "
+              f"{piece_err:.3g} of the largest entry apart (bound 1e-5)")
+        del g1, g2, gp, gr
+        turn = {"image": [], "rays": []}
+        for which in ("image", "rays", "rays", "image"):
+            turn[which].append(events(
+                (lambda: rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot)) if which == "image"
+                else (lambda: rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot))))
+    rays_bwd_ms = float(np.mean(turn["rays"]))
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(f"timing ray-batch backward launch alone (pullback + reduction): {rays_bwd_ms:.4f} ms "
+          f"(rounds {turn['rays']}) beside the image backward's "
+          f"{float(np.mean(turn['image'])):.4f} ms (rounds {turn['image']}) at "
+          f"{WIDTH}x{HEIGHT}x40 on {smi}")
+    del ro, rd, rays6
+    for q in st.leaves(hero):
+        q.grad = None
+    torch.cuda.empty_cache()
+
+    # -- 12. the depth-history handoff ------------------------------------------
+    store_err = 0.0
+    for (name, w, h), (expr, c) in small_cfg.items():
+        sp = compile_scene(expr)
+        with torch.no_grad():
+            p_s = flat_params(expr).contiguous()
+            v_s = rk.view19(view(), c)
+            out_s, store_s = rk.launch(build.load(sp, store=True), p_s, v_s, c, True,
+                                       want_store=True)
+            ro_s, rd_s = camera_rays(w, h, view(), c.vfov_degrees, c.near, c.far)
+            history = march_history(expr, ro_s, rd_s, c).reshape(c.depth_iterations, -1)
+            hit = history[-1] <= c.far
+            a, b = store_s[:, hit].cpu().numpy(), history[:, hit].cpu().numpy()
+            g_s = torch.from_numpy(np.random.default_rng(3).standard_normal((w * h, 3))
+                                   .astype(np.float32)).cuda()
+            fed = rk.launch_bwd(build.load_bwd(sp, store=True), p_s, v_s, c, True, g_s,
+                                store=store_s)
+            replay = rk.launch_bwd(build.load_bwd(sp), p_s, v_s, c, True, g_s)
+        torch.cuda.synchronize()
+        store_err = max(store_err, float(np.abs(a - b).max()))
+        # Every row of the rays that hit, by the depth contract between two
+        # programs (the kernel contracts FMAs; rtol 1e-4 holds between the g++
+        # build and the plain path in the CPU tests, not here).
+        ok, stats = depth_close(a, b)
+        check(ok and store_s.shape == (c.depth_iterations, w * h),
+              f"{name} {w}x{h} depth history vs march_history, all {c.depth_iterations} rows of "
+              f"the {int(hit.sum())} hit rays {stats}")
+        largest = float(replay.abs().max())
+        diff = float((fed - replay).abs().max()) / largest
+        check(diff <= 1e-6, f"{name} {w}x{h} store-fed pullback vs replay: "
+                            f"{'bit-identical' if torch.equal(fed, replay) else f'{diff:.3g} of the largest entry'}")
+
+    store_lib = build.load(prog, store=True)
+    store_bwd_lib = build.load_bwd(prog, store=True)
+    print(f"build: forward with store nvcc {store_lib.build_seconds} s, registers "
+          f"{store_lib.registers}, local memory {store_lib.local_memory}; backward fed the store "
+          f"nvcc {store_bwd_lib.build_seconds} s, registers {store_bwd_lib.registers}, local "
+          f"memory {store_bwd_lib.local_memory} (replay: {bwd_lib.registers}, "
+          f"{bwd_lib.local_memory})")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        rk.STORE_LAUNCHES = rk.STORE_BWD_LAUNCHES = 0
+        out_store, store = rk.launch(store_lib, params, v19, cfg, True, want_store=True)
+        fed = rk.launch_bwd(store_bwd_lib, params, v19, cfg, True, cot, store=store)
+        torch.cuda.synchronize()
+        store_launches = (rk.STORE_LAUNCHES, rk.STORE_BWD_LAUNCHES)
+        replay = rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot)
+        check(store_launches == (1, 1), f"a forward with store and a store-fed backward at "
+              f"{WIDTH}x{HEIGHT} (STORE_LAUNCHES, STORE_BWD_LAUNCHES) = {store_launches}")
+        check(torch.equal(out_store, rk.launch(lib, params, v19, cfg, True)),
+              "the frame of the forward with store equals the forward's, bit for bit")
+        check(store.shape == (cfg.depth_iterations, WIDTH * HEIGHT)
+              and bool((store[0] == np.float32(cfg.near - 0.1)).all()),
+              f"the store is {tuple(store.shape)} ({store.numel() * 4 / 1e6:.1f} MB) and row 0 is "
+              f"near - 0.1")
+        for i in (1, 20, 39):
+            depth_i = rk.launch(lib, params, v19,
+                                st.RenderConfig(WIDTH, HEIGHT, depth_iterations=i), False)
+            check(torch.equal(store[i], depth_i),
+                  f"store row {i} equals the depth render of {i} iterations, bit for bit")
+        del depth_i
+        largest = float(replay.abs().max())
+        store_bwd_err = float((fed - replay).abs().max())
+        same = torch.equal(fed, replay)
+        check(store_bwd_err <= 1e-6 * largest and bool(torch.isfinite(fed).all()),
+              f"{WIDTH}x{HEIGHT} store-fed pullback vs replay: "
+              f"{'bit-identical' if same else f'{store_bwd_err / largest:.3g} of the largest entry'}")
+        fed2 = rk.launch_bwd(store_bwd_lib, params, v19, cfg, True, cot, store=store)
+        check(torch.equal(fed, fed2), "two store-fed backward launches give bit-identical gradients")
+        handoff = {"fwd": [], "fwd_store": [], "bwd": [], "bwd_store": []}
+        runs = {
+            "fwd": lambda: rk.launch(lib, params, v19, cfg, True),
+            "fwd_store": lambda: rk.launch(store_lib, params, v19, cfg, True, want_store=True),
+            "bwd": lambda: rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot),
+            "bwd_store": lambda: rk.launch_bwd(store_bwd_lib, params, v19, cfg, True, cot,
+                                               store=store),
+        }
+        for which in ("fwd", "fwd_store", "bwd", "bwd_store", "bwd_store", "bwd", "fwd_store",
+                      "fwd"):
+            handoff[which].append(events(runs[which]))
+        ro, rd = camera_rays(WIDTH, HEIGHT, hero_view, cfg.vfov_degrees, cfg.near, cfg.far)
+        history_ms = events(lambda: march_history(hero, ro, rd, cfg), 1, 3)
+        del ro, rd
+    handoff_ms = {k: float(np.mean(v)) for k, v in handoff.items()}
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(f"timing handoff at {WIDTH}x{HEIGHT}x40, launches alone: forward {handoff_ms['fwd']:.4f} "
+          f"ms, forward with store {handoff_ms['fwd_store']:.4f} ms, backward with replay "
+          f"{handoff_ms['bwd']:.4f} ms, backward fed the store {handoff_ms['bwd_store']:.4f} ms; "
+          f"pair with replay {handoff_ms['fwd'] + handoff_ms['bwd']:.4f} ms, pair with handoff "
+          f"{handoff_ms['fwd_store'] + handoff_ms['bwd_store']:.4f} ms (rounds {handoff}); plain "
+          f"march_history {history_ms:.4f} ms on {smi}")
+    del store, out_store, fed, fed2, replay
+    torch.cuda.empty_cache()
+
+    # -- 13. row bands and resumable tiles ---------------------------------------
+    split = 500  # rows of the first band
+    with torch.no_grad():
+        ivp, cam = inv_view_proj(hero_view, WIDTH, HEIGHT, cfg.vfov_degrees, cfg.near, cfg.far)
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    for q in st.leaves(hero):
+        q.grad = None
+    ivp_g, cam_g = ivp.clone().requires_grad_(), cam.clone().requires_grad_()
+    top = rk.render_rows_kernel(hero, ivp_g, cam_g, 0, cfg, split)
+    bottom = rk.render_rows_kernel(hero, ivp_g, cam_g, torch.tensor(split * WIDTH), cfg,
+                                   HEIGHT - split)
+    bands = torch.cat([top, bottom])
+    torch.mean((bands - target) ** 2).backward()
+    torch.cuda.synchronize()
+    band_launches = (rk.LAUNCHES, rk.BWD_LAUNCHES)
+    band_grad = torch.cat([q.grad.reshape(-1) for q in st.leaves(hero)]
+                          + [ivp_g.grad.reshape(-1), cam_g.grad.reshape(-1)]).cpu().numpy()
+    for q in st.leaves(hero):
+        q.grad = None
+    ivp_g, cam_g = ivp.clone().requires_grad_(), cam.clone().requires_grad_()
+    whole = rk.render_rows_kernel(hero, ivp_g, cam_g, 0, cfg, HEIGHT)
+    torch.mean((whole - target) ** 2).backward()
+    torch.cuda.synchronize()
+    whole_grad = torch.cat([q.grad.reshape(-1) for q in st.leaves(hero)]
+                           + [ivp_g.grad.reshape(-1), cam_g.grad.reshape(-1)]).cpu().numpy()
+    check(band_launches == (2, 2), f"two row bands went through the image kernels, forward and "
+                                   f"backward (LAUNCHES, BWD_LAUNCHES) = {band_launches}")
+    check(np.array_equal(bands.detach().cpu().numpy(), frame_k)
+          and np.array_equal(whole.detach().cpu().numpy(), frame_k),
+          f"rows 0-{split} and {split}-{HEIGHT} through render_rows_kernel equal the whole-frame "
+          f"kernel render bit for bit")
+    # Each launch sums its pixels in float32 in its own grouping (grid-stride
+    # threads, blocks, rows of partials), so the bands' sum differs from the
+    # frame's by float addition order: held to 1e-4 of the largest entry.
+    band_err = float(np.abs(band_grad - whole_grad).max() / np.abs(whole_grad).max())
+    check(band_err <= 1e-4, f"the two bands' summed gradient (leaves, ivp, cam) vs the frame's: "
+                            f"{band_err:.3g} of the largest entry (bound 1e-4)")
+    del top, bottom, bands, whole
+    for q in st.leaves(hero):
+        q.grad = None
+
+    with tempfile.TemporaryDirectory(prefix="sdfkit_tiles_") as tiles_root:
+        tiles_root = pathlib.Path(tiles_root)
+        rk.LAUNCHES = 0
+        t0 = time.perf_counter()
+        tiled, stats = render_tiles_resumable(hero, WIDTH, HEIGHT, tiles_root / "full",
+                                              tile_rows=TILE_ROWS, view=hero_view)
+        tiles_s = time.perf_counter() - t0
+        n_tiles = -(-HEIGHT // TILE_ROWS)
+        check(stats == {"resumed": 0, "rendered": n_tiles, "tiles": n_tiles}
+              and rk.LAUNCHES == n_tiles,
+              f"render_tiles_resumable rendered {stats} with LAUNCHES={rk.LAUNCHES} in "
+              f"{tiles_s:.3f} s (tile files written)")
+        check(np.array_equal(tiled, frame_k),
+              f"the {n_tiles} tiles equal the whole-frame kernel render bit for bit")
+        manifest = json.loads((tiles_root / "full" / "manifest.json").read_text())
+        check(manifest["backend"] == "kernel", f"the manifest records backend {manifest['backend']!r}")
+        for t in (1, 4, 8):
+            (tiles_root / "full" / f"tile_{t:05d}.npy").unlink()
+        rk.LAUNCHES = 0
+        resumed, stats = render_tiles_resumable(hero, WIDTH, HEIGHT, tiles_root / "full",
+                                                tile_rows=TILE_ROWS, view=hero_view)
+        check(stats == {"resumed": n_tiles - 3, "rendered": 3, "tiles": n_tiles}
+              and rk.LAUNCHES == 3, f"three tile files deleted, then resumed: {stats}, "
+                                    f"LAUNCHES={rk.LAUNCHES}")
+        check(np.array_equal(resumed, tiled), "the resumed image equals the uninterrupted one bit "
+                                              "for bit")
+        with torch.no_grad():
+            radius.fill_(0.51)
+        try:
+            render_tiles_resumable(hero, WIDTH, HEIGHT, tiles_root / "full", tile_rows=TILE_ROWS,
+                                   view=hero_view)
+            refused = False
+        except ValueError as e:
+            refused = "manifest mismatch" in str(e)
+        with torch.no_grad():
+            radius.fill_(START_RADIUS)
+        check(refused, "a changed parameter is refused by the manifest")
+    check(not tiles_root.exists(), "the tile checkpoints were removed")
+    del tiled, resumed
+
+    # -- 14. sample and voxelize on the card against the CPU ---------------------
+    def host_ms(fn, repeats=3):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(repeats):
+            out = fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / repeats, out
+
+    hero_cpu = scenes.sphere_repeat_scene(device="cpu")
+    st.load_leaves(hero_cpu, [q.detach().cpu().numpy() for q in st.leaves(hero)])
+    points = np.random.default_rng(7).uniform(-3.0, 3.0, (SAMPLE_POINTS, 3)).astype(np.float32)
+    with torch.no_grad():
+        points_card = torch.from_numpy(points).cuda()
+        sample_ms, sampled = host_ms(lambda: st.sample(hero, points_card))
+        t0 = time.perf_counter()
+        sampled_cpu = st.sample(hero_cpu, torch.from_numpy(points))
+        sample_cpu_s = time.perf_counter() - t0
+    err = float((sampled.cpu() - sampled_cpu).abs().max())
+    check(sampled.shape == (SAMPLE_POINTS, 4) and sampled.device.type == "cuda" and err <= 1e-5,
+          f"sample of {SAMPLE_POINTS} points (batches of 2048 and a remainder) on the card vs the "
+          f"CPU: max abs {err:.3g} (atol 1e-5)")
+    lo, hi = (-4.0, -4.0, -4.0), (4.0, 4.0, 4.0)
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        voxel_ms, vox = host_ms(lambda: voxelize(hero, lo, hi, GRID, GRID, GRID))
+        voxel_peak = torch.cuda.max_memory_allocated()
+        t0 = time.perf_counter()
+        vox_cpu = voxelize(hero_cpu, lo, hi, GRID, GRID, GRID)
+        voxel_cpu_s = time.perf_counter() - t0
+    err_v = float((vox.values.cpu() - vox_cpu.values).abs().max())
+    err_c = float((vox.colors.cpu() - vox_cpu.colors).abs().max())
+    check(vox.values.shape == (GRID,) * 3 and vox.colors.shape == (GRID,) * 3 + (3,)
+          and vox.values.device.type == "cuda" and err_v <= 1e-5 and err_c <= 1e-5,
+          f"voxelize at {GRID}^3 on the card vs the CPU: values max abs {err_v:.3g}, colours "
+          f"{err_c:.3g} (atol 1e-5)")
+    check(float(vox.values[0, 0, 0]) == float(np.float32(8.0) / np.float32(GRID)),
+          "the volume's walls hold the outside value size.x / nx")
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(f"timing sample of {SAMPLE_POINTS} points: {sample_ms:.3f} ms on the card (host clock, "
+          f"plain torch ops, {-(-SAMPLE_POINTS // 2048)} batches), {sample_cpu_s * 1e3:.1f} ms on "
+          f"this host's CPU; voxelize {GRID}^3: {voxel_ms:.3f} ms on the card (peak "
+          f"{voxel_peak / 1e9:.2f} GB allocated), {voxel_cpu_s * 1e3:.1f} ms on the CPU; on {smi}")
+    del vox, vox_cpu, sampled, sampled_cpu, points_card
     with torch.no_grad():
         radius.fill_(0.5)
     torch.cuda.synchronize()
@@ -577,6 +1107,26 @@ def main() -> int:
 
     fwd_bound, fwd_by = bound(fwd_ops, fwd_bytes)
     bwd_bound, bwd_by = bound(bwd_ops, bwd_bytes)
+    # The ray-batch kernels do the image kernels' work without ray generation
+    # (about 30 operations: two NDC coordinates, four 3-term rows, three
+    # divides, a normalisation) and its pullback (about 60), and move the rays:
+    # 24 bytes read per ray, and 24 written by the pullback.
+    ray_ops, ray_vjp_ops = 30, 60
+    rays_bound, rays_by = bound(fwd_ops - npix * ray_ops, fwd_bytes + npix * 24)
+    rays_bwd_bound, rays_bwd_by = bound(bwd_ops - npix * ray_ops - hits * ray_vjp_ops,
+                                        bwd_bytes + npix * 48)
+    # The handoff: the forward writes n depths per pixel; the backward reads
+    # them and does not replay the n-1 march steps.
+    store_bytes = npix * n * 4
+    store_bound, store_by = bound(fwd_ops, fwd_bytes + store_bytes)
+    store_bwd_bound, store_bwd_by = bound(
+        bwd_ops - npix * (n - 1) * (ops_n["dist"] + step_ops), bwd_bytes + store_bytes)
+    print(f"work: ray-batch forward {fwd_ops - npix * ray_ops:.4g} operations / "
+          f"{fwd_bytes + npix * 24} bytes, ray-batch backward "
+          f"{bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g} / {bwd_bytes + npix * 48}; "
+          f"forward with store {fwd_ops:.4g} / {fwd_bytes + store_bytes}, backward fed the store "
+          f"{bwd_ops - npix * (n - 1) * (ops_n['dist'] + step_ops):.4g} / "
+          f"{bwd_bytes + store_bytes}")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -593,6 +1143,25 @@ def main() -> int:
          "replaces": BWD_REPLACES, "launches": bwd_launches, "max_abs_err": bwd_err,
          "ms": bwd_launch_ms, "plain_ms": plain_bwd_ms, "plain_shape": [pw, ph],
          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None},
+        {"name": "raymarch_rays_fwd", "route": "cuda", "source": RAYS_SOURCE,
+         "replaces": RAYS_REPLACES, "launches": rays_launches, "max_abs_err": rays_stats["max"],
+         "ms": rays_ms, "plain_ms": rays_plain_ms, "bound_ms": rays_bound, "bound_by": rays_by,
+         "library_ms": None},
+        {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,
+         "replaces": RAYS_BWD_REPLACES, "launches": rays_step_launches[1],
+         "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
+         "ms": rays_bwd_ms, "plain_ms": plain_bwd_ms,
+         "plain_shape": [pw, ph], "bound_ms": rays_bwd_bound, "bound_by": rays_bwd_by,
+         "library_ms": None},
+        {"name": "raymarch_fwd_store", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
+         "ms": handoff_ms["fwd_store"], "plain_ms": history_ms, "bound_ms": store_bound,
+         "bound_by": store_by, "library_ms": None},
+        {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
+         "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
+         "max_abs_err": store_bwd_err, "ms": handoff_ms["bwd_store"], "plain_ms": plain_bwd_ms,
+         "plain_shape": [pw, ph], "bound_ms": store_bwd_bound, "bound_by": store_bwd_by,
+         "library_ms": None},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,21 +1,25 @@
 """sdfkit_tpu_torch -- the PyTorch and CUDA port of sdfkit_tpu.
 
-What exists so far is the render and its gradient: the SDF expression DSL
-(nodes are ``nn.Module``s), the scene compiler and its adjoint, the plain
-PyTorch sphere tracer, the hand-written CUDA forward and backward kernels for
-Hopper, and image-loss fitting (``fit``) on top of them. The package imports
-torch and numpy, never JAX.
+What exists so far: the SDF expression DSL (nodes are ``nn.Module``s), the
+scene compiler and its adjoint, the plain PyTorch sphere tracer, the
+hand-written CUDA kernels for Hopper (image and ray-batch render, forward
+and backward), image-loss fitting (``fit``), resumable tile rendering
+(``parallel``), batched sampling (``sample``) and voxelization (``voxelize``,
+``Voxels``). The package imports torch and numpy, never JAX.
 
 Scenes and views are made on the card by default; ask for the CPU with
 ``set_default_device("cpu")``, ``use_device("cpu")`` or ``device="cpu"`` on a
 factory (see ``sdfkit_tpu_torch.device``).
 """
 
-from sdfkit_tpu_torch import ops
+from sdfkit_tpu_torch import ops, parallel
 from sdfkit_tpu_torch.device import default_device, set_default_device, use_device
 from sdfkit_tpu_torch.fit import FitResult, fit
+from sdfkit_tpu_torch.grid import voxelize
+from sdfkit_tpu_torch.mesh import Mesh, Voxels
 from sdfkit_tpu_torch.render.raymarch import RayMarcher, RenderConfig, render, render_depth
 from sdfkit_tpu_torch.sdf import expr as sdf
+from sdfkit_tpu_torch.sdf.sample import sample
 from sdfkit_tpu_torch.sdf.expr import (
     Box,
     Capsule,
@@ -47,6 +51,7 @@ __all__ = [
     "Capsule",
     "Cylinder",
     "FitResult",
+    "Mesh",
     "Plane",
     "RayMarcher",
     "RenderConfig",
@@ -54,6 +59,7 @@ __all__ = [
     "Sphere",
     "Torus",
     "V3",
+    "Voxels",
     "box",
     "capsule",
     "cylinder",
@@ -63,12 +69,14 @@ __all__ = [
     "load_leaves",
     "look_at",
     "ops",
+    "parallel",
     "perspective_fov",
     "plane",
     "plane_xy",
     "plane_xz",
     "render",
     "render_depth",
+    "sample",
     "sdf",
     "set_default_device",
     "solid",
@@ -76,4 +84,5 @@ __all__ = [
     "torus",
     "union",
     "use_device",
+    "voxelize",
 ]

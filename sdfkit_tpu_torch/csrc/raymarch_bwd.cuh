@@ -3,9 +3,10 @@
 // parameters and of the 19 view scalars.
 //
 // Replaces the body of sdfkit_tpu/render/pallas/raymarch_kernel.py
-// _pallas_render_image_bwd (store=None), one pixel per call where the TPU
-// kernel took a 128x128 tile. It computes what that kernel computes:
-//   1. replay the march, keeping the pre-step depth of every step;
+// _pallas_render_image_bwd, one pixel per call where the TPU kernel took a
+// 128x128 tile. It computes what that kernel computes:
+//   1. replay the march, keeping the pre-step depth of every step (store=None),
+//      or read those depths from the forward's depth history (store given);
 //   2. the pullback of the final step and the shading (_final_shade);
 //   3. a reverse sweep over the kept depths, one single-evaluation pullback
 //      per step;
@@ -27,7 +28,7 @@
 
 #include "raymarch_fwd.cuh"
 
-// The march depth history is a per-thread array, so the iteration count,
+// The replay's depth history is a per-thread array, so the iteration count,
 // a run-time field of RenderArgs, is bounded when the kernel is compiled.
 #ifndef SDF_MAX_ITERS
 #define SDF_MAX_ITERS 64
@@ -78,7 +79,7 @@ __host__ __device__ __forceinline__ void safe_normalize_vjp(float vx, float vy, 
 }
 
 // The final colour step and the shading pulled back (the port's forward copy
-// is shade_pixel in raymarch_fwd.cuh). `g` is the pixel's RGB cotangent and
+// is shade_ray in raymarch_fwd.cuh). `g` is the pixel's RGB cotangent and
 // `depth` the depth after the n-1 march steps. Returns false for a sky
 // pixel, whose colour is a constant: it contributes exactly zero and the
 // caller skips its sweep. Otherwise *g_depth is the cotangent of `depth`.
@@ -222,32 +223,65 @@ __host__ __device__ __forceinline__ void ray_vjp(int idx, const float* view19,
   gV[15] += g_hw;
 }
 
-// The whole pullback of pixel `idx`. `g` is its cotangent (3 floats, or 1 in
-// depth mode); its share is added to gP[0..SDF_N_PARAMS) and gV[0..19).
-// a.iters must be in [1, SDF_MAX_ITERS]: the launcher checks it.
-template <bool WANT_COLOR>
-__host__ __device__ __forceinline__ void pullback_pixel(int idx, const float* P,
-                                                        const float* view19,
-                                                        const RenderArgs& a, const float* g,
-                                                        float* gP, float* gV) {
-  const Ray r = ray_from_index(idx, view19, a);
-  // Replay the march, keeping each step's pre-step depth.
-  float history[SDF_MAX_ITERS];
-  float depth = a.depth0;
-  for (int i = 0; i < a.iters - 1; ++i) {
-    history[i] = depth;
-    depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+// The pullback of one ray, marched and shaded (shade_ray in raymarch_fwd.cuh).
+// `g` is its cotangent (3 floats, or 1 in depth mode). The parameters' share
+// is added to gP[0..SDF_N_PARAMS); `gr` is set to the cotangent of the ray's
+// origin and direction. Returns false, with `gr` all zero, for a sky ray: it
+// contributes exactly nothing and the caller skips what follows.
+//
+// Without a store the march is replayed first, keeping the pre-step depth of
+// every step in a per-thread array, so a.iters must be in [1, SDF_MAX_ITERS]
+// (the launcher checks it). HAS_STORE reads those depths from the forward's
+// depth history instead (row i at store[i * stride]; row n-1 is the depth
+// before the final step): no replay, no array, any iteration count.
+template <bool WANT_COLOR, bool HAS_STORE = false>
+__host__ __device__ __forceinline__ bool pullback_ray(const Ray& r, const float* P,
+                                                      const RenderArgs& a, const float* g,
+                                                      float* gP, RayGrad& gr,
+                                                      const float* store = nullptr,
+                                                      long long stride = 0) {
+  gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float history[HAS_STORE ? 1 : SDF_MAX_ITERS];
+  float depth;
+  if (HAS_STORE) {
+    depth = store[(a.iters - 1) * stride];
+  } else {
+    // Replay the march, keeping each step's pre-step depth.
+    depth = a.depth0;
+    for (int i = 0; i < a.iters - 1; ++i) {
+      history[i] = depth;
+      depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+    }
   }
-  RayGrad gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   float g_depth;
   if (WANT_COLOR) {
-    if (!final_shade_vjp(r, depth, g, P, a, gr, gP, &g_depth)) return;
+    if (!final_shade_vjp(r, depth, g, P, a, gr, gP, &g_depth)) return false;
   } else {
     // Depth mode: the last step is one more march step.
     g_depth = step_vjp(r, depth, g[0], P, gr, gP);
   }
   for (int i = a.iters - 2; i >= 0; --i) {
-    g_depth = step_vjp(r, history[i], g_depth, P, gr, gP);
+    g_depth = step_vjp(r, HAS_STORE ? store[i * stride] : history[i], g_depth, P, gr, gP);
+  }
+  return true;
+}
+
+// The whole pullback of pixel `idx`: its ray from the index, pullback_ray,
+// then ray_vjp. `g` is its cotangent (3 floats, or 1 in depth mode); its
+// share is added to gP[0..SDF_N_PARAMS) and gV[0..19). `store` is the
+// launch's depth history (HAS_STORE), laid out as shade_pixel writes it.
+template <bool WANT_COLOR, bool HAS_STORE = false>
+__host__ __device__ __forceinline__ void pullback_pixel(int idx, const float* P,
+                                                        const float* view19,
+                                                        const RenderArgs& a, const float* g,
+                                                        float* gP, float* gV,
+                                                        const float* store = nullptr) {
+  const Ray r = ray_from_index(idx, view19, a);
+  RayGrad gr;
+  if (!pullback_ray<WANT_COLOR, HAS_STORE>(r, P, a, g, gP, gr,
+                                           HAS_STORE ? store + (idx - a.pix0) : nullptr,
+                                           a.local_npix)) {
+    return;
   }
   ray_vjp(idx, view19, a, r, gr, gV);
 }

@@ -1,9 +1,11 @@
 // Per-pixel forward sphere trace: ray generation, the fixed-step march, the
 // final colour step, central-difference normal, Lambert shading and sky.
 //
-// Replaces the body of sdfkit_tpu/render/pallas/raymarch_kernel.py
-// _pallas_render_image_flat (with _rays_from_scalars, _march_and_shade and
-// _final_shade), one pixel per call instead of one 256x128 tile per grid step.
+// Replaces the bodies of sdfkit_tpu/render/pallas/raymarch_kernel.py
+// _pallas_render_image_flat (with _rays_from_scalars, _march_and_shade, its
+// want_store depth history, and _final_shade) and _pallas_render_flat (the
+// same for rays given as arrays), one ray per call instead of one 256x128
+// tile per grid step.
 //
 // This header holds host-and-device code only and includes no CUDA header, so
 // the same per-pixel function also compiles with a host C++ compiler (the CPU
@@ -22,7 +24,7 @@ struct RenderArgs {
   int width;
   int height;
   int pix0;        // global flat index of the first pixel this launch renders
-  int local_npix;  // pixels this launch renders (the output holds these)
+  int local_npix;  // pixels (or rays) this launch renders (the output holds these)
   int iters;       // march iterations (the reference's 40)
   float depth0;    // near - 0.1
   float near_;
@@ -82,25 +84,37 @@ __host__ __device__ __forceinline__ void safe_normalize(float& x, float& y, floa
 
 // The march from depth0: n-1 distance-only steps. Misses keep accumulating
 // depth (to ~1e12 at 40 steps): no early exit, no hit threshold.
+//
+// WANT_STORE also writes the depth history the backward can take in place of
+// its replay (the TPU kernel's want_store output, _march_and_shade): row i of
+// `store` (stride floats apart) holds the depth before step i for i in
+// 0..n-2, and row n-1 the depth before the final step.
+template <bool WANT_STORE = false>
 __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float* P,
-                                                      const RenderArgs& a) {
+                                                      const RenderArgs& a,
+                                                      float* store = nullptr,
+                                                      long long stride = 0) {
   float depth = a.depth0;
   for (int i = 0; i < a.iters - 1; ++i) {
+    if (WANT_STORE) store[i * stride] = depth;
     depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
   }
+  if (WANT_STORE) store[(a.iters - 1) * stride] = depth;
   return depth;
 }
 
-template <bool WANT_COLOR>
-__host__ __device__ __forceinline__ void shade_pixel(int idx, const float* P,
-                                                     const float* view19,
-                                                     const RenderArgs& a, float* out) {
-  const Ray r = ray_from_index(idx, view19, a);
-  float depth = march_depth(r, P, a);
-  const int local = idx - a.pix0;
+// One ray, marched and shaded: `o` takes its 3 floats of RGB or its depth.
+// The image kernel makes the ray from the pixel index first; the ray-batch
+// kernel (raymarch_rays_fwd.cu, for _pallas_render_flat) reads it.
+template <bool WANT_COLOR, bool WANT_STORE = false>
+__host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
+                                                   const RenderArgs& a, float* o,
+                                                   float* store = nullptr,
+                                                   long long stride = 0) {
+  float depth = march_depth<WANT_STORE>(r, P, a, store, stride);
   if (!WANT_COLOR) {
     depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
-    out[local] = depth;
+    o[0] = depth;
     return;
   }
   // The last step: its colour is the diffuse colour.
@@ -124,7 +138,6 @@ __host__ __device__ __forceinline__ void shade_pixel(int idx, const float* P,
   float lz = 10.0f - sz;
   safe_normalize(lx, ly, lz);
   const float lambert = fmaxf(nx * lx + ny * ly + nz * lz, 0.0f);
-  float* o = out + 3 * (long long)local;
   if (bg) {
     o[0] = 0.5f;
     o[1] = 0.75f;
@@ -134,4 +147,19 @@ __host__ __device__ __forceinline__ void shade_pixel(int idx, const float* P,
     o[1] = cg * lambert + 0.1f;
     o[2] = cb * lambert + 0.1f;
   }
+}
+
+// Pixel `idx` of the image: its ray from the index, then shade_ray. `out`
+// and `store` are the launch's buffers; the pixel's place in them is
+// idx - a.pix0, and the store's rows lie a.local_npix floats apart, so a
+// warp's 32 writes of one step sit side by side.
+template <bool WANT_COLOR, bool WANT_STORE = false>
+__host__ __device__ __forceinline__ void shade_pixel(int idx, const float* P,
+                                                     const float* view19,
+                                                     const RenderArgs& a, float* out,
+                                                     float* store = nullptr) {
+  const Ray r = ray_from_index(idx, view19, a);
+  const long long local = idx - a.pix0;
+  shade_ray<WANT_COLOR, WANT_STORE>(r, P, a, out + (WANT_COLOR ? 3 : 1) * local,
+                                    WANT_STORE ? store + local : nullptr, a.local_npix);
 }

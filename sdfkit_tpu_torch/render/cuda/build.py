@@ -6,12 +6,18 @@ kernel sources under ``csrc/`` go into one generated translation unit, which
 ``nvcc`` compiles for ``sm_90a`` into a shared library with a plain C
 interface under ``sdfkit_tpu_torch/_build/``.
 
-* Two libraries per scene structure. The forward one (``sdf_dist``,
-  ``sdf_eval`` and ``csrc/raymarch_fwd.cu``) is named by the program hash and
-  built at the first render. The backward one (those, the emitted adjoints
-  and ``csrc/raymarch_bwd.cu``) is named by the adjoint hash and built at the
-  first backward: a scene that is only rendered never pays for it. A
+* One library per kernel family and scene structure, each built at its first
+  use (``FAMILIES``): the image forward (``load``), the image backward
+  (``load_bwd``), their depth-history variants (``store=True``: the same
+  sources with ``SDF_STORE`` defined), the ray-batch forward (``load_rays``)
+  and the ray-batch backward (``load_rays_bwd``). Forward libraries hold
+  ``sdf_dist`` and ``sdf_eval`` and are named by the program hash; backward
+  libraries hold the emitted adjoints too and are named by the adjoint hash.
+  A scene that is only rendered builds the image forward and nothing else. A
   parameter edit keeps both hashes, so it costs no build.
+* A library holds one kernel template in its RGB and its depth instance
+  (and, for a backward, the partial-sum kernel), so the ``ptxas -v`` report is
+  keyed ``rgb`` / ``depth`` / ``reduce`` whatever the family.
 * ``BUILDS`` counts nvcc runs in this process. Importing the package never
   runs nvcc.
 * No ``--use_fast_math``: the kernels rely on IEEE ``/`` and ``sqrtf``.
@@ -40,8 +46,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# The backward keeps the march's depth history in a per-thread array of this
-# many floats, so it takes at most this many march iterations.
+# A backward that replays the march keeps its depth history in a per-thread
+# array of this many floats, so it takes at most this many march iterations.
 MAX_BWD_ITERS = 64
 
 BUILDS = 0  # nvcc runs in this process
@@ -55,9 +61,10 @@ class KernelLib:
     registers: dict  # {"rgb": n, "depth": n[, "reduce": n]} from ptxas, when built here
     local_memory: dict  # per kernel: stack frame and spill bytes ptxas printed
     rows: ctypes._CFuncPtr | None = None  # backward: partial rows of a launch
+    store: bool = False  # the depth-history variant of its family
 
 
-_LIBS: dict[str, KernelLib] = {}
+_LIBS: dict[tuple[str, str], KernelLib] = {}
 
 
 def nvcc_path() -> str:
@@ -73,16 +80,60 @@ def nvcc_path() -> str:
 _HEAD = "#include <cuda_runtime.h>\n#include <math.h>\n\n"
 
 
-def translation_unit(program: Program) -> str:
-    """The generated forward .cu: the scene's functions, then the kernel source."""
-    return _HEAD + program.source + '\n#include "raymarch_fwd.cu"\n'
+_P = ctypes.c_void_p
+_IMAGE_ARGS = [
+    _P, _P,  # params, view19
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,  # depth0, near, far
+    ctypes.c_int,  # want_color
+]
+_RAYS_ARGS = [
+    _P, _P, _P, _P, _P, _P, _P,  # params, ox, oy, oz, dx, dy, dz
+    ctypes.c_int, ctypes.c_int,  # n, iters
+    ctypes.c_float, ctypes.c_float, ctypes.c_float,  # depth0, near, far
+    ctypes.c_int,  # want_color
+]
 
 
-def translation_unit_bwd(program: Program) -> str:
-    """The generated backward .cu: the scene's functions and their adjoints,
-    then the kernel source."""
-    return (_HEAD + program.source + "\n" + program.adjoint_source
-            + f'\n#define SDF_MAX_ITERS {MAX_BWD_ITERS}\n#include "raymarch_bwd.cu"\n')
+@dataclasses.dataclass(frozen=True)
+class Family:
+    """One kernel library. ``csrc/<prefix>.cu`` defines ``<prefix>_launch``
+    and, for a backward, ``<prefix>_rows`` and ``<prefix>_n_out``."""
+
+    prefix: str
+    argtypes: tuple  # of ``<prefix>_launch``
+    adjoint: bool = False  # a backward: holds the emitted adjoints, named by the adjoint hash
+    store: bool = False  # built with SDF_STORE defined
+    view_outputs: int = 0  # a backward's outputs beyond the parameter slots
+
+
+_FWD_HEADERS = ("raymarch_fwd.cuh",)
+_BWD_HEADERS = ("raymarch_fwd.cuh", "raymarch_bwd.cuh", "raymarch_reduce.cuh")
+_FWD_ARGS = (*_IMAGE_ARGS, _P, _P, _P)  # out, store, stream
+# grad, store, partials, rows, out, stream
+_BWD_ARGS = (*_IMAGE_ARGS, _P, _P, _P, ctypes.c_int, _P, _P)
+FAMILIES = {
+    "fwd": Family("raymarch_fwd", _FWD_ARGS),
+    "fwd_store": Family("raymarch_fwd", _FWD_ARGS, store=True),
+    "bwd": Family("raymarch_bwd", _BWD_ARGS, adjoint=True, view_outputs=19),
+    "bwd_store": Family("raymarch_bwd", _BWD_ARGS, adjoint=True, store=True, view_outputs=19),
+    "rays_fwd": Family("raymarch_rays_fwd", (*_RAYS_ARGS, _P, _P)),  # out, stream
+    # grad, g_rays, partials, rows, out, stream
+    "rays_bwd": Family("raymarch_rays_bwd", (*_RAYS_ARGS, _P, _P, _P, ctypes.c_int, _P, _P),
+                       adjoint=True),
+}
+
+
+def translation_unit(program: Program, family: str = "fwd") -> str:
+    """The generated .cu of one family: the scene's functions (and their
+    adjoints, for a backward), then the kernel source."""
+    fam = FAMILIES[family]
+    unit = _HEAD + program.source + "\n"
+    if fam.adjoint:
+        unit += program.adjoint_source + f"\n#define SDF_MAX_ITERS {MAX_BWD_ITERS}\n"
+    if fam.store:
+        unit += "#define SDF_STORE 1\n"
+    return unit + f'#include "{fam.prefix}.cu"\n'
 
 
 def _ptxas(log: str) -> tuple[dict, dict]:
@@ -94,7 +145,10 @@ def _ptxas(log: str) -> tuple[dict, dict]:
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             name = m.group(1)
-            current = "reduce" if "reduce" in name else "rgb" if "ILb1E" in name else "depth"
+            # The first template argument of a render kernel is WANT_COLOR.
+            first = re.search(r"ILb([01])E", name)
+            current = ("reduce" if "reduce" in name
+                       else "rgb" if first and first.group(1) == "1" else "depth")
             continue
         if current is None:
             continue
@@ -116,14 +170,6 @@ def _source_digest(unit: str, sources: tuple[str, ...]) -> str:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:8]
-
-
-_FWD_ARGS = [
-    ctypes.c_void_p, ctypes.c_void_p,  # params, view19
-    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_float,  # depth0, near, far
-    ctypes.c_int,  # want_color
-]
 
 
 def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
@@ -149,55 +195,60 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     return so, seconds, log
 
 
-def load(program: Program) -> KernelLib:
-    """The forward kernel library for ``program``, built on first use."""
-    lib = _LIBS.get(program.hash)
+def load_family(program: Program, family: str) -> KernelLib:
+    """The library of ``family`` for ``program``, built on first use."""
+    fam = FAMILIES[family]
+    name = program.adjoint_hash if fam.adjoint else program.hash
+    lib = _LIBS.get((family, name))
     if lib is not None:
         return lib
-    unit = translation_unit(program)
-    digest = _source_digest(unit, ("raymarch_fwd.cuh", "raymarch_fwd.cu"))
-    so, seconds, log = _compile(f"raymarch_{program.hash}_{digest}", unit)
-    fn = ctypes.CDLL(str(so)).raymarch_fwd_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [*_FWD_ARGS, ctypes.c_void_p, ctypes.c_void_p]  # out, stream
-    registers, local = _ptxas(log)
-    lib = _LIBS[program.hash] = KernelLib(
-        launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
-    )
-    return lib
-
-
-def load_bwd(program: Program) -> KernelLib:
-    """The backward kernel library for ``program``, built at the first
-    backward through that structure."""
-    key = "bwd_" + program.adjoint_hash
-    lib = _LIBS.get(key)
-    if lib is not None:
-        return lib
-    unit = translation_unit_bwd(program)
-    digest = _source_digest(unit, ("raymarch_fwd.cuh", "raymarch_bwd.cuh", "raymarch_bwd.cu"))
-    so, seconds, log = _compile(f"raymarch_bwd_{program.adjoint_hash}_{digest}", unit)
+    unit = translation_unit(program, family)
+    headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
+    digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
+    so, seconds, log = _compile(f"raymarch_{family}_{name}_{digest}", unit)
     cdll = ctypes.CDLL(str(so))
-    fn = cdll.raymarch_bwd_launch
+    fn = getattr(cdll, fam.prefix + "_launch")
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        *_FWD_ARGS,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,  # grad, partials, rows
-        ctypes.c_void_p, ctypes.c_void_p,  # out, stream
-    ]
-    rows = cdll.raymarch_bwd_rows
-    rows.restype = ctypes.c_int
-    rows.argtypes = [ctypes.c_int]
-    cdll.raymarch_bwd_n_out.restype = ctypes.c_int
-    cdll.raymarch_bwd_n_out.argtypes = []
-    if cdll.raymarch_bwd_n_out() != program.n_params + 19:
-        raise RuntimeError(
-            f"{so} was built for {cdll.raymarch_bwd_n_out() - 19} parameter slots, "
-            f"the program has {program.n_params}"
-        )
+    fn.argtypes = list(fam.argtypes)
+    rows = None
+    if fam.adjoint:
+        rows = getattr(cdll, fam.prefix + "_rows")
+        rows.restype = ctypes.c_int
+        rows.argtypes = [ctypes.c_int]
+        n_out = getattr(cdll, fam.prefix + "_n_out")
+        n_out.restype = ctypes.c_int
+        n_out.argtypes = []
+        if n_out() != program.n_params + fam.view_outputs:
+            raise RuntimeError(
+                f"{so} was built for {n_out() - fam.view_outputs} parameter slots, "
+                f"the program has {program.n_params}"
+            )
     registers, local = _ptxas(log)
-    lib = _LIBS[key] = KernelLib(
+    lib = _LIBS[(family, name)] = KernelLib(
         launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
-        rows=rows,
+        rows=rows, store=fam.store,
     )
     return lib
+
+
+def load(program: Program, store: bool = False) -> KernelLib:
+    """The image forward library for ``program``; ``store=True`` is the build
+    that also writes the depth history."""
+    return load_family(program, "fwd_store" if store else "fwd")
+
+
+def load_bwd(program: Program, store: bool = False) -> KernelLib:
+    """The image backward library for ``program``, built at the first
+    backward through that structure; ``store=True`` is the build that reads
+    the forward's depth history instead of replaying the march."""
+    return load_family(program, "bwd_store" if store else "bwd")
+
+
+def load_rays(program: Program) -> KernelLib:
+    """The ray-batch forward library for ``program``."""
+    return load_family(program, "rays_fwd")
+
+
+def load_rays_bwd(program: Program) -> KernelLib:
+    """The ray-batch backward library for ``program``."""
+    return load_family(program, "rays_bwd")

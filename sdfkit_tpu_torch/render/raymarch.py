@@ -63,6 +63,19 @@ def _march(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig, want_color: bool):
     return depth + dist, color
 
 
+def march_history(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig) -> torch.Tensor:
+    """The (depth_iterations, ...) depth history of the march: row ``i`` is
+    the depth before step ``i`` (row 0 is ``near - 0.1``), so the last row is
+    the depth before the final step. The plain version of what the forward
+    kernel's depth-history variant writes for the backward."""
+    depth = torch.full_like(ro.x, cfg.near - 0.1)
+    rows = [depth]
+    for _ in range(cfg.depth_iterations - 1):
+        depth = depth + sdf.distance(ro + rd * depth)
+        rows.append(depth)
+    return torch.stack(rows)
+
+
 def _distance_gradient(sdf: SdfExpr, p: V3) -> V3:
     """6-tap central-difference gradient with the reference's eps (not
     autograd: pixel parity needs the same estimator)."""
@@ -117,6 +130,21 @@ def render_depth_image_torch(sdf: SdfExpr, view: torch.Tensor, cfg: RenderConfig
 BACKENDS = ("auto", "kernel", "torch")
 
 
+def resolve_backend(backend: str, sdf: SdfExpr) -> str:
+    """'kernel' or 'torch' for a scene: 'auto' takes the CUDA kernels when the
+    scene's parameters are on CUDA and the plain path on the CPU, and 'kernel'
+    on a CPU scene raises. One rule for ``RayMarcher``, ``fit`` and the tile
+    renderer (the JAX package's ``resolve_shard_backend``)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    device = scene_device(sdf)
+    if backend == "auto":
+        return "kernel" if device.type == "cuda" else "torch"
+    if backend == "kernel" and device.type != "cuda":
+        raise ValueError(f"backend='kernel' needs the scene on a CUDA device, not {device}")
+    return backend
+
+
 class RayMarcher:
     """Object-style API mirroring the reference RayMarcher.
 
@@ -137,16 +165,8 @@ class RayMarcher:
                  vfov_degrees: float = DEFAULT_VFOV_DEGREES, near: float = DEFAULT_NEAR,
                  far: float = DEFAULT_FAR, depth_iterations: int = DEFAULT_DEPTH_ITERATIONS,
                  backend: str = "auto"):
-        if backend not in BACKENDS:
-            raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+        self.backend = resolve_backend(backend, sdf)
         self.device = scene_device(sdf)
-        if backend == "auto":
-            backend = "kernel" if self.device.type == "cuda" else "torch"
-        if backend == "kernel" and self.device.type != "cuda":
-            raise ValueError(
-                f"backend='kernel' needs the scene on a CUDA device, not {self.device}"
-            )
-        self.backend = backend
         self.sdf = sdf
         self.view = default_view(self.device) if view is None else self._check_view(view)
         self.config = RenderConfig(

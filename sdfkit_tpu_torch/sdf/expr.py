@@ -217,6 +217,35 @@ class SdfExpr(nn.Module):
             self, sizes, table, axes=axes, index_fn=index_fn, combine=combine
         )
 
+    # -- conversions ------------------------------------------------------
+    def sample(self, points, batch_size: int | None = None) -> torch.Tensor:
+        """Evaluate at (N, 3) points in fixed-size batches."""
+        from sdfkit_tpu_torch.sdf.sample import DEFAULT_BATCH_SIZE, sample
+
+        return sample(self, points, DEFAULT_BATCH_SIZE if batch_size is None else batch_size)
+
+    def to_sdf(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The batched callable ``(..., 3) points -> (..., 4)`` (the JAX
+        package returns ``jax.jit`` of it; torch runs eagerly)."""
+        return self.__call__
+
+    def to_voxels(self, vmin, vmax, nx, ny, nz, clip_to_bounds=True):
+        from sdfkit_tpu_torch.grid import voxelize
+
+        return voxelize(self, vmin, vmax, nx, ny, nz, clip_to_bounds=clip_to_bounds)
+
+    def to_mesh(self, vmin, vmax, nx, ny, nz, clip_to_bounds=True, iso_value=0.0, step=1,
+                progress=None):
+        raise NotImplementedError(
+            "SdfExpr.to_mesh needs marching cubes (sdfkit_tpu/mesh/marching_cubes.py), "
+            "which is not ported yet"
+        )
+
+    def to_image(self, width, height, camera=None, **kwargs) -> torch.Tensor:
+        from sdfkit_tpu_torch.render.raymarch import RayMarcher
+
+        return RayMarcher(width, height, self, **kwargs).render(camera=camera)
+
 
 # ---------------------------------------------------------------------------
 # Primitives.

@@ -34,7 +34,6 @@ such steps per pixel. Two things widen them here, each by what was measured:
   shares (``pytest -s``).
 """
 
-import ctypes
 import functools
 import shutil
 import types
@@ -55,90 +54,25 @@ from sdfkit_tpu_torch.render.raymarch import (
     render_image_torch,
 )
 from sdfkit_tpu_torch.sdf.compile import compile_scene
-from test_torch_kernel_host import LOOP, SHIM, _gxx
+from torch_host import host_libraries, patch_kernels
 
 torch.set_num_threads(1)
 # The port's default device is the card; these tests ask for the CPU.
 st.set_default_device("cpu")
 
-LOOP_BWD = """
-#include "raymarch_bwd.cuh"
-
-extern "C" void raymarch_bwd_host(const float* P, const float* view19, int width,
-                                  int height, int pix0, int local_npix, int iters,
-                                  float depth0, float near_, float far_, int want_color,
-                                  const float* grad, double* out) {
-  RenderArgs a{width, height, pix0, local_npix, iters, depth0, near_, far_};
-  const int n_out = SDF_N_PARAMS + 19;
-  for (int j = 0; j < n_out; ++j) out[j] = 0.0;
-  for (int i = 0; i < local_npix; ++i) {
-    float acc[SDF_N_PARAMS + 19] = {0.0f};
-    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS);
-    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, acc + SDF_N_PARAMS);
-    for (int j = 0; j < n_out; ++j) out[j] += (double)acc[j];
-  }
-}
-"""
-
-_COMMON = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_float] * 3 + [ctypes.c_int]
-
-
 @pytest.fixture(scope="module")
 def host_libs(tmp_path_factory):
-    """program -> (forward, backward) host functions of that scene."""
+    """program -> the host-built functions of that scene."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler (g++) to build the kernel bodies")
-    build_dir = tmp_path_factory.mktemp("kernel_bwd_host")
-    libs = {}
-
-    def get(program):
-        if program.adjoint_hash not in libs:
-            src = build_dir / f"scene_{program.adjoint_hash}.cc"
-            src.write_text(SHIM + program.source + program.adjoint_source + LOOP + LOOP_BWD)
-            lib = _gxx(src, src.with_suffix(".so"))
-            lib.raymarch_fwd_host.restype = lib.raymarch_bwd_host.restype = None
-            lib.raymarch_fwd_host.argtypes = _COMMON + [ctypes.c_void_p]
-            lib.raymarch_bwd_host.argtypes = _COMMON + [ctypes.c_void_p, ctypes.c_void_p]
-            libs[program.adjoint_hash] = lib
-        return libs[program.adjoint_hash]
-
-    return get
+    return host_libraries(tmp_path_factory.mktemp("kernel_bwd_host"))
 
 
 @pytest.fixture
 def host_kernels(host_libs, monkeypatch):
-    """Put the host-built per-pixel code in place of the two CUDA launches,
-    so ``rk.render_image_kernel`` and its backward run on CPU tensors."""
-    calls = {"fwd": 0, "bwd": 0}
-
-    def args(cfg, pix0, n, want_color):
-        return (cfg.width, cfg.height, pix0, n, cfg.depth_iterations, cfg.near - 0.1,
-                cfg.near, cfg.far, int(want_color))
-
-    def launch(lib, params, v19, cfg, want_color, pix0=0, local_npix=None):
-        n = cfg.width * cfg.height if local_npix is None else local_npix
-        out = torch.empty((n, 3) if want_color else (n,))
-        lib.raymarch_fwd_host(params.data_ptr(), v19.data_ptr(), *args(cfg, pix0, n, want_color),
-                              out.data_ptr())
-        calls["fwd"] += 1
-        return out
-
-    def launch_bwd(lib, params, v19, cfg, want_color, grad, pix0=0, local_npix=None):
-        n = cfg.width * cfg.height if local_npix is None else local_npix
-        assert grad.is_contiguous() and grad.shape == ((n, 3) if want_color else (n,))
-        out = np.empty(params.numel() + 19, np.float64)
-        lib.raymarch_bwd_host(params.data_ptr(), v19.data_ptr(), *args(cfg, pix0, n, want_color),
-                              grad.data_ptr(), out.ctypes.data)
-        calls["bwd"] += 1
-        return torch.from_numpy(out.astype(np.float32))
-
-    monkeypatch.setattr(rk, "launch", launch)
-    monkeypatch.setattr(rk, "launch_bwd", launch_bwd)
-    monkeypatch.setattr(rk, "_check", lambda *a, **k: None)
-    monkeypatch.setattr(rk, "_check_cotangent", lambda grad: None)
-    monkeypatch.setattr(build, "load", host_libs)
-    monkeypatch.setattr(build, "load_bwd", host_libs)
-    return calls
+    """Put the host-built per-pixel code in place of the CUDA launches, so
+    ``rk.render_image_kernel`` and its backward run on CPU tensors."""
+    return patch_kernels(monkeypatch, host_libs)
 
 
 # -- the losses of tests/test_pallas_kernel.py, in both packages --------------
@@ -233,7 +167,7 @@ def test_union_scene_all_leaves_and_view(host_kernels, want_color, reference):
     plain path and jax.grad of the jnp and the Pallas (interpret) backends."""
     _, texpr = tp.build("union")
     got = port_grads(texpr, st.look_at(*VIEW), RenderConfig(24, 16), want_color, "kernel")
-    assert host_kernels == {"fwd": 1, "bwd": 1}
+    assert (host_kernels["fwd"], host_kernels["bwd"]) == (1, 1)
     assert_grads_close(got, _union_reference(want_color, reference),
                        exact_program=reference == "torch" and not want_color)
 

@@ -32,12 +32,26 @@ NO_JAX = textwrap.dedent("""
     from sdfkit_tpu_torch import scenes
     from sdfkit_tpu_torch.render.cuda import build, raymarch_kernel
     from sdfkit_tpu_torch.io import png
+    import importlib, pkgutil, tempfile
+    names = [m.name for m in pkgutil.walk_packages(st.__path__, "sdfkit_tpu_torch.")]
+    for required in ("parallel.elastic", "grid", "mesh.voxels", "mesh.mesh", "sdf.sample",
+                     "io.tga", "render.cuda.raymarch_kernel"):
+        assert "sdfkit_tpu_torch." + required in names, (required, names)
+    for name in names:
+        importlib.import_module(name)
     with torch.no_grad():
         img = st.render(scenes.sphere_repeat_scene(), 16, 8, camera_position=(-2, 2, 4))
         depth = st.render_depth(st.sphere(1.0), 16, 8)
+        points = st.sample(st.sphere(1.0), [[0.0, 0.0, 0.0], [2.0, 0.0, 0.0]])
+        volume = st.voxelize(st.sphere(1.0), (-1, -1, -1), (1, 1, 1), 3, 3, 3)
+        with tempfile.TemporaryDirectory() as d:
+            tiles, stats = st.parallel.render_tiles_resumable(st.sphere(1.0), 16, 8, d, tile_rows=4)
     assert img.shape == (8, 16, 3) and bool(torch.isfinite(img).all())
     assert depth.shape == (8, 16)
-    assert build.BUILDS == 0 and raymarch_kernel.LAUNCHES == 0
+    assert points[:, 3].tolist() == [-1.0, 1.0] and volume.values.shape == (3, 3, 3)
+    assert tiles.shape == (8, 16, 3) and stats["rendered"] == 2
+    assert build.BUILDS == 0
+    assert [getattr(raymarch_kernel, n) for n in dir(raymarch_kernel) if n.endswith("LAUNCHES")] == [0] * 6
     assert not any(m == "sdfkit_tpu" or m.startswith("sdfkit_tpu.") for m in sys.modules)
     print("ok")
 """)
@@ -120,6 +134,30 @@ NO_REQUEST = textwrap.dedent("""
             raise AssertionError("a scene was built on the CPU without being asked")
     img = st.render(st.sphere(1.0, device="cpu"), 8, 4)
     assert img.device.type == "cpu" and img.shape == (4, 8, 3)
+    # sample, voxelize and the tile renderer follow the scene's device; what
+    # has no scene to follow (bare cell centres, a loaded volume) follows the
+    # package's default device, and so raises here.
+    import tempfile
+    import numpy as np
+    from sdfkit_tpu_torch.grid import cell_centers
+    ball = st.sphere(1.0, device="cpu")
+    with torch.no_grad():
+        assert st.sample(ball, np.zeros((3, 3), np.float32)).device.type == "cpu"
+        vol = st.voxelize(ball, (-1, -1, -1), (1, 1, 1), 2, 2, 2)
+        assert {t.device.type for t in (vol.values, vol.colors, vol.vmin, vol.vmax)} == {"cpu"}
+        with tempfile.TemporaryDirectory() as d:
+            tiles, _ = st.parallel.render_tiles_resumable(ball, 8, 4, d)
+            assert tiles.shape == (4, 8, 3)
+            vol.save(d + "/v.npz")
+            for make in (lambda: cell_centers((0, 0, 0), (1, 1, 1), 2, 2, 2),
+                         lambda: st.Voxels.load(d + "/v.npz")):
+                try:
+                    make()
+                except RuntimeError as e:
+                    assert "device='cpu'" in str(e), e
+                else:
+                    raise AssertionError("a tensor was made on the CPU without being asked")
+            assert st.Voxels.load(d + "/v.npz", device="cpu").values.device.type == "cpu"
     print("ok")
 """)
 
@@ -171,6 +209,15 @@ def test_default_device_is_the_card_when_there_is_one():
         scene = st.sphere(1.0)
         assert scene.radius.device.type == "cuda"
         assert st.RayMarcher(8, 4, scene).backend == "kernel"
+
+
+def test_sample_voxelize_and_the_containers_are_exported():
+    from sdfkit_tpu_torch.grid import voxelize
+    from sdfkit_tpu_torch.mesh import Mesh, Voxels
+    from sdfkit_tpu_torch.sdf.sample import sample
+
+    assert (st.sample, st.voxelize, st.Voxels, st.Mesh) == (sample, voxelize, Voxels, Mesh)
+    assert {"sample", "voxelize", "Voxels", "Mesh"} <= set(st.__all__)
 
 
 def test_fit_is_exported():

@@ -202,6 +202,46 @@ def jax_leaf_grads(jgrads):
     return [np.asarray(l, np.float32) for l in jax.tree_util.tree_leaves(jgrads)]
 
 
+def rays(n_or_shape, seed: int):
+    """Seeded rays that are no camera's: origins scattered around (0, 0, 5),
+    each aimed at its own point of the z=0 plane. Returns ``(ro, rd)`` as
+    float32 numpy arrays of shape (*shape, 3), ``rd`` normalised."""
+    shape = (n_or_shape,) if isinstance(n_or_shape, int) else tuple(n_or_shape)
+    rng = np.random.default_rng(seed)
+    ro = (np.array([0.0, 0.0, 5.0]) + 0.3 * rng.standard_normal((*shape, 3))).astype(np.float32)
+    target = np.concatenate([rng.uniform(-1.5, 1.5, (*shape, 2)), np.zeros((*shape, 1))], axis=-1)
+    rd = target - ro
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    return ro, rd
+
+
+def jax_v3(a):
+    """An (..., 3) numpy array as the JAX package's V3."""
+    return JV(*(jnp.asarray(a[..., k]) for k in range(3)))
+
+
+def torch_v3(a, requires_grad: bool = False):
+    """An (..., 3) numpy array as the port's V3 of CPU tensors."""
+    import torch
+
+    return TV(*(torch.from_numpy(np.ascontiguousarray(a[..., k])).requires_grad_(requires_grad)
+                for k in range(3)))
+
+
+def voxels_to_torch(jvox):
+    """A JAX ``Voxels`` as the port's (numpy in between)."""
+    import torch
+
+    return st.Voxels(**{k: torch.from_numpy(np.array(getattr(jvox, k), np.float32))
+                        for k in ("values", "colors", "vmin", "vmax")})
+
+
+def voxels_to_jax(tvox):
+    """The port's ``Voxels`` as the JAX package's (numpy in between)."""
+    return sk.Voxels(**{k: jnp.asarray(getattr(tvox, k).detach().cpu().numpy())
+                        for k in ("values", "colors", "vmin", "vmax")})
+
+
 # -- contracts between two programs -------------------------------------------
 #
 # The port's plain path evaluates op by op in IEEE float32. The JAX jnp path
