@@ -20,11 +20,13 @@ iterations:
 10   the ray-batch forward kernel on the frame's camera rays and on rays that
      are no camera's, against the plain path and the image kernel;
 11   the ray-batch pullback against autograd of the plain path (every leaf,
-     ``ro``, ``rd``), two launches bit-identical, a gradient step through
+     ``ro``, ``rd``) on small frames and, fed one cotangent, at full size;
+     two launches bit-identical, a gradient step through
      ``render_rays_kernel``;
 12   the depth-history handoff: the forward's store against ``march_history``
-     and against depth renders of fewer iterations, the store-fed backward
-     against the replay, and the four times;
+     (small frames and full size) and against depth renders of fewer
+     iterations, the store-fed backward against autograd of the plain path
+     and against the replay, and the four times;
 13   two row bands and nine resumable tiles against the whole frame, bit for
      bit, with three tiles deleted and resumed;
 14   ``sample`` of 1,000,003 points and ``voxelize`` at 256^3 on the card
@@ -69,7 +71,8 @@ RAYS_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:842"
 STORE_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:357"
 STORE_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:486"
 TILE_ROWS = 128
-SAMPLE_POINTS = 1_000_003  # 488 batches of 2048 and a remainder of 579
+SAMPLE_POINTS = 1_000_003
+SAMPLE_BATCH = 1 << 18  # an explicit cap: three full batches and a remainder of 213,571
 GRID = 256
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
@@ -356,11 +359,12 @@ def main() -> int:
     for name in ("cell_colors", "palette"):
         bwd_cases += [(name, small[name](), w, h) for w, h in ((40, 24), (17, 13))]
     bwd_err = 0.0
+    bwd_refs = {}  # the plain path's gradients, held against the store-fed backward in phase 12
     for name, expr, w, h in bwd_cases:
         for depth in (False, True):
             v = view((-2.0, 2.0, 4.0))
-            ok, stats = grads_close(grads(expr, w, h, v, "kernel", depth),
-                                    grads(expr, w, h, v, "torch", depth), depth)
+            bwd_refs[(name, w, h, depth)] = ref = grads(expr, w, h, v, "torch", depth)
+            ok, stats = grads_close(grads(expr, w, h, v, "kernel", depth), ref, depth)
             check(ok, f"{name} {'depth' if depth else 'rgb'} {w}x{h} backward kernel vs "
                       f"autograd of the plain path, every leaf and the view {stats}")
             if name == "union":
@@ -667,6 +671,7 @@ def main() -> int:
         image_depth = marcher.render_depth().cpu().numpy()
     check(rays_launches == 2, f"the 1920x1080 camera rays went through the ray kernel, RGB and "
                               f"depth (RAYS_LAUNCHES={rays_launches})")
+    rays_frame_card = rays_frame.reshape(-1, 3)
     rays_frame, rays_depth = rays_frame.cpu().numpy(), rays_depth.cpu().numpy()
     check(rays_frame.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(rays_frame).all()),
           f"ray-kernel frame {rays_frame.shape} is finite")
@@ -778,37 +783,121 @@ def main() -> int:
     check(rays_step_launches == (1, 1),
           f"a 1920x1080 gradient step through render_rays_kernel launched the ray kernels "
           f"(RAYS_LAUNCHES, RAYS_BWD_LAUNCHES) = {rays_step_launches}")
-    # The same loss by autograd of plain render_rays on the same rays. This sum
-    # over 2M rays is ill conditioned whoever computes it (phase 8): a few
-    # grazing rays carry a visible share of it, and an ulp decides how each
-    # of them ends. The probe says how much: the plain path against itself
-    # with rd.x moved by one ulp. The ray kernels are held to twice the probe
-    # (or phase 8's 5e-2 of the largest entry, if the probe is smaller); what
-    # ties the full-size launch to the small-frame checks above is the next
-    # check, the launch against itself in pieces.
-    def plain_leaf_grad(rd_):
-        for q in st.leaves(hero):
-            q.grad = None
-        torch.mean((render_rays(hero, ro, rd_, cfg) - target) ** 2).backward()
-        torch.cuda.synchronize()
-        return torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad).reshape(-1)
-                          for q in st.leaves(hero)]).cpu().numpy()
+    # The pullback at full size against autograd of plain render_rays on the
+    # same rays, both fed the same cotangent (the loss's at the ray kernel's
+    # own frame), in chunks whose tape fits: the ray cotangents of every ray,
+    # and the chunks' parameter sums. A grazing ray multiplies its cotangent
+    # by (1 + grad d . rd) per step, up to ~1e6 over 39 steps, and the same
+    # factor turns an ulp into a different end of its march: such a ray is
+    # one of the few whose colour differs between the ray kernel's frame and
+    # the plain path's (phase 10 holds their number under 0.5%), and a single
+    # one can carry half of a leaf's sum. So the parameter sums are held over
+    # the rays on which the two forwards agree to 1e-2 (the cotangent of the
+    # others set to zero on both sides), to 1e-2 of the largest entry, the
+    # small frames' bound (measured 6e-4); every ray, the others too, is held
+    # by the count contract of `per_ray_close`. The sums over all rays are
+    # printed.
+    def per_ray_close(got, ref) -> tuple[bool, dict]:
+        """(6, n) ray cotangents of two programs. A ray's error is its largest
+        component error over the ray's own largest cotangent entry (over the
+        median ray's where it is smaller: cotangents span six decades, so an
+        error held to the batch's largest entry would let an all-zero result
+        pass). The eps=1e-5 normal leaves every ray ~1e-3 of tap cancellation
+        noise, and grazing rays compound ulps: the median over the rays that
+        have a cotangent is held to 5e-3 (measured 1.3e-3), and at most 0.5%
+        of the rays may be off by more than 5e-2 (measured 0.17%) and 0.05% by
+        more than 0.5 (measured 0.011%)."""
+        size = ref.abs().amax(0)
+        live = size > 0
+        err = (got - ref).abs().amax(0) / torch.clamp(size, min=size[live].median())
+        n = err.numel()
+        stats = {"rays": n, "with_a_cotangent": int(live.sum()),
+                 "median_rel": float(err[live].median()), "rays_gt_5e-2": int((err > 5e-2).sum()),
+                 "rays_gt_0.5": int((err > 0.5).sum())}
+        ok = (bool(torch.isfinite(got).all()) and stats["median_rel"] <= 5e-3
+              and stats["rays_gt_5e-2"] <= 5e-3 * n and stats["rays_gt_0.5"] <= 5e-4 * n)
+        return ok, stats
 
-    plain_grad = plain_leaf_grad(rd)
+    n_chunks = 4
+    chunk = WIDTH * HEIGHT // n_chunks
+    hero_leaves = st.leaves(hero)
     with torch.no_grad():
-        rd_ulp = st.V3(torch.nextafter(rd.x, torch.full_like(rd.x, 2.0)), rd.y, rd.z)
-    probe_grad = plain_leaf_grad(rd_ulp)
-    del rd_ulp
-    largest = float(np.abs(plain_grad).max())
-    err = float(np.abs(rays_leaf_grad - plain_grad).max()) / largest
-    probe = float(np.abs(probe_grad - plain_grad).max()) / largest
-    check(bool(np.isfinite(rays_leaf_grad).all()) and err <= max(5e-2, 2.0 * probe),
-          f"leaf gradients of the 1920x1080 loss, ray kernels vs autograd of plain render_rays on "
-          f"the same rays: {err:.3g} of the largest entry; plain vs plain with rd.x moved by one "
-          f"ulp: {probe:.3g} (bound: twice that)")
-    print(f"INFO the same leaf gradients, ray kernels vs image kernels (rays that differ in "
-          f"their last bits): {float(np.abs(rays_leaf_grad - first[0]).max()) / largest:.3g} of "
-          f"the largest entry")
+        mse = 2.0 / target.numel()
+        target_flat = target.reshape(-1, 3)
+        cot_rays = (mse * (rays_frame_card - target_flat)).contiguous()
+        plain_sums = torch.zeros(n_chunks, params.numel(), device=params.device)
+        kernel_sums = torch.zeros_like(plain_sums)  # both over the rays whose forwards agree
+        plain_all = torch.zeros_like(params)  # over every ray
+        kernel_all = torch.zeros_like(params)
+        plain_g_rays = torch.empty(6, WIDTH * HEIGHT, device=params.device)
+        kernel_g_rays = torch.empty_like(plain_g_rays)
+    disagreeing = 0
+    for ci in range(n_chunks):
+        part = slice(ci * chunk, (ci + 1) * chunk)
+        comps = [c[part].clone().requires_grad_() for c in rays6]
+        out = render_rays(hero, st.V3(*comps[:3]), st.V3(*comps[3:]), cfg)
+
+        def pull(c):
+            g = torch.autograd.grad(out, hero_leaves + comps, c, retain_graph=True,
+                                    allow_unused=True)
+            flat = torch.cat([(torch.zeros_like(q) if gq is None else gq).reshape(-1)
+                              for q, gq in zip(hero_leaves, g)])
+            return flat, torch.stack(g[len(hero_leaves):])
+
+        with torch.no_grad():
+            agree = (out - rays_frame_card[part]).abs().amax(-1, keepdim=True) <= 1e-2
+            cot_agree = (cot_rays[part] * agree).contiguous()
+            disagreeing += int((~agree).sum())
+        leaf_sum, plain_g_rays[:, part] = pull(cot_rays[part])
+        plain_all += leaf_sum
+        plain_sums[ci] = pull(cot_agree)[0]
+        with torch.no_grad():
+            chunk_rays = [c[part] for c in rays6]
+            leaf_sum, kernel_g_rays[:, part] = rk.launch_rays_bwd(
+                rays_bwd_lib, params, chunk_rays, cfg, True, cot_rays[part])
+            kernel_all += leaf_sum
+            kernel_sums[ci] = rk.launch_rays_bwd(rays_bwd_lib, params, chunk_rays, cfg, True,
+                                                 cot_agree)[0]
+        del out, comps, pull
+    torch.cuda.synchronize()
+    with torch.no_grad():
+        plain_total, kernel_total = plain_sums.sum(0), kernel_sums.sum(0)
+        largest = float(plain_total.abs().max())
+        rays_full_err = float((kernel_total - plain_total).abs().max()) / largest
+        rays_chunk_err = float((kernel_sums - plain_sums).abs().max()) / largest
+        check(bool(torch.isfinite(kernel_sums).all()) and rays_full_err <= 1e-2
+              and rays_chunk_err <= 1e-2,
+              f"leaf gradients of the 1920x1080 loss over the {WIDTH * HEIGHT - disagreeing} rays "
+              f"whose colour the two forwards agree on to 1e-2, ray pullback vs autograd of plain "
+              f"render_rays on the same rays and the same cotangent: {rays_full_err:.3g} of the "
+              f"largest entry ({largest:.6g}); the worst of the {n_chunks} chunks' sums "
+              f"{rays_chunk_err:.3g} of it (bound 1e-2; all zeros would give 1)")
+        ok, rays_full_stats = per_ray_close(kernel_g_rays, plain_g_rays)
+        check(ok, f"ray cotangents of all {WIDTH * HEIGHT} rays, ray pullback vs autograd of plain "
+                  f"render_rays {rays_full_stats}")
+        # The check must fail a wrong kernel: all zeros, a wrong sign, and
+        # direction cotangents 5% too large.
+        scaled = kernel_g_rays.clone()
+        scaled[3:] *= 1.05
+        wrong = {"all zeros": torch.zeros_like(kernel_g_rays), "negated": -kernel_g_rays,
+                 "rd cotangents times 1.05": scaled}
+        passed = [name for name, bad in wrong.items() if per_ray_close(bad, plain_g_rays)[0]]
+        check(not passed, f"the ray-cotangent contract refuses {list(wrong)} (passed: {passed})")
+        del scaled, wrong
+        step_err = float((torch.from_numpy(rays_leaf_grad).to(kernel_all) - kernel_all)
+                         .abs().max()) / float(kernel_all.abs().max())
+        check(step_err <= 1e-4,
+              f"the gradient step's leaf gradients equal the {n_chunks} chunks' sum to float "
+              f"addition order: {step_err:.3g} of the largest entry (bound 1e-4)")
+        all_largest = float(plain_all.abs().max())
+        print(f"INFO over all {WIDTH * HEIGHT} rays the same two sums are "
+              f"{float((kernel_all - plain_all).abs().max()) / all_largest:.3g} of the largest "
+              f"entry ({all_largest:.6g}) apart: the {disagreeing} rays whose colours differ by "
+              f"more than 1e-2 carry the rest")
+    print(f"INFO the gradient step's leaf gradients, ray kernels vs image kernels (rays that "
+          f"differ in their last bits): "
+          f"{float(np.abs(rays_leaf_grad - first[0]).max()) / all_largest:.3g} of that entry")
+    del plain_g_rays, kernel_g_rays, plain_sums, kernel_sums, cot_rays
     for q in st.leaves(hero):
         q.grad = None
     torch.cuda.empty_cache()
@@ -856,6 +945,53 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 12. the depth-history handoff ------------------------------------------
+    def history_close(got, ref, far) -> tuple[bool, dict]:
+        """(n, rays) depth histories of two programs, on the rays that hit in
+        both: the depth contract of a large batch (phase 10), median relative
+        error at most 1e-5, and at most 0.5% of the rays more than 1e-4 off in
+        any of their rows or hitting on one side only (grazing rays, where an
+        ulp compounds over the steps). Early rows differ by everything between
+        neighbours, so rows that are shifted or permuted fail on every ray."""
+        hit_got, hit_ref = got[-1] <= far, ref[-1] <= far
+        both = hit_got & hit_ref
+        rel = ((got - ref).abs() / ref.abs().clamp(min=1.0))[:, both]
+        worst = rel.amax(0)
+        stats = {"both_hit": int(both.sum()), "hit_on_one_side_only": int((hit_got != hit_ref).sum()),
+                 "median_rel": float(rel.flatten().median()), "max_rel": float(worst.max()),
+                 "rays_gt_1e-4": int((worst > 1e-4).sum()), "rays_gt_1e-3": int((worst > 1e-3).sum())}
+        ok = (bool(torch.isfinite(got[:, both]).all()) and stats["median_rel"] <= 1e-5
+              and stats["rays_gt_1e-4"] + stats["hit_on_one_side_only"] <= 5e-3 * got.shape[1])
+        return ok, stats
+
+    def store_grads(expr, w, h, v, depth):
+        """(flat leaf gradients, view gradient) of phase 6's losses through
+        the forward with store and the store-fed backward, launched by hand as
+        ``_RenderImage`` launches the replay pair."""
+        c = st.RenderConfig(w, h)
+        sp = compile_scene(expr)
+        v = v.clone().requires_grad_()
+        v_s = rk.view19(v, c)
+        with torch.no_grad():
+            p_s = flat_params(expr).contiguous()
+            out, history = rk.launch(build.load(sp, store=True), p_s, v_s.detach(), c, not depth,
+                                     want_store=True)
+            g = torch.where(out < 50.0, 2.0 * out, torch.zeros_like(out)) if depth else 2.0 * out
+            fed = rk.launch_bwd(build.load_bwd(sp, store=True), p_s, v_s.detach(), c, not depth,
+                                g.contiguous(), store=history)
+        v_s.backward(fed[p_s.numel():])
+        torch.cuda.synchronize()
+        return fed[:p_s.numel()].cpu().numpy(), v.grad.cpu().numpy()
+
+    store_bwd_err = 0.0
+    for name, expr, w, h in bwd_cases:
+        for depth in (False, True):
+            ok, stats = grads_close(store_grads(expr, w, h, view((-2.0, 2.0, 4.0)), depth),
+                                    bwd_refs[(name, w, h, depth)], depth)
+            check(ok, f"{name} {'depth' if depth else 'rgb'} {w}x{h} store-fed backward vs autograd "
+                      f"of the plain path, every leaf and the view {stats}")
+            if name == "union":
+                store_bwd_err = max(store_bwd_err, stats["max_abs_err"])
+
     store_err = 0.0
     for (name, w, h), (expr, c) in small_cfg.items():
         sp = compile_scene(expr)
@@ -917,11 +1053,11 @@ def main() -> int:
                   f"store row {i} equals the depth render of {i} iterations, bit for bit")
         del depth_i
         largest = float(replay.abs().max())
-        store_bwd_err = float((fed - replay).abs().max())
+        store_vs_replay = float((fed - replay).abs().max())
         same = torch.equal(fed, replay)
-        check(store_bwd_err <= 1e-6 * largest and bool(torch.isfinite(fed).all()),
+        check(store_vs_replay <= 1e-6 * largest and bool(torch.isfinite(fed).all()),
               f"{WIDTH}x{HEIGHT} store-fed pullback vs replay: "
-              f"{'bit-identical' if same else f'{store_bwd_err / largest:.3g} of the largest entry'}")
+              f"{'bit-identical' if same else f'{store_vs_replay / largest:.3g} of the largest entry'}")
         fed2 = rk.launch_bwd(store_bwd_lib, params, v19, cfg, True, cot, store=store)
         check(torch.equal(fed, fed2), "two store-fed backward launches give bit-identical gradients")
         handoff = {"fwd": [], "fwd_store": [], "bwd": [], "bwd_store": []}
@@ -937,7 +1073,14 @@ def main() -> int:
             handoff[which].append(events(runs[which]))
         ro, rd = camera_rays(WIDTH, HEIGHT, hero_view, cfg.vfov_degrees, cfg.near, cfg.far)
         history_ms = events(lambda: march_history(hero, ro, rd, cfg), 1, 3)
+        history = march_history(hero, ro, rd, cfg).reshape(cfg.depth_iterations, -1)
         del ro, rd
+        ok, store_full_stats = history_close(store, history, cfg.far)
+        check(ok, f"{WIDTH}x{HEIGHT} depth history vs plain march_history, all "
+                  f"{cfg.depth_iterations} rows {store_full_stats}")
+        check(not history_close(torch.roll(store, 1, 0), history, cfg.far)[0],
+              "the depth-history contract refuses a store whose rows are shifted by one")
+        del history
     handoff_ms = {k: float(np.mean(v)) for k, v in handoff.items()}
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"timing handoff at {WIDTH}x{HEIGHT}x40, launches alone: forward {handoff_ms['fwd']:.4f} "
@@ -1046,15 +1189,20 @@ def main() -> int:
     with torch.no_grad():
         points_card = torch.from_numpy(points).cuda()
         sample_ms, sampled = host_ms(lambda: st.sample(hero, points_card))
+        capped_ms, capped = host_ms(lambda: st.sample(hero, points_card, batch_size=SAMPLE_BATCH))
+        small_ms, _ = host_ms(lambda: st.sample(hero, points_card, batch_size=2048), 1)
         t0 = time.perf_counter()
         sampled_cpu = st.sample(hero_cpu, torch.from_numpy(points))
         sample_cpu_s = time.perf_counter() - t0
     err = float((sampled.cpu() - sampled_cpu).abs().max())
     check(sampled.shape == (SAMPLE_POINTS, 4) and sampled.device.type == "cuda" and err <= 1e-5,
-          f"sample of {SAMPLE_POINTS} points (batches of 2048 and a remainder) on the card vs the "
-          f"CPU: max abs {err:.3g} (atol 1e-5)")
+          f"sample of {SAMPLE_POINTS} points on the card vs the CPU: max abs {err:.3g} (atol 1e-5)")
+    check(torch.equal(capped, sampled),
+          f"sample in batches of {SAMPLE_BATCH} and a remainder equals the one-batch result bit "
+          f"for bit")
     lo, hi = (-4.0, -4.0, -4.0), (4.0, 4.0, 4.0)
     with torch.no_grad():
+        torch.cuda.empty_cache()  # the allocator's blocks are cut to sample's batches
         torch.cuda.reset_peak_memory_stats()
         voxel_ms, vox = host_ms(lambda: voxelize(hero, lo, hi, GRID, GRID, GRID))
         voxel_peak = torch.cuda.max_memory_allocated()
@@ -1071,10 +1219,12 @@ def main() -> int:
           "the volume's walls hold the outside value size.x / nx")
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"timing sample of {SAMPLE_POINTS} points: {sample_ms:.3f} ms on the card (host clock, "
-          f"plain torch ops, {-(-SAMPLE_POINTS // 2048)} batches), {sample_cpu_s * 1e3:.1f} ms on "
+          f"plain torch ops, one batch: the default caps a batch at 2^20 points), {capped_ms:.3f} "
+          f"ms in batches of {SAMPLE_BATCH}, {small_ms:.3f} ms in batches of 2048 "
+          f"({-(-SAMPLE_POINTS // 2048)} of them), {sample_cpu_s * 1e3:.1f} ms on "
           f"this host's CPU; voxelize {GRID}^3: {voxel_ms:.3f} ms on the card (peak "
           f"{voxel_peak / 1e9:.2f} GB allocated), {voxel_cpu_s * 1e3:.1f} ms on the CPU; on {smi}")
-    del vox, vox_cpu, sampled, sampled_cpu, points_card
+    del vox, vox_cpu, sampled, capped, sampled_cpu, points_card
     with torch.no_grad():
         radius.fill_(0.5)
     torch.cuda.synchronize()
@@ -1150,16 +1300,20 @@ def main() -> int:
         {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,
          "replaces": RAYS_BWD_REPLACES, "launches": rays_step_launches[1],
          "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
+         "full_size_leaf_err_of_largest_entry": rays_full_err,
+         "full_size_ray_cotangents": rays_full_stats,
          "ms": rays_bwd_ms, "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": rays_bwd_bound, "bound_by": rays_bwd_by,
          "library_ms": None},
         {"name": "raymarch_fwd_store", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
+         "full_size_vs_plain": store_full_stats,
          "ms": handoff_ms["fwd_store"], "plain_ms": history_ms, "bound_ms": store_bound,
          "bound_by": store_by, "library_ms": None},
         {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
          "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
-         "max_abs_err": store_bwd_err, "ms": handoff_ms["bwd_store"], "plain_ms": plain_bwd_ms,
+         "max_abs_err": store_bwd_err, "max_abs_err_vs_replay": store_vs_replay,
+         "ms": handoff_ms["bwd_store"], "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": store_bwd_bound, "bound_by": store_bwd_by,
          "library_ms": None},
     ]}))

@@ -26,7 +26,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from sdfkit_tpu_torch.render.raymarch import BACKENDS, RayMarcher
+from sdfkit_tpu_torch.render.raymarch import RayMarcher, resolve_backend
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
 
 CHECKPOINTS_KEPT = 2
@@ -133,8 +133,7 @@ def fit(
     explodes), so unclipped Adam overshoots. A caller's optimizer runs
     unclipped.
     """
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
+    resolve_backend(backend, sdf)  # refuse a bad backend before the scene is copied
     sdf = copy.deepcopy(sdf)
     device = scene_device(sdf)
     if not isinstance(target, torch.Tensor):

@@ -133,8 +133,9 @@ BACKENDS = ("auto", "kernel", "torch")
 def resolve_backend(backend: str, sdf: SdfExpr) -> str:
     """'kernel' or 'torch' for a scene: 'auto' takes the CUDA kernels when the
     scene's parameters are on CUDA and the plain path on the CPU, and 'kernel'
-    on a CPU scene raises. One rule for ``RayMarcher``, ``fit`` and the tile
-    renderer (the JAX package's ``resolve_shard_backend``)."""
+    on a CPU scene raises. One rule for ``RayMarcher`` (and so for ``fit``,
+    which renders through it) and the tile renderer (the JAX package's
+    ``resolve_shard_backend``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
     device = scene_device(sdf)

@@ -219,7 +219,7 @@ class SdfExpr(nn.Module):
 
     # -- conversions ------------------------------------------------------
     def sample(self, points, batch_size: int | None = None) -> torch.Tensor:
-        """Evaluate at (N, 3) points in fixed-size batches."""
+        """Evaluate at (N, 3) points, at most ``batch_size`` at a time."""
         from sdfkit_tpu_torch.sdf.sample import DEFAULT_BATCH_SIZE, sample
 
         return sample(self, points, DEFAULT_BATCH_SIZE if batch_size is None else batch_size)
