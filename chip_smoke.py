@@ -30,7 +30,12 @@ iterations:
 13   two row bands and nine resumable tiles against the whole frame, bit for
      bit, with three tiles deleted and resumed;
 14   ``sample`` of 1,000,003 points and ``voxelize`` at 256^3 on the card
-     against the CPU.
+     against the CPU;
+15   gradients at 80 and 130 march iterations (more than the backward keeps
+     depths for at once) through ``RayMarcher``, ``render_rays_kernel`` and
+     ``fit`` against autograd of the plain path;
+16   what the compiler made of the six libraries: registers, resident blocks
+     per SM, and the instructions of the march and sweep loops from SASS.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
@@ -491,6 +496,25 @@ def main() -> int:
         v19 = rk.view19(hero_view, cfg)
         cot = (2.0 / target.numel()) * (marcher.render() - target).reshape(-1, 3).contiguous()
     bwd_launch_ms = events(lambda: rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot))
+    # The same two launches on a frame that is mostly sky: one sphere of
+    # radius 0.5 under the same camera. A sky pixel replays its march and
+    # stops after the colour step, so a backward must not be paid for there.
+    lone = st.sphere(0.5)
+    lone_prog = compile_scene(lone)
+    with torch.no_grad():
+        lone_params = torch.cat([q.reshape(-1) for q in st.leaves(lone)]).contiguous()
+        lone_fwd, lone_bwd = build.load(lone_prog), build.load_bwd(lone_prog)
+        lone_frame = rk.launch(lone_fwd, lone_params, v19, cfg, True)
+        lone_hits = int((rk.launch(lone_fwd, lone_params, v19, cfg, False) <= cfg.far).sum())
+        lone_cot = (2.0 / lone_frame.numel()) * (lone_frame - 0.5)
+        sky_fwd_ms = events(lambda: rk.launch(lone_fwd, lone_params, v19, cfg, True))
+        sky_bwd_ms = events(lambda: rk.launch_bwd(lone_bwd, lone_params, v19, cfg, True, lone_cot))
+        lone_grad = rk.launch_bwd(lone_bwd, lone_params, v19, cfg, True, lone_cot)
+    check(bool(torch.isfinite(lone_grad).all()) and float(lone_grad.abs().max()) > 0
+          and 0 < lone_hits < 0.1 * WIDTH * HEIGHT,
+          f"the mostly-sky frame (one sphere, {lone_hits} of {WIDTH * HEIGHT} pixels hit) has a "
+          f"finite gradient")
+    del lone_frame, lone_cot, lone_grad
 
     def grad_step(w, h, backend, tgt):
         m = st.RayMarcher(w, h, hero, view=hero_view, backend=backend)
@@ -539,6 +563,9 @@ def main() -> int:
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"timing backward launch alone (pullback + reduction kernels): {bwd_launch_ms:.4f} "
           f"ms at {WIDTH}x{HEIGHT}x40 on {smi}")
+    print(f"timing the mostly-sky frame (one sphere of radius 0.5, {lone_hits} of "
+          f"{WIDTH * HEIGHT} pixels hit), launches alone: forward {sky_fwd_ms:.4f} ms, backward "
+          f"{sky_bwd_ms:.4f} ms at {WIDTH}x{HEIGHT}x40 on {smi}")
     print(f"timing forward+backward through RayMarcher + .backward(): {grad_ms:.4f} ms at "
           f"{WIDTH}x{HEIGHT}x40 on {smi}")
     print(f"timing one fit step (host clock, 20 steps, loss fetched every step): "
@@ -909,11 +936,12 @@ def main() -> int:
                    and torch.isfinite(g1[0]).all() and torch.isfinite(g1[1]).all()),
               "two ray-pullback launches give bit-identical, finite gradients (parameters and rays)")
         # The full-size launch walks its rays with a grid-stride loop, several
-        # rays a thread. In pieces small enough for one ray a thread (the
+        # rays a thread (its grid is one wave of 128-thread blocks). In pieces
+        # small enough for one ray a thread (the
         # regime of the small-frame checks) it must give the same ray
         # cotangents bit for bit and the same parameter sums to float32
         # addition order (1e-5 of the largest entry).
-        piece = rays_bwd_lib.rows(WIDTH * HEIGHT) * 128
+        piece = rays_bwd_lib.rows(WIDTH * HEIGHT, 1) * 128
         pieces = torch.zeros_like(g1[0], dtype=torch.float64)
         same_rays = True
         for s0 in range(0, WIDTH * HEIGHT, piece):
@@ -1229,6 +1257,83 @@ def main() -> int:
         radius.fill_(0.5)
     torch.cuda.synchronize()
 
+    # -- 15. marches longer than the depths the backward keeps at once ----------
+    # The replay keeps 64 depths and sweeps a longer march in segments. A plane
+    # that every ray hits (a ray that misses leaves float32 by step 70), seen
+    # from z = 2, through RayMarcher at 80 iterations; then rays that skim a
+    # floor, nearly level, at 130 iterations: there (1 + grad d . rd) is about
+    # 1, so every step of every segment carries the same share of the
+    # gradient (on a ray that hits, the early steps carry almost nothing).
+    wall = st.plane_xy(0.1)
+    near_view = st.look_at((0.3, 0.2, 2.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    for depth in (False, True):
+        ok, stats = grads_close(grads(wall, 40, 24, near_view, "kernel", depth, iters=80),
+                                grads(wall, 40, 24, near_view, "torch", depth, iters=80), depth)
+        check(ok, f"plane {'depth' if depth else 'rgb'} 40x24 at 80 iterations: backward kernel "
+                  f"vs autograd of the plain path, every leaf and the view {stats}")
+    check((rk.LAUNCHES, rk.BWD_LAUNCHES) == (2, 2),
+          f"the 80-iteration gradients went through the image kernels (LAUNCHES, BWD_LAUNCHES) = "
+          f"{(rk.LAUNCHES, rk.BWD_LAUNCHES)}")
+    with torch.no_grad():
+        wall_target = st.RayMarcher(40, 24, wall, view=near_view, depth_iterations=80).render()
+        wall.normal.copy_(torch.tensor([0.1, 0.0, 1.0]))  # tilted: the fit turns it back
+    rk.BWD_LAUNCHES = 0
+    long_fit = st.fit(wall, wall_target, steps=3, view=near_view, depth_iterations=80)
+    check(rk.BWD_LAUNCHES == 3 and all(np.isfinite(long_fit.losses))
+          and long_fit.losses[-1] < long_fit.losses[0],
+          f"fit at 80 iterations: 3 steps through the kernels, losses {long_fit.losses}")
+    floor = st.plane_xz(-0.2)
+    rng = np.random.default_rng(17)
+    n_skim = 4096
+    skim_ro = np.stack([rng.uniform(-1, 1, n_skim), np.full(n_skim, 0.1), np.full(n_skim, 5.0)],
+                       -1).astype(np.float32)
+    skim_rd = np.stack([rng.uniform(-0.1, 0.1, n_skim), rng.uniform(-2e-3, 2e-3, n_skim),
+                        -np.ones(n_skim)], -1)
+    skim_rd = (skim_rd / np.linalg.norm(skim_rd, axis=-1, keepdims=True)).astype(np.float32)
+    rk.RAYS_BWD_LAUNCHES = 0
+    for iters in (80, 130):
+        long_cfg = st.RenderConfig(8, 8, depth_iterations=iters)
+        got = ray_grads(floor, skim_ro, skim_rd, long_cfg, True, True)
+        ref = ray_grads(floor, skim_ro, skim_rd, long_cfg, False, True)
+        ok, stats = ray_grads_close(got, ref, True)
+        check(ok and float(np.abs(ref[1]).max()) > 10.0 * iters,
+              f"{n_skim} rays skimming a floor at {iters} iterations, depth: ray pullback vs "
+              f"autograd of plain render_depth_rays, every leaf, ro and rd {stats}; the largest "
+              f"origin cotangent {float(np.abs(ref[1]).max()):.6g} grows with the steps")
+    check(rk.RAYS_BWD_LAUNCHES == 2, f"the long marches went through the ray pullback kernel "
+                                     f"(RAYS_BWD_LAUNCHES={rk.RAYS_BWD_LAUNCHES})")
+
+    # -- 16. what the compiler made of the six libraries --------------------------
+    from sdfkit_tpu_torch.render.cuda import sass
+
+    roots = sum(prog.nodes[i][0] == "sqrt" for i in prog.dist_live)
+    compiled = {}
+    for name, klib in (("raymarch_fwd", lib), ("raymarch_bwd", bwd_lib),
+                       ("raymarch_rays_fwd", rays_lib), ("raymarch_rays_bwd", rays_bwd_lib),
+                       ("raymarch_fwd_store", store_lib), ("raymarch_bwd_store", store_bwd_lib)):
+        report = {"registers": klib.registers.get("rgb"),
+                  "resident_blocks_per_sm": klib.resident(1),
+                  "instructions_per_evaluation": None}
+        listing = sass.library_sass(klib.path)
+        if listing is not None and "rgb" in listing:
+            # Innermost loops that evaluate the scene (a grid-stride loop holds others).
+            loops = [lp for lp in listing["rgb"]["loops"]
+                     if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
+            per = [sass.per_evaluation(lp, roots) for lp in loops]
+            # The first loop that evaluates the scene is the march (or its
+            # replay); the last one of a backward is the sweep.
+            report["instructions_per_evaluation"] = {"march": per[0]} if per else {}
+            if per and "bwd" in name:
+                report["instructions_per_evaluation"]["sweep"] = per[-1]
+            report["kernel_instructions"] = listing["rgb"]["instructions"]
+            report["loops"] = [{k: lp[k] for k in ("own", "rsq", "rcp", "fchk", "loads")}
+                               for lp in loops]
+        compiled[name] = report
+        print(f"compiled: {name} (RGB kernel) {report}")
+    check(all(r["resident_blocks_per_sm"] > 0 for r in compiled.values()),
+          "every library reports its resident blocks per SM")
+
     # -- bounds: the least time the card could take for the same work ---------
     from sdfkit_tpu_torch.sdf.compile import operation_counts
 
@@ -1243,13 +1348,53 @@ def main() -> int:
     fwd_ops = npix * ((n - 1 + 6) * (ops_n["dist"] + step_ops) + ops_n["eval"] + shade_ops)
     fwd_bytes = npix * 12 + 4 * (prog.n_params + 19)
     # Backward: every pixel replays the march and the colour step; only a hit
-    # pixel taps, pulls the taps and the colour step back and sweeps the march.
+    # pixel taps, takes the unit gradient at the six taps and at the n-1 kept
+    # depths, pulls the colour step back and runs the recurrence. Around one
+    # unit gradient of a sweep step: the point (6), grad d . rd (5), the
+    # gradient times the depth (3), the ray's six sums (12), the recurrence (2)
+    # and the multiply of each parameter slot's scaled add (the add is in
+    # dist_unit): 28 + dist_slots; a tap's share of its pair is about as much.
+    unit_ops = ops_n["dist_unit"] + 28 + ops_n["dist_slots"]
     bwd_ops = (npix * ((n - 1) * (ops_n["dist"] + step_ops) + ops_n["eval"] + 30)
-               + hits * (6 * (ops_n["dist"] + step_ops) + (6 + n - 1) * (ops_n["dist_vjp"] + 20)
+               + hits * (6 * (ops_n["dist"] + step_ops) + (6 + n - 1) * unit_ops
                          + ops_n["eval_vjp"] + 3 * shade_ops))
     bwd_bytes = npix * 12 + 4 * (prog.n_params + 19) * 2
-    print(f"work: {ops_n} operations per call; {hits} of {npix} pixels hit; forward "
-          f"{fwd_ops:.4g} operations / {fwd_bytes} bytes, backward {bwd_ops:.4g} / {bwd_bytes}")
+    print(f"work: {ops_n} operations per call (nodes of the program, not instructions); {hits} "
+          f"of {npix} pixels hit; forward {fwd_ops:.4g} operations / {fwd_bytes} bytes, backward "
+          f"{bwd_ops:.4g} / {bwd_bytes}")
+    # The forward against the rate at which the card issues instructions: one
+    # per lane and cycle, 128 lanes an SM, at the highest SM clock.
+    march_per = (compiled["raymarch_fwd"]["instructions_per_evaluation"] or {}).get("march")
+    clock = sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
+    issue_share = bwd_issue_share = None
+    if march_per is not None and clock.strip().isdigit():
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        issue_rate = sms * 128 * float(clock) * 1e6
+        issued = npix * (n - 1 + 7) * march_per
+        issue_share = issued / (launch_ms * 1e-3) / issue_rate
+        print(f"work: the forward issues {march_per:.1f} instructions per distance evaluation "
+              f"in its march loop for {ops_n['dist']} counted operations "
+              f"({march_per / ops_n['dist']:.2f} per operation); {n - 1 + 7} evaluations a pixel "
+              f"are {issued:.4g} thread instructions in {launch_ms:.4f} ms, {issue_share:.3f} of "
+              f"the {issue_rate:.4g} per second that {sms} SMs issue at {clock.strip()} MHz")
+        # The backward's loops in address order: the replay, the taps' forward
+        # pass, the taps' unit gradients, the sweep (then the pair that serves
+        # a march of more than 64 steps). Every pixel replays; a hit pixel
+        # also taps twice and sweeps. The straight-line code between the loops
+        # (ray, colour step and its pullback, shading, ray_vjp) is taken as
+        # 150 instructions a pixel and 500 more a hit pixel.
+        bwd_loops = compiled["raymarch_bwd"].get("loops", [])
+        if len(bwd_loops) >= 4:
+            replay, tap_fwd, tap_unit, sweep = (
+                lp["own"] * roots / lp["rsq"] for lp in bwd_loops[:4])
+            issued = (npix * ((n - 1) * replay + 150)
+                      + hits * (6 * tap_fwd + 6 * tap_unit + (n - 1) * sweep + 500))
+            bwd_issue_share = issued / (bwd_launch_ms * 1e-3) / issue_rate
+            print(f"work: the backward issues {replay:.1f} instructions per replayed step, "
+                  f"{tap_fwd:.1f} / {tap_unit:.1f} per tap (forward / unit gradient) and "
+                  f"{sweep:.1f} per sweep step for {ops_n['dist_unit']} + "
+                  f"{28 + ops_n['dist_slots']} counted operations; about {issued:.4g} thread "
+                  f"instructions in {bwd_launch_ms:.4f} ms, {bwd_issue_share:.3f} of the issue rate")
 
     def bound(ops_count, nbytes):
         by_ops, by_bytes = ops_count / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1288,15 +1433,19 @@ def main() -> int:
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
          "max_abs_err": full_stats["max"], "ms": launch_ms, "frame_ms": kernel_ms,
-         "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None},
+         "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
+         "mostly_sky_ms": sky_fwd_ms, "share_of_issue_rate": issue_share,
+         **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES, "launches": bwd_launches, "max_abs_err": bwd_err,
          "ms": bwd_launch_ms, "plain_ms": plain_bwd_ms, "plain_shape": [pw, ph],
-         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None},
+         "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
+         "mostly_sky_ms": sky_bwd_ms, "share_of_issue_rate": bwd_issue_share,
+         **compiled["raymarch_bwd"]},
         {"name": "raymarch_rays_fwd", "route": "cuda", "source": RAYS_SOURCE,
          "replaces": RAYS_REPLACES, "launches": rays_launches, "max_abs_err": rays_stats["max"],
          "ms": rays_ms, "plain_ms": rays_plain_ms, "bound_ms": rays_bound, "bound_by": rays_by,
-         "library_ms": None},
+         "library_ms": None, **compiled["raymarch_rays_fwd"]},
         {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,
          "replaces": RAYS_BWD_REPLACES, "launches": rays_step_launches[1],
          "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
@@ -1304,18 +1453,18 @@ def main() -> int:
          "full_size_ray_cotangents": rays_full_stats,
          "ms": rays_bwd_ms, "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": rays_bwd_bound, "bound_by": rays_bwd_by,
-         "library_ms": None},
+         "library_ms": None, **compiled["raymarch_rays_bwd"]},
         {"name": "raymarch_fwd_store", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
          "full_size_vs_plain": store_full_stats,
          "ms": handoff_ms["fwd_store"], "plain_ms": history_ms, "bound_ms": store_bound,
-         "bound_by": store_by, "library_ms": None},
+         "bound_by": store_by, "library_ms": None, **compiled["raymarch_fwd_store"]},
         {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
          "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
          "max_abs_err": store_bwd_err, "max_abs_err_vs_replay": store_vs_replay,
          "ms": handoff_ms["bwd_store"], "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": store_bwd_bound, "bound_by": store_bwd_by,
-         "library_ms": None},
+         "library_ms": None, **compiled["raymarch_bwd_store"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,82 +4,156 @@
 // Replaces sdfkit_tpu/render/pallas/raymarch_kernel.py _pallas_render_image_bwd:
 // built as it is, the store=None form that replays the march; built with
 // SDF_STORE defined to 1, the form that takes the forward's depth history
-// (`store`) and skips the replay. What bounds it on the card: arithmetic. A
-// pixel runs about 46 forward scene evaluations (the march replay, the final
-// step, 6 taps) and about 46 forward-and-reverse evaluations (the 6 taps, the
-// final step and the 39-step sweep, each recomputing its forward); it reads
-// 12 bytes of cotangent (4 in depth mode), and a block writes
-// SDF_N_PARAMS + 19 floats. So, as in the forward kernel, everything per pixel
-// stays in registers and thread-local memory: the ray comes from the pixel
-// index, the 39 pre-step depths live in a per-thread array (the TPU kernel's
-// VMEM scratch), and each sweep step recomputes its evaluation rather than
-// storing residuals. With a store the replay's 39 evaluations go, and 4 bytes
-// per step and pixel are read instead (a warp reads one step's 32 depths
-// side by side).
+// (`store`) and skips the replay.
 //
-// The sum over pixels: per-thread accumulators over a grid-stride loop
-// (registers for a small scene, since every index is a compile-time constant
-// after inlining; local memory for a large one), then raymarch_reduce.cuh.
+// What bounds it on the card: neither bytes nor arithmetic at its peak. A
+// pixel reads 12 bytes of cotangent (4 in depth mode) and a block writes
+// SDF_N_PARAMS + 19 floats; its work is about 46 forward scene evaluations
+// (the march replay, the final step, 6 taps) and about 46 gradients of the
+// scene, each a chain of dependent operations with IEEE divisions and square
+// roots in it. The TPU kernel's form of that work (a seeded vjp per sweep
+// step, each waiting for the last) ran at 146 registers and three blocks an
+// SM, and what it lacked was warps to cover the chains: a register budget for
+// four blocks alone made it 19% faster, and dropping the replay's evaluations
+// (the store build) did nothing. So the design
+//   * keeps the chain short: the sweep and the taps are in unit form
+//     (raymarch_bwd.cuh), so the 39 gradients of a sweep do not wait for each
+//     other, and a division by a uniform costs a multiply and two
+//     multiply-adds (the scene compiler);
+//   * keeps warps in flight: the register budget is set for five blocks an SM
+//     (raymarch_reduce.cuh), and the scene parameters and the 19 view scalars
+//     come through constant memory (raymarch_uniforms.cuh), so that they are
+//     operands of the instructions that use them and not registers held
+//     across the loop (4.5% on SphereRepeat at 1920x1080x40, 10% on a frame
+//     that is mostly sky, against reading them from device memory);
+//   * launches one full wave of blocks (raymarch_reduce.cuh).
+// With these the kernel issues about 0.65 of the instructions an H100 can (its
+// SASS loops times their trip counts over its time), and neither more warps
+// (6 or 8 blocks an SM) nor two sweep steps in flight make it faster: what is
+// left is the instruction count. The running sums over a thread's pixels stay
+// in the thread's own array, registers for a small scene: moving the 19 view
+// sums, or all of them, into shared memory (SDF_BWD_SHARED_SUMS 1 and 2, one
+// column per thread) measured 0-0.6% and 1.5% slower at every register
+// budget, since what the compiler spills instead costs less than the copies.
+// Everything per pixel stays in registers and thread-local memory: the ray
+// comes from the pixel index and the kept depths live in a per-thread array
+// (the TPU kernel's VMEM scratch). With a store the replay goes, and 4 bytes
+// per step and pixel are read instead (a warp reads one step's 32 depths
+// side by side); in unit form those loads are off the chain, and the store
+// build is the faster of the two.
 //
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval, SDF_N_PARAMS and the adjoints
-// sdf_dist_vjp/sdf_eval_vjp, and then includes this file.
+// sdf_dist_unit/sdf_eval_vjp, and then includes this file.
 #include <cuda_runtime.h>
 
 #include "raymarch_bwd.cuh"
 #include "raymarch_reduce.cuh"
+#include "raymarch_uniforms.cuh"
 
 #ifndef SDF_STORE
 #define SDF_STORE 0
 #endif
+// Where the running sums live can be overridden, to measure what each
+// placement is worth (tools/torch_kernel_probe.py). SDF_BWD_SHARED_SUMS: 0 keeps every running sum in the thread's own array,
+// 1 puts the 19 view sums in shared memory, 2 the parameter sums too (a scene
+// with more parameters than registers may want them there).
+#ifndef SDF_BWD_SHARED_SUMS
+#define SDF_BWD_SHARED_SUMS 0
+#endif
 constexpr bool kHasStore = SDF_STORE != 0;
 constexpr int kNOut = kSdfNOut;
+// Running sums of a scene too large for a block's static shared memory
+// (48 KB) all stay in the thread's own array, which is then local memory.
+constexpr int kSharedSums = kNOut * kBwdThreads * 4 <= 48 * 1024 ? SDF_BWD_SHARED_SUMS : 0;
+constexpr int kSharedRows = kSharedSums == 2 ? kNOut : kSharedSums == 1 ? 19 : 1;
+constexpr int kOwnSums = kSharedSums == 2 ? 1 : kSharedSums == 1 ? (SDF_N_PARAMS > 0 ? SDF_N_PARAMS : 1) : kNOut;
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kBwdThreads)
-    raymarch_bwd_kernel(const float* __restrict__ P, const float* __restrict__ view19,
+__global__ void __launch_bounds__(kBwdThreads, SDF_BWD_MIN_BLOCKS)
+    raymarch_bwd_kernel(const float* __restrict__ params, const float* __restrict__ view,
                         RenderArgs a, const float* __restrict__ grad,
                         const float* __restrict__ store, float* __restrict__ partials) {
-  float acc[kNOut];
+  // A thread's column of the shared sums, and its own.
+  __shared__ float shared_sums[kSharedRows][kBwdThreads];
+  float* column = &shared_sums[0][threadIdx.x];
+  float own[kOwnSums];
 #pragma unroll kSdfAccUnroll
-  for (int j = 0; j < kNOut; ++j) acc[j] = 0.0f;
+  for (int j = 0; j < kSharedRows; ++j) column[j * kBwdThreads] = 0.0f;
+#pragma unroll kSdfAccUnroll
+  for (int j = 0; j < kOwnSums; ++j) own[j] = 0.0f;
+  const float* P = uniform_params(params);
+  const float* view19 = uniform_view(view);
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long local = blockIdx.x * blockDim.x + threadIdx.x; local < a.local_npix;
        local += stride) {
-    pullback_pixel<WANT_COLOR, kHasStore>(a.pix0 + (int)local, P, view19, a,
-                                          grad + (WANT_COLOR ? 3 : 1) * local, acc,
-                                          acc + SDF_N_PARAMS, store);
+    const int idx = a.pix0 + (int)local;
+    const float* g = grad + (WANT_COLOR ? 3 : 1) * local;
+    if (kSharedSums == 0) {
+      pullback_pixel<WANT_COLOR, kHasStore>(idx, P, view19, a, g, own, own + SDF_N_PARAMS, store);
+    } else if (kSharedSums == 1) {
+      pullback_pixel<WANT_COLOR, kHasStore, kBwdThreads>(idx, P, view19, a, g, own, column, store);
+    } else {
+      float pixel[kNOut];  // this pixel's share
+#pragma unroll kSdfAccUnroll
+      for (int j = 0; j < kNOut; ++j) pixel[j] = 0.0f;
+      if (pullback_pixel<WANT_COLOR, kHasStore>(idx, P, view19, a, g, pixel,
+                                                pixel + SDF_N_PARAMS, store)) {
+#pragma unroll kSdfAccUnroll
+        for (int j = 0; j < kNOut; ++j) column[j * kBwdThreads] += pixel[j];
+      }
+    }
   }
-  block_sum_to_row<kNOut>(acc, partials + (long long)blockIdx.x * kNOut);
+  float* row = partials + (long long)blockIdx.x * kNOut;
+  if (kSharedSums == 0) {
+    block_sum_to_row<kNOut>(own, 1, row);
+  } else if (kSharedSums == 1) {
+    block_sum_to_row<SDF_N_PARAMS>(own, 1, row);
+    __syncthreads();  // the two sums share their scratch
+    block_sum_to_row<19>(column, kBwdThreads, row + SDF_N_PARAMS);
+  } else {
+    block_sum_to_row<kNOut>(column, kBwdThreads, row);
+  }
 }
 
 // Outputs of one backward: the parameter slots, 16 of inverse(view @ proj),
 // 3 of the camera position.
 extern "C" int raymarch_bwd_n_out() { return kNOut; }
 
+// Blocks of the pullback kernel one SM of the current device holds at once,
+// or a negative CUDA error.
+extern "C" int raymarch_bwd_resident(int want_color) {
+  return want_color ? resident_blocks(raymarch_bwd_kernel<true>, kBwdThreads)
+                    : resident_blocks(raymarch_bwd_kernel<false>, kBwdThreads);
+}
+
 // Rows of partials a launch over local_npix pixels writes (its grid size) on
 // the current device, or a negative CUDA error.
-extern "C" int raymarch_bwd_rows(int local_npix) { return backward_grid_rows(local_npix); }
+extern "C" int raymarch_bwd_rows(int local_npix, int want_color) {
+  return want_color ? backward_grid_rows(raymarch_bwd_kernel<true>, local_npix)
+                    : backward_grid_rows(raymarch_bwd_kernel<false>, local_npix);
+}
 
 // Launches both kernels on `stream`; returns the first CUDA error (0 when
-// both launches were accepted). `grad` holds local_npix*3 floats (RGB) or
-// local_npix (depth), `partials` rows*n_out floats with rows from
-// raymarch_bwd_rows(local_npix), `out` n_out floats. `store` is the forward's
-// depth history, iters*local_npix floats, in the SDF_STORE build and null in
-// the replay build, which takes at most SDF_MAX_ITERS iterations.
+// the copies and both launches were accepted). `grad` holds local_npix*3
+// floats (RGB) or local_npix (depth), `partials` rows*n_out floats with rows
+// from raymarch_bwd_rows(local_npix, want_color), `out` n_out floats. `store`
+// is the forward's depth history, iters*local_npix floats, in the SDF_STORE
+// build and null in the replay build.
 extern "C" int raymarch_bwd_launch(const void* params, const void* view19, int width,
                                    int height, int pix0, int local_npix, int iters,
                                    float depth0, float near_, float far_, int want_color,
                                    const void* grad, const void* store, void* partials,
                                    int rows, void* out, void* stream) {
-  if (iters < 1 || (!kHasStore && iters > SDF_MAX_ITERS) || local_npix <= 0 || rows <= 0 ||
-      kHasStore != (store != nullptr)) {
+  if (iters < 1 || local_npix <= 0 || rows <= 0 || kHasStore != (store != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RenderArgs a{width, height, pix0, local_npix, iters, depth0, near_, far_};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* P = static_cast<const float*>(params);
   const float* v = static_cast<const float*>(view19);
+  cudaError_t err = copy_uniforms(P, v, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const float* g = static_cast<const float*>(grad);
   const float* st = static_cast<const float*>(store);
   float* part = static_cast<float*>(partials);
@@ -88,7 +162,7 @@ extern "C" int raymarch_bwd_launch(const void* params, const void* view19, int w
   } else {
     raymarch_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(P, v, a, g, st, part);
   }
-  cudaError_t err = cudaGetLastError();
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   reduce_partials_kernel<<<kNOut, kReduceThreads, 0, s>>>(part, rows, kNOut,
                                                           static_cast<float*>(out));

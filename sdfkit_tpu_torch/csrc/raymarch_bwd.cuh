@@ -8,8 +8,7 @@
 //   1. replay the march, keeping the pre-step depth of every step (store=None),
 //      or read those depths from the forward's depth history (store given);
 //   2. the pullback of the final step and the shading (_final_shade);
-//   3. a reverse sweep over the kept depths, one single-evaluation pullback
-//      per step;
+//   3. a reverse sweep over the kept depths;
 //   4. the pullback of ray generation to inverse(view @ proj) and the camera
 //      position.
 // The TPU kernel differentiated the traced scene body with jax.vjp; here the
@@ -18,47 +17,85 @@
 // functions raymarch_fwd.cuh needs:
 //
 //   #define SDF_N_PARAMS <parameter slots>
-//   float sdf_dist_vjp(px, py, pz, P, g, &gpx, &gpy, &gpz, gP);
+//   #define SDF_N_DIST_SLOTS <slots the distance depends on>
+//   float sdf_dist_unit(px, py, pz, P, &ux, &uy, &uz, uP);
+//   void sdf_dist_unit_add(g, uP, gP);
 //   float sdf_eval_vjp(px, py, pz, P, gr, gg, gb, gd, &gpx, &gpy, &gpz, gP);
 //
-// Each sets the point's cotangent, adds the parameters' to gP[slot] and
-// returns the distance. Like raymarch_fwd.cuh this is host-and-device code
-// with no CUDA header, so the CPU tests compile it with a host compiler.
+// What costs a pixel most on an H100 is the length of its chain of dependent
+// operations when few warps are in flight to hide it (raymarch_bwd.cu has
+// the numbers). The sweep of the TPU kernel fed each step's depth cotangent
+// into the next step's whole vjp: 39 forward-and-reverse evaluations, one
+// after the other. A vjp is linear in its seed, so the sweep here is in unit
+// form: per step the gradient of the distance for a cotangent of one
+// (sdf_dist_unit), which needs the kept depth alone, and then the recurrence
+// in a few multiply-adds, g' = g + g * (u . rd). The 39 unit gradients do not
+// depend on each other, so a thread's loads and square roots of one step
+// overlap the arithmetic of the last, and what is left of the chain is one
+// multiply-add per step. The six normal taps are taken the same way, the two
+// of an axis side by side.
+//
+// Like raymarch_fwd.cuh this is host-and-device code with no CUDA header, so
+// the CPU tests compile it with a host compiler.
 #pragma once
 
 #include "raymarch_fwd.cuh"
 
-// The replay's depth history is a per-thread array, so the iteration count,
-// a run-time field of RenderArgs, is bounded when the kernel is compiled.
-#ifndef SDF_MAX_ITERS
-#define SDF_MAX_ITERS 64
+// The replay keeps the depths of one segment of the march in a per-thread
+// array. A march of more steps is swept segment by segment from its end, each
+// segment after a replay from the start that keeps that segment's depths: no
+// limit on the iterations, and up to 65 of them cost one replay.
+constexpr int kSdfHistory = 64;
+
+// How far the sweep loop is unrolled. The unit gradients of two steps share
+// no value, so unrolling lets the compiler interleave them; on an H100 that
+// bought nothing over the warps already in flight (2: 0-2% slower, 3: 12-20%
+// slower, with more registers spilled), so the steps run one at a time.
+#ifndef SDF_SWEEP_UNROLL
+#define SDF_SWEEP_UNROLL 1
 #endif
+constexpr int kSdfSweepUnroll = SDF_SWEEP_UNROLL;
 
 // Loops over the accumulators are unrolled for a small scene, so that every
 // index is a constant and the accumulators can live in registers.
 constexpr int kSdfNOut = SDF_N_PARAMS + 19;
 constexpr int kSdfAccUnroll = kSdfNOut <= 96 ? kSdfNOut : 1;
+constexpr int kSdfNSlots = SDF_N_DIST_SLOTS > 0 ? SDF_N_DIST_SLOTS : 1;
 
 // Cotangents of one ray: origin and direction.
 struct RayGrad {
   float ox, oy, oz, dx, dy, dz;
 };
 
-// One step of the march, depth' = depth + d(ro + rd * depth), pulled back:
-// adds the step's share to the ray and the parameters, and returns the
-// cotangent of `depth`, g * (1 + grad d . rd).
+// One step of the march, depth' = depth + d(ro + rd * depth), pulled back
+// with the cotangent `g` of depth': adds the step's share to the ray and the
+// parameters, and returns the cotangent of `depth`, g + g * (grad d . rd).
+// Everything but the last multiply-adds is independent of `g`.
 __host__ __device__ __forceinline__ float step_vjp(const Ray& r, float depth, float g,
                                                    const float* P, RayGrad& gr, float* gP) {
-  float gx, gy, gz;
-  sdf_dist_vjp(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P, g, &gx, &gy,
-               &gz, gP);
-  gr.ox += gx;
-  gr.oy += gy;
-  gr.oz += gz;
-  gr.dx += gx * depth;
-  gr.dy += gy * depth;
-  gr.dz += gz * depth;
-  return g + (gx * r.dx + gy * r.dy + gz * r.dz);
+  float ux, uy, uz, uP[kSdfNSlots];
+  sdf_dist_unit(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P, &ux, &uy,
+                &uz, uP);
+  const float along = ux * r.dx + uy * r.dy + uz * r.dz;
+  const float vx = ux * depth, vy = uy * depth, vz = uz * depth;
+  sdf_dist_unit_add(g, uP, gP);
+  gr.ox += g * ux;
+  gr.oy += g * uy;
+  gr.oz += g * uz;
+  gr.dx += g * vx;
+  gr.dy += g * vy;
+  gr.dz += g * vz;
+  return g + g * along;
+}
+
+// The sweep over `count` kept depths (depths[i * stride], the last first),
+// from the cotangent `g` of the depth after them to that of the depth before.
+__host__ __device__ __forceinline__ float sweep_vjp(const Ray& r, const float* depths,
+                                                    long long stride, int count, float g,
+                                                    const float* P, RayGrad& gr, float* gP) {
+#pragma unroll kSdfSweepUnroll
+  for (int i = count - 1; i >= 0; --i) g = step_vjp(r, depths[i * stride], g, P, gr, gP);
+  return g;
 }
 
 // y = v * rsqrt(max(|v|^2, 1e-30)) pulled back: the cotangent of v from the
@@ -98,19 +135,18 @@ __host__ __device__ __forceinline__ bool final_shade_vjp(const Ray& r, float dep
   const float sy = r.oy + r.dy * sd;
   const float sz = r.oz + r.dz * sd;
   const float e = 1e-5f;
-  // Taps 0..5 are +x, -x, +y, -y, +z, -z; an untouched axis adds 0.0f, which
-  // leaves it bit-identical to the forward's tap.
-  float tap[6];
+  // The taps of one axis are at +e and -e; an untouched axis adds 0.0f, which
+  // leaves it bit-identical to the forward's tap. The two of a pair share no
+  // value, so they run side by side.
+  float rx = 0.0f, ry = 0.0f, rz = 0.0f;  // the raw central differences
 #pragma unroll 1
-  for (int t = 0; t < 6; ++t) {
-    const float off = (t & 1) ? -e : e;
-    const int axis = t >> 1;
-    tap[t] = sdf_dist(sx + (axis == 0 ? off : 0.0f), sy + (axis == 1 ? off : 0.0f),
-                      sz + (axis == 2 ? off : 0.0f), P);
+  for (int axis = 0; axis < 3; ++axis) {
+    const float ex = axis == 0 ? e : 0.0f, ey = axis == 1 ? e : 0.0f, ez = axis == 2 ? e : 0.0f;
+    const float d = sdf_dist(sx + ex, sy + ey, sz + ez, P) - sdf_dist(sx + -ex, sy + -ey, sz + -ez, P);
+    rx = axis == 0 ? d : rx;
+    ry = axis == 1 ? d : ry;
+    rz = axis == 2 ? d : rz;
   }
-  const float rx = tap[0] - tap[1];
-  const float ry = tap[2] - tap[3];
-  const float rz = tap[4] - tap[5];
   float nx = rx, ny = ry, nz = rz;
   safe_normalize(nx, ny, nz);
   const float wx = 5.0f - sx;
@@ -132,27 +168,28 @@ __host__ __device__ __forceinline__ bool final_shade_vjp(const Ray& r, float dep
   float g_wx, g_wy, g_wz;  // cotangent of light - surface
   safe_normalize_vjp(wx, wy, wz, g_dot * nx, g_dot * ny, g_dot * nz, g_wx, g_wy, g_wz);
   // The taps' cotangents are about 1/(2e-5) times the pixel's and cancel in
-  // pairs. They are summed on their own before they join the running sums,
-  // so that the cancellation loses nothing to what the sums already hold.
+  // pairs. Each pair's unit gradients are subtracted first and the difference
+  // scaled by the axis' cotangent, and the three axes are summed on their own
+  // before they join the running sums, so that the cancellation loses
+  // nothing to the size of the cotangent or to what the sums already hold.
   float g_sx = 0.0f, g_sy = 0.0f, g_sz = 0.0f;  // cotangent of the surface point
-  float tapP[SDF_N_PARAMS > 0 ? SDF_N_PARAMS : 1];
-#pragma unroll kSdfAccUnroll
-  for (int j = 0; j < SDF_N_PARAMS; ++j) tapP[j] = 0.0f;
+  float tapP[kSdfNSlots];
+#pragma unroll
+  for (int k = 0; k < kSdfNSlots; ++k) tapP[k] = 0.0f;
 #pragma unroll 1
-  for (int t = 0; t < 6; ++t) {
-    const float off = (t & 1) ? -e : e;
-    const int axis = t >> 1;
+  for (int axis = 0; axis < 3; ++axis) {
+    const float ex = axis == 0 ? e : 0.0f, ey = axis == 1 ? e : 0.0f, ez = axis == 2 ? e : 0.0f;
     const float g_axis = axis == 0 ? g_rx : (axis == 1 ? g_ry : g_rz);
-    float gx, gy, gz;
-    sdf_dist_vjp(sx + (axis == 0 ? off : 0.0f), sy + (axis == 1 ? off : 0.0f),
-                 sz + (axis == 2 ? off : 0.0f), P, (t & 1) ? -g_axis : g_axis, &gx, &gy, &gz,
-                 tapP);
-    g_sx += gx;
-    g_sy += gy;
-    g_sz += gz;
+    float ax, ay, az, aP[kSdfNSlots], bx, by, bz, bP[kSdfNSlots];
+    sdf_dist_unit(sx + ex, sy + ey, sz + ez, P, &ax, &ay, &az, aP);
+    sdf_dist_unit(sx + -ex, sy + -ey, sz + -ez, P, &bx, &by, &bz, bP);
+    g_sx += g_axis * (ax - bx);
+    g_sy += g_axis * (ay - by);
+    g_sz += g_axis * (az - bz);
+#pragma unroll
+    for (int k = 0; k < SDF_N_DIST_SLOTS; ++k) tapP[k] += g_axis * (aP[k] - bP[k]);
   }
-#pragma unroll kSdfAccUnroll
-  for (int j = 0; j < SDF_N_PARAMS; ++j) gP[j] += tapP[j];
+  sdf_dist_unit_add(1.0f, tapP, gP);
   g_sx -= g_wx;
   g_sy -= g_wy;
   g_sz -= g_wz;
@@ -178,7 +215,9 @@ __host__ __device__ __forceinline__ bool final_shade_vjp(const Ray& r, float dep
 
 // ray_from_index pulled back: the ray's cotangent becomes that of the 16
 // entries of inverse(view @ proj) (row 2 never enters a ray and gets zero)
-// and of the camera position, added to gV[0..19).
+// and of the camera position, added to gV[k * GV_STRIDE] for k in 0..19 (a
+// caller's own array, or its column of a table that threads share).
+template <int GV_STRIDE = 1>
 __host__ __device__ __forceinline__ void ray_vjp(int idx, const float* view19,
                                                  const RenderArgs& a, const Ray& r,
                                                  const RayGrad& gr, float* gV) {
@@ -202,25 +241,38 @@ __host__ __device__ __forceinline__ void ray_vjp(int idx, const float* view19,
   const float g_vy = (gr.dy - r.dy * along) / len;
   const float g_vz = (gr.dz - r.dz * along) / len;
   // v = h.xyz / h.w - cam, and the camera is the ray origin too.
-  gV[16] += gr.ox - g_vx;
-  gV[17] += gr.oy - g_vy;
-  gV[18] += gr.oz - g_vz;
+  gV[16 * GV_STRIDE] += gr.ox - g_vx;
+  gV[17 * GV_STRIDE] += gr.oy - g_vy;
+  gV[18 * GV_STRIDE] += gr.oz - g_vz;
   const float g_hx = g_vx / hw;
   const float g_hy = g_vy / hw;
   const float g_hz = g_vz / hw;
   const float g_hw = -(g_vx * qx + g_vy * qy + g_vz * qz) / hw;
-  gV[0] += xf * g_hx;
-  gV[1] += xf * g_hy;
-  gV[2] += xf * g_hz;
-  gV[3] += xf * g_hw;
-  gV[4] += yf * g_hx;
-  gV[5] += yf * g_hy;
-  gV[6] += yf * g_hz;
-  gV[7] += yf * g_hw;
-  gV[12] += g_hx;
-  gV[13] += g_hy;
-  gV[14] += g_hz;
-  gV[15] += g_hw;
+  gV[0 * GV_STRIDE] += xf * g_hx;
+  gV[1 * GV_STRIDE] += xf * g_hy;
+  gV[2 * GV_STRIDE] += xf * g_hz;
+  gV[3 * GV_STRIDE] += xf * g_hw;
+  gV[4 * GV_STRIDE] += yf * g_hx;
+  gV[5 * GV_STRIDE] += yf * g_hy;
+  gV[6 * GV_STRIDE] += yf * g_hz;
+  gV[7 * GV_STRIDE] += yf * g_hw;
+  gV[12 * GV_STRIDE] += g_hx;
+  gV[13 * GV_STRIDE] += g_hy;
+  gV[14 * GV_STRIDE] += g_hz;
+  gV[15 * GV_STRIDE] += g_hw;
+}
+
+// The march from depth0 through steps [0, end), keeping the pre-step depths
+// of the steps from `first` on in history[0..end - first). Returns the depth
+// after step end - 1.
+__host__ __device__ __forceinline__ float replay_march(const Ray& r, const float* P, float depth0,
+                                                       int first, int end, float* history) {
+  float depth = depth0;
+  for (int i = 0; i < end; ++i) {
+    if (i >= first) history[i - first] = depth;
+    depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+  }
+  return depth;
 }
 
 // The pullback of one ray, marched and shaded (shade_ray in raymarch_fwd.cuh).
@@ -229,11 +281,12 @@ __host__ __device__ __forceinline__ void ray_vjp(int idx, const float* view19,
 // origin and direction. Returns false, with `gr` all zero, for a sky ray: it
 // contributes exactly nothing and the caller skips what follows.
 //
-// Without a store the march is replayed first, keeping the pre-step depth of
-// every step in a per-thread array, so a.iters must be in [1, SDF_MAX_ITERS]
-// (the launcher checks it). HAS_STORE reads those depths from the forward's
-// depth history instead (row i at store[i * stride]; row n-1 is the depth
-// before the final step): no replay, no array, any iteration count.
+// Without a store the march is replayed first, keeping the pre-step depths of
+// its last segment of at most kSdfHistory steps; each earlier segment is
+// replayed from the start when the sweep reaches it. HAS_STORE reads the
+// depths from the forward's depth history instead (row i at
+// store[i * stride]; row n-1 is the depth before the final step): no replay
+// and no array.
 template <bool WANT_COLOR, bool HAS_STORE = false>
 __host__ __device__ __forceinline__ bool pullback_ray(const Ray& r, const float* P,
                                                       const RenderArgs& a, const float* g,
@@ -241,18 +294,11 @@ __host__ __device__ __forceinline__ bool pullback_ray(const Ray& r, const float*
                                                       const float* store = nullptr,
                                                       long long stride = 0) {
   gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  float history[HAS_STORE ? 1 : SDF_MAX_ITERS];
-  float depth;
-  if (HAS_STORE) {
-    depth = store[(a.iters - 1) * stride];
-  } else {
-    // Replay the march, keeping each step's pre-step depth.
-    depth = a.depth0;
-    for (int i = 0; i < a.iters - 1; ++i) {
-      history[i] = depth;
-      depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
-    }
-  }
+  const int steps = a.iters - 1;  // march steps before the final one
+  float history[HAS_STORE ? 1 : kSdfHistory];
+  int first = HAS_STORE || steps <= 0 ? 0 : (steps - 1) / kSdfHistory * kSdfHistory;
+  const float depth =
+      HAS_STORE ? store[steps * stride] : replay_march(r, P, a.depth0, first, steps, history);
   float g_depth;
   if (WANT_COLOR) {
     if (!final_shade_vjp(r, depth, g, P, a, gr, gP, &g_depth)) return false;
@@ -260,18 +306,26 @@ __host__ __device__ __forceinline__ bool pullback_ray(const Ray& r, const float*
     // Depth mode: the last step is one more march step.
     g_depth = step_vjp(r, depth, g[0], P, gr, gP);
   }
-  for (int i = a.iters - 2; i >= 0; --i) {
-    g_depth = step_vjp(r, HAS_STORE ? store[i * stride] : history[i], g_depth, P, gr, gP);
+  if (HAS_STORE) {
+    sweep_vjp(r, store, stride, steps, g_depth, P, gr, gP);
+    return true;
+  }
+  g_depth = sweep_vjp(r, history, 1, steps - first, g_depth, P, gr, gP);
+  while (first > 0) {
+    first -= kSdfHistory;
+    replay_march(r, P, a.depth0, first, first + kSdfHistory, history);
+    g_depth = sweep_vjp(r, history, 1, kSdfHistory, g_depth, P, gr, gP);
   }
   return true;
 }
 
 // The whole pullback of pixel `idx`: its ray from the index, pullback_ray,
 // then ray_vjp. `g` is its cotangent (3 floats, or 1 in depth mode); its
-// share is added to gP[0..SDF_N_PARAMS) and gV[0..19). `store` is the
-// launch's depth history (HAS_STORE), laid out as shade_pixel writes it.
-template <bool WANT_COLOR, bool HAS_STORE = false>
-__host__ __device__ __forceinline__ void pullback_pixel(int idx, const float* P,
+// share is added to gP[0..SDF_N_PARAMS) and gV[k * GV_STRIDE], k in 0..19.
+// `store` is the launch's depth history (HAS_STORE), laid out as shade_pixel
+// writes it. Returns false for a sky pixel, which added nothing.
+template <bool WANT_COLOR, bool HAS_STORE = false, int GV_STRIDE = 1>
+__host__ __device__ __forceinline__ bool pullback_pixel(int idx, const float* P,
                                                         const float* view19,
                                                         const RenderArgs& a, const float* g,
                                                         float* gP, float* gV,
@@ -281,7 +335,8 @@ __host__ __device__ __forceinline__ void pullback_pixel(int idx, const float* P,
   if (!pullback_ray<WANT_COLOR, HAS_STORE>(r, P, a, g, gP, gr,
                                            HAS_STORE ? store + (idx - a.pix0) : nullptr,
                                            a.local_npix)) {
-    return;
+    return false;
   }
-  ray_vjp(idx, view19, a, r, gr, gV);
+  ray_vjp<GV_STRIDE>(idx, view19, a, r, gr, gV);
+  return true;
 }

@@ -2,41 +2,83 @@
 //
 // Replaces sdfkit_tpu/render/pallas/raymarch_kernel.py _pallas_render_image_flat:
 // built as it is, the want_store=False form; built with SDF_STORE defined to
-// 1, the form that also writes the depth history. What bounds it on the
-// card: arithmetic. A pixel runs about 46 scene evaluations (39 march steps,
-// the final colour step, 6 normal taps) and writes 12 bytes (RGB) or 4
-// (depth); it reads nothing per pixel. So the design keeps the whole march
-// in registers: rays come from the pixel index and 19 view scalars, and the
-// only device memory read is the flat scene parameter buffer (a few hundred
-// bytes, cached). The TPU's 256x128 tile, lane padding and SMEM/VMEM
-// parameter split do not carry over: a thread past local_npix returns before
-// it marches. The depth history adds 4 bytes written per step and pixel
-// (160 per pixel at 40 steps, 13 times the RGB), step-major so that a warp's
-// 32 writes of one step are one 128-byte line.
+// 1, the form that also writes the depth history.
+//
+// What bounds it on the card: the rate at which an SM issues instructions.
+// A pixel runs about 46 scene evaluations (39 march steps, the final colour
+// step, 6 normal taps), writes 12 bytes (RGB) or 4 (depth) and reads nothing
+// per pixel. Measured on an H100 with SphereRepeat at 1920x1080x40: with the
+// division written as `/` and the uniforms read through a pointer, the march
+// loop issued 135 instructions per evaluation, and times its evaluations that
+// was all that 132 SMs issue at their highest clock, in 0.390 ms; more warps
+// or another block size change nothing (64, 128 and 256 threads are within
+// 0.5% of each other). So the design keeps
+// the whole march in registers (rays come from the pixel index and 19 view
+// scalars) and shortens the instruction stream:
+//   * the scene compiler writes a division by a uniform, the `x / c` under
+//     the floor of a repetition, as a reciprocal that the compiler lifts out
+//     of the march loop and two multiply-adds, where the IEEE division cost a
+//     reciprocal seed, two Newton steps and a range check per evaluation: 135
+//     instructions became 93, 0.390 ms became 0.291;
+//   * the scene parameters and the view come through constant memory
+//     (raymarch_uniforms.cuh): read through a pointer, four of them were
+//     loaded again in every pass of the loop; as operands they cost nothing:
+//     88 instructions, 32 registers where there were 40, 0.268 ms.
+// The square roots stay IEEE, and at about 0.9 of the issue rate what is left
+// is them and the scene's own operations. The TPU's 256x128 tile, lane
+// padding and SMEM/VMEM parameter split do not carry over: a thread past
+// local_npix returns before it marches. The depth history adds 4 bytes
+// written per step and pixel (160 per pixel at 40 steps, 13 times the RGB),
+// step-major so that a warp's 32 writes of one step are one 128-byte line.
 //
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval and then includes this file.
 #include <cuda_runtime.h>
 
 #include "raymarch_fwd.cuh"
+#include "raymarch_uniforms.cuh"
 
 #ifndef SDF_STORE
 #define SDF_STORE 0
 #endif
+// Threads of a block: 64, 128 and 256 measured within 0.5% of each other on
+// an H100.
+#ifndef SDF_FWD_THREADS
+#define SDF_FWD_THREADS 128
+#endif
+// Resident blocks per SM the register allocation aims at; 0 leaves it to the
+// compiler, which reaches 16 blocks of 128 on its own (32 registers). The
+// kernel is not short of warps: 12 or 16 blocks measured the same.
+#ifndef SDF_FWD_MIN_BLOCKS
+#define SDF_FWD_MIN_BLOCKS 0
+#endif
 constexpr bool kWantStore = SDF_STORE != 0;
-constexpr int kThreads = 128;
+constexpr int kThreads = SDF_FWD_THREADS;
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kThreads)
-    raymarch_fwd_kernel(const float* __restrict__ P, const float* __restrict__ view19,
+__global__ void __launch_bounds__(kThreads, SDF_FWD_MIN_BLOCKS)
+    raymarch_fwd_kernel(const float* __restrict__ params, const float* __restrict__ view,
                         RenderArgs a, float* __restrict__ out, float* __restrict__ store) {
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   if (local >= a.local_npix) return;
-  shade_pixel<WANT_COLOR, kWantStore>(a.pix0 + local, P, view19, a, out, store);
+  shade_pixel<WANT_COLOR, kWantStore>(a.pix0 + local, uniform_params(params),
+                                      uniform_view(view), a, out, store);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 when the launch was
-// accepted). `out` holds local_npix*3 floats (RGB) or local_npix (depth);
+// Blocks of the kernel one SM of the current device holds at once, or a
+// negative CUDA error.
+extern "C" int raymarch_fwd_resident(int want_color) {
+  int blocks = 0;
+  const cudaError_t err =
+      want_color ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &blocks, raymarch_fwd_kernel<true>, kThreads, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &blocks, raymarch_fwd_kernel<false>, kThreads, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Launches on `stream`; returns the first CUDA error (0 when the copies and
+// the launch were accepted). `out` holds local_npix*3 floats (RGB) or local_npix (depth);
 // `store` holds iters*local_npix floats in the SDF_STORE build and is null
 // otherwise.
 extern "C" int raymarch_fwd_launch(const void* params, const void* view19, int width,
@@ -52,6 +94,8 @@ extern "C" int raymarch_fwd_launch(const void* params, const void* view19, int w
   const float* v = static_cast<const float*>(view19);
   float* o = static_cast<float*>(out);
   float* st = static_cast<float*>(store);
+  const cudaError_t err = copy_uniforms(P, v, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (want_color) {
     raymarch_fwd_kernel<true><<<blocks, kThreads, 0, s>>>(P, v, a, o, st);
   } else {

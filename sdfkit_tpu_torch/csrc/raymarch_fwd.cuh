@@ -17,7 +17,8 @@
 //   float sdf_eval(float px, float py, float pz, const float* P,
 //                  float* r, float* g, float* b);
 //
-// Only IEEE '/', sqrtf, floorf, fminf/fmaxf, cosf/sinf and rsqrtf are used.
+// Only IEEE '/', sqrtf, fmaf, floorf, fminf/fmaxf, cosf/sinf and rsqrtf are
+// used.
 #pragma once
 
 struct RenderArgs {

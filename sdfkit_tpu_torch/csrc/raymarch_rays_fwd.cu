@@ -15,12 +15,13 @@
 #include <cuda_runtime.h>
 
 #include "raymarch_fwd.cuh"
+#include "raymarch_uniforms.cuh"
 
 constexpr int kRayThreads = 128;
 
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kRayThreads)
-    raymarch_rays_fwd_kernel(const float* __restrict__ P, const float* __restrict__ ox,
+    raymarch_rays_fwd_kernel(const float* __restrict__ params, const float* __restrict__ ox,
                              const float* __restrict__ oy, const float* __restrict__ oz,
                              const float* __restrict__ dx, const float* __restrict__ dy,
                              const float* __restrict__ dz, RenderArgs a,
@@ -28,11 +29,23 @@ __global__ void __launch_bounds__(kRayThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.local_npix) return;
   const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-  shade_ray<WANT_COLOR>(r, P, a, out + (WANT_COLOR ? 3 : 1) * (long long)i);
+  shade_ray<WANT_COLOR>(r, uniform_params(params), a, out + (WANT_COLOR ? 3 : 1) * (long long)i);
 }
 
-// Launches on `stream`; returns cudaGetLastError() (0 when the launch was
-// accepted). Each of the six ray components holds n floats; `out` holds n*3
+// Blocks of the kernel one SM of the current device holds at once, or a
+// negative CUDA error.
+extern "C" int raymarch_rays_fwd_resident(int want_color) {
+  int blocks = 0;
+  const cudaError_t err =
+      want_color ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &blocks, raymarch_rays_fwd_kernel<true>, kRayThreads, 0)
+                 : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                       &blocks, raymarch_rays_fwd_kernel<false>, kRayThreads, 0);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+// Launches on `stream`; returns the first CUDA error (0 when the copy and the
+// launch were accepted). Each of the six ray components holds n floats; `out` holds n*3
 // floats (RGB) or n (depth).
 extern "C" int raymarch_rays_fwd_launch(const void* params, const void* ox, const void* oy,
                                         const void* oz, const void* dx, const void* dy,
@@ -48,6 +61,8 @@ extern "C" int raymarch_rays_fwd_launch(const void* params, const void* ox, cons
                        static_cast<const float*>(oz), static_cast<const float*>(dx),
                        static_cast<const float*>(dy), static_cast<const float*>(dz)};
   float* o = static_cast<float*>(out);
+  const cudaError_t err = copy_uniforms(P, nullptr, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (want_color) {
     raymarch_rays_fwd_kernel<true><<<blocks, kRayThreads, 0, s>>>(P, c[0], c[1], c[2], c[3],
                                                                   c[4], c[5], a, o);

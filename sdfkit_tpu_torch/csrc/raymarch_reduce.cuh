@@ -2,35 +2,54 @@
 //
 // The TPU kernel added every tile's scalars into one revisited output block,
 // leaning on its grid running in order. Blocks here run in any order, so: a
-// fixed grid (a multiple of the SM count) walks the work with a grid-stride
-// loop; each thread keeps its accumulators across the loop; a block reduces
-// them with warp shuffles and a shared-memory pass in a fixed order and
-// writes one row of partials (block_sum_to_row); and reduce_partials_kernel
-// sums the rows in a fixed order. No atomics: two launches on the same card
-// give bit-identical sums.
+// fixed grid walks the work with a grid-stride loop; each thread keeps its
+// running sums across the loop; a block reduces them with warp shuffles and a
+// shared-memory pass in a fixed order and writes one row of partials
+// (block_sum_to_row); and reduce_partials_kernel sums the rows in a fixed
+// order. No atomics: two launches on the same card give bit-identical sums.
+//
+// The grid is as many blocks as the card holds at once (the kernel's
+// resident blocks per SM, asked of the occupancy calculator, times the SMs).
+// A pullback kernel is bound by latency and lives on the warps in flight: a
+// grid of a fixed eight blocks per SM ran as 2.7 waves of three resident
+// blocks, the last one a third empty, and with six resident it would run as
+// 1.3. One full wave has no tail but the spread between threads, whose
+// pixels are strided over the whole frame and so cost about the same.
 #pragma once
 
 #include <cuda_runtime.h>
 
 constexpr int kBwdThreads = 128;
+// Resident blocks per SM that the pullback kernels' register allocation aims
+// at: 65536 registers / 128 threads / 5 blocks allows 96 a thread. Measured
+// on an H100 with SphereRepeat at 1920x1080x40, the image backward: 4 blocks
+// (128 registers, 24 bytes spilled) 1.428 ms, 5 (288 bytes) 1.384, 6 (80
+// registers, 364 bytes) 1.412, and 8 no faster than 6. Warps pay up to about
+// 20 an SM, and 5 blocks leave a larger scene the most registers at that
+// speed.
+#ifndef SDF_BWD_MIN_BLOCKS
+#define SDF_BWD_MIN_BLOCKS 5
+#endif
 constexpr int kBwdWarps = kBwdThreads / 32;
-constexpr int kBlocksPerSm = 8;
 constexpr int kReduceThreads = 256;
 
-// Block sum of each of a thread's N accumulators into row[0..N): shuffles
-// within a warp, then the warps' sums in order. Two rows of shared memory
-// alternate, so one barrier per accumulator is enough. The loop is unrolled
-// for a small N, so that every index is a constant and the accumulators can
-// live in registers. Every thread of the block must call it.
+// Block sum of each of a thread's N running sums (acc[j * stride]: an array
+// of the thread's own with stride 1, or its column of a shared
+// [N][kBwdThreads] table) into row[0..N): shuffles within a warp, then the
+// warps' sums in order. Two rows of shared memory alternate, so one barrier
+// per sum is enough. The loop is unrolled for a small N, so that every index
+// is a constant and an array of the thread's own can live in registers. Every
+// thread of the block must call it.
 template <int N>
-__device__ __forceinline__ void block_sum_to_row(const float* acc, float* __restrict__ row) {
-  constexpr int kUnroll = N <= 96 ? N : 1;
+__device__ __forceinline__ void block_sum_to_row(const float* acc, int stride,
+                                                 float* __restrict__ row) {
+  constexpr int kUnroll = N > 0 && N <= 96 ? N : 1;
   __shared__ float warp_sums[2][kBwdWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll kUnroll
   for (int j = 0; j < N; ++j) {
-    float v = acc[j];
+    float v = acc[j * stride];
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) warp_sums[j & 1][warp] = v;
     __syncthreads();
@@ -62,16 +81,30 @@ __global__ void __launch_bounds__(kReduceThreads)
   if (threadIdx.x == 0) out[j] = sums[0];
 }
 
-// Rows of partials a backward launch over `count` pixels or rays writes (its
-// grid size) on the current device, or a negative CUDA error.
-static int backward_grid_rows(int count) {
+// Blocks of `threads` threads of `kernel` that one SM of the current device
+// holds at once, or a negative CUDA error.
+template <typename Kernel>
+static int resident_blocks(Kernel kernel, int threads) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, threads, 0);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  return blocks > 0 ? blocks : -static_cast<int>(cudaErrorLaunchOutOfResources);
+}
+
+// Rows of partials a launch of the pullback `kernel` over `count` pixels or
+// rays writes (its grid size) on the current device: one block per
+// kBwdThreads of them, at most one full wave. Or a negative CUDA error.
+template <typename Kernel>
+static int backward_grid_rows(Kernel kernel, int count) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
   if (err != cudaSuccess) return -static_cast<int>(err);
+  const int resident = resident_blocks(kernel, kBwdThreads);
+  if (resident < 0) return resident;
   const int needed = (count + kBwdThreads - 1) / kBwdThreads;
-  const int fixed = sms * kBlocksPerSm;
-  return needed < fixed ? needed : fixed;
+  const int wave = sms * resident;
+  return needed < wave ? needed : wave;
 }

@@ -17,10 +17,11 @@ interface under ``sdfkit_tpu_torch/_build/``.
   parameter edit keeps both hashes, so it costs no build.
 * A library holds one kernel template in its RGB and its depth instance
   (and, for a backward, the partial-sum kernel), so the ``ptxas -v`` report is
-  keyed ``rgb`` / ``depth`` / ``reduce`` whatever the family.
+  keyed ``rgb`` / ``depth`` / ``reduce`` whatever the family. Each library
+  also says how many of its blocks an SM holds at once (``resident``).
 * ``BUILDS`` counts nvcc runs in this process. Importing the package never
   runs nvcc.
-* No ``--use_fast_math``: the kernels rely on IEEE ``/`` and ``sqrtf``.
+* No ``--use_fast_math``: the kernels rely on IEEE ``/``, ``sqrtf`` and ``fmaf``.
   nvcc's default FMA contraction stays on, which is why a kernel matches
   the plain path distributionally and not per pixel.
 """
@@ -46,10 +47,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# A backward that replays the march keeps its depth history in a per-thread
-# array of this many floats, so it takes at most this many march iterations.
-MAX_BWD_ITERS = 64
-
 BUILDS = 0  # nvcc runs in this process
 
 
@@ -60,11 +57,12 @@ class KernelLib:
     build_seconds: float | None  # None when an earlier process built it
     registers: dict  # {"rgb": n, "depth": n[, "reduce": n]} from ptxas, when built here
     local_memory: dict  # per kernel: stack frame and spill bytes ptxas printed
-    rows: ctypes._CFuncPtr | None = None  # backward: partial rows of a launch
+    rows: ctypes._CFuncPtr | None = None  # backward: (count, want_color) -> partial rows
     store: bool = False  # the depth-history variant of its family
+    resident: ctypes._CFuncPtr | None = None  # (want_color) -> resident blocks per SM
 
 
-_LIBS: dict[tuple[str, str], KernelLib] = {}
+_LIBS: dict[tuple, KernelLib] = {}
 
 
 def nvcc_path() -> str:
@@ -98,7 +96,8 @@ _RAYS_ARGS = [
 @dataclasses.dataclass(frozen=True)
 class Family:
     """One kernel library. ``csrc/<prefix>.cu`` defines ``<prefix>_launch``
-    and, for a backward, ``<prefix>_rows`` and ``<prefix>_n_out``."""
+    and ``<prefix>_resident`` and, for a backward, ``<prefix>_rows`` and
+    ``<prefix>_n_out``."""
 
     prefix: str
     argtypes: tuple  # of ``<prefix>_launch``
@@ -107,8 +106,8 @@ class Family:
     view_outputs: int = 0  # a backward's outputs beyond the parameter slots
 
 
-_FWD_HEADERS = ("raymarch_fwd.cuh",)
-_BWD_HEADERS = ("raymarch_fwd.cuh", "raymarch_bwd.cuh", "raymarch_reduce.cuh")
+_FWD_HEADERS = ("raymarch_fwd.cuh", "raymarch_uniforms.cuh")
+_BWD_HEADERS = (*_FWD_HEADERS, "raymarch_bwd.cuh", "raymarch_reduce.cuh")
 _FWD_ARGS = (*_IMAGE_ARGS, _P, _P, _P)  # out, store, stream
 # grad, store, partials, rows, out, stream
 _BWD_ARGS = (*_IMAGE_ARGS, _P, _P, _P, ctypes.c_int, _P, _P)
@@ -124,13 +123,19 @@ FAMILIES = {
 }
 
 
-def translation_unit(program: Program, family: str = "fwd") -> str:
+def translation_unit(program: Program, family: str = "fwd", defines: tuple = ()) -> str:
     """The generated .cu of one family: the scene's functions (and their
-    adjoints, for a backward), then the kernel source."""
+    adjoints, for a backward), then the kernel source. ``defines`` are
+    ``"NAME value"`` macros set ahead of everything: the sources' tuning
+    constants (``SDF_BWD_MIN_BLOCKS``, ``SDF_SWEEP_UNROLL``,
+    ``SDF_BWD_SHARED_SUMS``, ``SDF_CONSTANT_UNIFORMS``, ``SDF_FWD_THREADS``,
+    ``SDF_FWD_MIN_BLOCKS``) can be overridden to measure a variant."""
     fam = FAMILIES[family]
-    unit = _HEAD + program.source + "\n"
+    unit = "".join(f"#define {d}\n" for d in defines) + _HEAD + program.source + "\n"
     if fam.adjoint:
-        unit += program.adjoint_source + f"\n#define SDF_MAX_ITERS {MAX_BWD_ITERS}\n"
+        unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS itself
+    else:
+        unit += f"#define SDF_N_PARAMS {program.n_params}\n"
     if fam.store:
         unit += "#define SDF_STORE 1\n"
     return unit + f'#include "{fam.prefix}.cu"\n'
@@ -195,14 +200,16 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     return so, seconds, log
 
 
-def load_family(program: Program, family: str) -> KernelLib:
-    """The library of ``family`` for ``program``, built on first use."""
+def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib:
+    """The library of ``family`` for ``program``, built on first use.
+    ``defines``: see :func:`translation_unit`; a variant is a library of its
+    own (``tools/torch_kernel_probe.py`` times them side by side)."""
     fam = FAMILIES[family]
     name = program.adjoint_hash if fam.adjoint else program.hash
-    lib = _LIBS.get((family, name))
+    lib = _LIBS.get((family, name, defines))
     if lib is not None:
         return lib
-    unit = translation_unit(program, family)
+    unit = translation_unit(program, family, defines)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
     so, seconds, log = _compile(f"raymarch_{family}_{name}_{digest}", unit)
@@ -210,11 +217,14 @@ def load_family(program: Program, family: str) -> KernelLib:
     fn = getattr(cdll, fam.prefix + "_launch")
     fn.restype = ctypes.c_int
     fn.argtypes = list(fam.argtypes)
+    resident = getattr(cdll, fam.prefix + "_resident")
+    resident.restype = ctypes.c_int
+    resident.argtypes = [ctypes.c_int]
     rows = None
     if fam.adjoint:
         rows = getattr(cdll, fam.prefix + "_rows")
         rows.restype = ctypes.c_int
-        rows.argtypes = [ctypes.c_int]
+        rows.argtypes = [ctypes.c_int, ctypes.c_int]
         n_out = getattr(cdll, fam.prefix + "_n_out")
         n_out.restype = ctypes.c_int
         n_out.argtypes = []
@@ -224,9 +234,9 @@ def load_family(program: Program, family: str) -> KernelLib:
                 f"the program has {program.n_params}"
             )
     registers, local = _ptxas(log)
-    lib = _LIBS[(family, name)] = KernelLib(
+    lib = _LIBS[(family, name, defines)] = KernelLib(
         launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
-        rows=rows, store=fam.store,
+        rows=rows, store=fam.store, resident=resident,
     )
     return lib
 

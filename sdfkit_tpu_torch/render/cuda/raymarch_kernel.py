@@ -23,16 +23,26 @@ The plain version of all of them is ``render/raymarch.py``: ``render_rays`` /
 ``render_depth_rays`` (on ``camera_rays`` for the image forms), autograd
 through them, and ``march_history`` for the depth history.
 
-What bounds them on an H100: arithmetic. A forward runs about 46 scene
-evaluations per ray and writes 12 bytes (RGB); a backward runs those again
-(it replays the march) plus about 46 forward-and-reverse evaluations. All
-designs keep a ray's whole march in registers and thread-local memory; the
-image kernels make the ray from the pixel index and 19 view scalars and read
-nothing else from device memory but the flat parameter buffer. The backwards
-sum over pixels without atomics (per-block partial rows, then a second kernel
-in a fixed order), so their gradients are bit-reproducible. The sources are
-under ``csrc/``; the scene body and its adjoint come from the scene compiler
-and the builds from ``build.py``.
+What bounds them on an H100 (``PERF.md`` has the measurements): the forwards
+issue an instruction nearly every cycle (about 46 scene evaluations per ray,
+12 bytes written), so only a shorter instruction stream makes them faster:
+the scene compiler writes a division by a uniform as a reciprocal taken
+once and two multiply-adds, and the parameters and the view come through
+constant memory (``csrc/raymarch_uniforms.cuh``). The backwards run those evaluations again (they
+replay the march) plus about 46 gradients of the scene, long chains of
+dependent operations; they are written so that many warps are in flight
+(uniforms in constant memory, a register budget set for five blocks an SM,
+one full wave of blocks) and so that the chain is short (the sweep takes each step's gradient for a cotangent of one,
+independent of the steps around it, and scales it after). All designs keep a
+ray's whole march in registers and thread-local memory; the image kernels
+make the ray from the pixel index and 19 view scalars and read nothing else
+from device memory but the flat parameter buffer. The backwards take any
+number of march iterations: they keep 64 depths at a time and replay the
+march once more for every further 64. They sum over pixels without atomics
+(per-block partial rows, then a second kernel in a fixed order), so their
+gradients are bit-reproducible. The sources are under ``csrc/``; the scene
+body and its adjoint come from the scene compiler and the builds from
+``build.py``.
 
 The ``*LAUNCHES`` counters count kernel launches, one counter per kernel, so
 a run can show that its frames and gradients went through the kernels. The
@@ -149,18 +159,11 @@ def launch(lib: build.KernelLib, params: torch.Tensor, v19: torch.Tensor, cfg: R
     return out
 
 
-def _check_replay_iterations(cfg: RenderConfig) -> None:
-    if not 1 <= cfg.depth_iterations <= build.MAX_BWD_ITERS:
-        raise ValueError(
-            f"the backward kernel keeps a depth history of at most {build.MAX_BWD_ITERS} "
-            f"march iterations, got {cfg.depth_iterations}; differentiate with backend='torch'"
-        )
-
-
-def _partials(lib: build.KernelLib, count: int, n_out: int, device) -> torch.Tensor:
+def _partials(lib: build.KernelLib, count: int, n_out: int, want_color: bool,
+              device) -> torch.Tensor:
     """The (rows, n_out) scratch of a backward launch over ``count`` pixels
     or rays; call it with ``device`` current."""
-    rows = lib.rows(count)
+    rows = lib.rows(count, int(want_color))
     if rows <= 0:
         raise RuntimeError(f"the backward could not size its grid (CUDA error {-rows})")
     return torch.empty((rows, n_out), dtype=torch.float32, device=device)
@@ -177,12 +180,9 @@ def launch_bwd(lib: build.KernelLib, params: torch.Tensor, v19: torch.Tensor,
 
     ``store`` (with ``lib = build.load_bwd(program, store=True)``) is the
     depth history a ``launch(..., want_store=True)`` over the same pixels
-    returned; the kernel then reads it instead of replaying the march, and
-    takes any iteration count."""
+    returned; the kernel then reads it instead of replaying the march."""
     global BWD_LAUNCHES, STORE_BWD_LAUNCHES
     local_npix = _pixel_count(cfg, pix0, local_npix)
-    if store is None:
-        _check_replay_iterations(cfg)
     _check("params", params)
     _check("view19", v19, (19,))
     _check("grad", grad, (local_npix, 3) if want_color else (local_npix,))
@@ -201,7 +201,7 @@ def launch_bwd(lib: build.KernelLib, params: torch.Tensor, v19: torch.Tensor,
     if local_npix == 0:
         return out.zero_()
     with torch.cuda.device(params.device):
-        partials = _partials(lib, local_npix, n_out, params.device)
+        partials = _partials(lib, local_npix, n_out, want_color, params.device)
         rc = lib.launch(
             params.data_ptr(), v19.data_ptr(), cfg.width, cfg.height, pix0, local_npix,
             *_scalars(cfg, want_color), grad.data_ptr(),
@@ -263,7 +263,6 @@ def launch_rays_bwd(lib: build.KernelLib, params: torch.Tensor, rays, cfg: Rende
     the (n_params,) cotangent of the flat parameter buffer, summed over the
     rays, and the (6, n) cotangents of the six ray components."""
     global RAYS_BWD_LAUNCHES
-    _check_replay_iterations(cfg)
     n = _check_rays(params, rays)
     _check("grad", grad, (n, 3) if want_color else (n,))
     if grad.device != params.device:
@@ -274,7 +273,7 @@ def launch_rays_bwd(lib: build.KernelLib, params: torch.Tensor, rays, cfg: Rende
     if n == 0:
         return g_params.zero_(), g_rays
     with torch.cuda.device(params.device):
-        partials = _partials(lib, n, n_out, params.device)
+        partials = _partials(lib, n, n_out, want_color, params.device)
         rc = lib.launch(
             params.data_ptr(), *(c.data_ptr() for c in rays), n, *_scalars(cfg, want_color),
             grad.data_ptr(), g_rays.data_ptr(), partials.data_ptr(), partials.shape[0],

@@ -17,7 +17,12 @@ parameters from SMEM scalars). Here:
   traced body: a reverse sweep over the same program, with the per-op rules
   of ``jax.vjp`` and torch autograd (one rule table, :func:`_pullback`).
   :func:`run_vjp` executes it as torch ops and :func:`emit_vjp_cpp` writes it
-  as ``sdf_dist_vjp`` and ``sdf_eval_vjp`` for the backward kernel.
+  for the backward kernel: ``sdf_eval_vjp``, seeded with the cotangents of
+  colour and distance, and ``sdf_dist_unit``, the distance's adjoint for a
+  cotangent of one (:func:`run_unit` as torch ops). The adjoint is linear in
+  its seed, so the kernel scales the unit form by whatever cotangent a march
+  step or a normal tap carries, and evaluations that share no seed do not
+  wait for one another.
 
 The program is cached by the tree's structure (node types, callbacks, flags
 and parameter shapes), and its hash is that of the emitted source, which
@@ -55,7 +60,7 @@ class Program:
     eval_live: tuple  # node ids colour + distance need, in order
     source: str  # the C++ of sdf_dist and sdf_eval
     hash: str
-    adjoint_source: str = ""  # the C++ of sdf_dist_vjp and sdf_eval_vjp
+    adjoint_source: str = ""  # the C++ of sdf_dist_unit and sdf_eval_vjp
     adjoint_hash: str = ""
 
 
@@ -239,29 +244,39 @@ def run(program: Program, p: V3, params: torch.Tensor, want_color: bool = True):
 # ---------------------------------------------------------------------------
 
 
-def _pullback(op: str, g, out, args, be):
+def _pullback(op: str, g, out, args, be, want):
     """The cotangent of each argument of ``out = op(*args)`` given the
     cotangent ``g`` of ``out``; None where nothing flows (``floor``, the
-    comparisons, a condition). ``be`` builds the expressions. The rules are
-    those of ``jax.vjp`` and torch autograd: ``min``/``max`` halve the
-    cotangent on a tie, ``abs`` gives 0 at 0, and ``where`` selects the
-    cotangent (never multiplies the other branch's partial by zero, which is
-    what keeps ``zero_safe_length`` finite)."""
+    comparisons, a condition) or where ``want`` says that the argument takes
+    none (a constant). ``be`` builds the expressions. The rules are those of
+    ``jax.vjp`` and torch autograd: ``min``/``max`` halve the cotangent on a
+    tie, ``abs`` gives 0 at 0, and ``where`` selects the cotangent (never
+    multiplies the other branch's partial by zero, which is what keeps
+    ``zero_safe_length`` finite). Where both sides of a ``min``/``max`` take
+    a cotangent the second gets ``g`` less the first's, which is the same
+    float in all three cases at a third of the operations."""
     if op == "add":
         return g, g
     if op == "sub":
-        return g, be.neg(g)
+        return g, be.neg(g) if want[1] else None
     if op == "mul":
-        return be.mul(g, args[1]), be.mul(g, args[0])
+        return (be.mul(g, args[1]) if want[0] else None,
+                be.mul(g, args[0]) if want[1] else None)
     if op == "div":
         q = be.div(g, args[1])
-        return q, be.neg(be.mul(q, out))
+        return q, be.neg(be.mul(q, out)) if want[1] else None
     if op in ("min", "max"):
-        a, b = args
         first, second = (be.lt, be.gt) if op == "min" else (be.gt, be.lt)
         half = be.mul(0.5, g)
-        return (be.select(first(a, b), g, be.select(second(a, b), 0.0, half)),
-                be.select(first(b, a), g, be.select(second(b, a), 0.0, half)))
+
+        def side(a, b):
+            return be.select(first(a, b), g, be.select(second(a, b), 0.0, half))
+
+        a, b = args
+        if want[0] and want[1]:
+            ga = be.let(side(a, b))
+            return ga, be.sub(g, ga)
+        return side(a, b) if want[0] else None, side(b, a) if want[1] else None
     if op == "neg":
         return (be.neg(g),)
     if op == "abs":
@@ -274,16 +289,52 @@ def _pullback(op: str, g, out, args, be):
     if op == "cos":
         return (be.neg(be.mul(g, be.sin(args[0]))),)
     if op == "where":
-        return None, be.select(args[0], g, 0.0), be.select(args[0], 0.0, g)
+        return (None, be.select(args[0], g, 0.0) if want[1] else None,
+                be.select(args[0], 0.0, g) if want[2] else None)
     return (None,) * len(args)  # floor and the comparisons
 
 
-class _TorchOps:
+class _Folding:
+    """The arithmetic of a :func:`_pullback` back end with literals folded:
+    a unit seed is the Python float 1.0, and ``1 * x``, ``-1 * x`` and
+    arithmetic on two literals must cost no operation. Subclasses give
+    ``_neg``, ``_mul``, ``_div`` and ``_sub`` on their own values. ``let``
+    names a value that two expressions use (only text needs to)."""
+
+    def let(self, a):
+        return a
+
+    def neg(self, a):
+        return -a if isinstance(a, float) else self._neg(a)
+
+    def mul(self, a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return float(np.float32(a) * np.float32(b))
+        for x, y in ((a, b), (b, a)):
+            if isinstance(x, float) and x == 1.0:
+                return y
+            if isinstance(x, float) and x == -1.0:
+                return self.neg(y)
+        return self._mul(a, b)
+
+    def div(self, a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return float(np.float32(a) / np.float32(b))
+        return self._div(a, b)
+
+    def sub(self, a, b):
+        if isinstance(a, float) and isinstance(b, float):
+            return float(np.float32(a) - np.float32(b))
+        return self._sub(a, b)
+
+
+class _TorchOps(_Folding):
     """:func:`_pullback` on tensors (and the Python floats of constants)."""
 
-    neg = staticmethod(lambda a: -a)
-    mul = staticmethod(lambda a, b: a * b)
-    div = staticmethod(lambda a, b: a / b)
+    _neg = staticmethod(lambda a: -a)
+    _mul = staticmethod(lambda a, b: a * b)
+    _div = staticmethod(lambda a, b: a / b)
+    _sub = staticmethod(lambda a, b: a - b)
     lt = staticmethod(lambda a, b: a < b)
     gt = staticmethod(lambda a, b: a > b)
     sin = staticmethod(ops.sin)
@@ -291,34 +342,44 @@ class _TorchOps:
     select = staticmethod(ops.where)
 
 
-class _CppOps:
-    """:func:`_pullback` as C++ expressions over the emitted names."""
-
-    @staticmethod
-    def _s(v) -> str:
-        return v if isinstance(v, str) else _literal(v)
-
-    neg = classmethod(lambda c, a: f"(-{c._s(a)})")
-    mul = classmethod(lambda c, a, b: f"({c._s(a)} * {c._s(b)})")
-    div = classmethod(lambda c, a, b: f"({c._s(a)} / {c._s(b)})")
-    lt = classmethod(lambda c, a, b: f"({c._s(a)} < {c._s(b)})")
-    gt = classmethod(lambda c, a, b: f"({c._s(a)} > {c._s(b)})")
-    sin = classmethod(lambda c, a: f"sinf({c._s(a)})")
-    cos = classmethod(lambda c, a: f"cosf({c._s(a)})")
-    select = classmethod(lambda c, m, a, b: f"({m} ? {c._s(a)} : {c._s(b)})")
+def _s(v) -> str:
+    return v if isinstance(v, str) else _literal(v)
 
 
-class _CountOps:
-    """:func:`_pullback` with every expression counted as one operation."""
+class _CppOps(_Folding):
+    """:func:`_pullback` as C++ expressions over the emitted names; ``let``
+    appends a line to ``lines``."""
+
+    def __init__(self, lines: list):
+        self.lines = lines
+
+    def let(self, a):
+        self.lines.append(f"const float t{len(self.lines)} = {_s(a)};")
+        return f"t{len(self.lines) - 1}"
+
+    _neg = staticmethod(lambda a: f"(-{a})")
+    _mul = staticmethod(lambda a, b: f"({_s(a)} * {_s(b)})")
+    _div = staticmethod(lambda a, b: f"({_s(a)} / {_s(b)})")
+    _sub = staticmethod(lambda a, b: f"({_s(a)} - {_s(b)})")
+    lt = staticmethod(lambda a, b: f"({_s(a)} < {_s(b)})")
+    gt = staticmethod(lambda a, b: f"({_s(a)} > {_s(b)})")
+    sin = staticmethod(lambda a: f"sinf({_s(a)})")
+    cos = staticmethod(lambda a: f"cosf({_s(a)})")
+    select = staticmethod(lambda m, a, b: f"({m} ? {_s(a)} : {_s(b)})")
+
+
+class _CountOps(_Folding):
+    """:func:`_pullback` with every expression counted as one operation.
+    Values are the placeholder ``"x"``; only literals are floats."""
 
     def __init__(self):
         self.n = 0
 
     def _one(self, *_):
         self.n += 1
-        return 0.0
+        return "x"
 
-    neg = mul = div = lt = gt = sin = cos = select = _one
+    _neg = _mul = _div = _sub = lt = gt = sin = cos = select = _one
 
 
 # Nodes that pass no cotangent on: none is accumulated for them.
@@ -347,27 +408,38 @@ def _reverse(program: Program, live, seeds, values, be, add, leaf):
             continue
         deps = node[1:]
         args = [values[j] for j in deps]
-        for j, gj in zip(deps, _pullback(op, totals[i], values[i], args, be)):
-            if gj is not None and program.nodes[j][0] not in _NO_COTANGENT:
+        want = [program.nodes[j][0] not in _NO_COTANGENT for j in deps]
+        if op == "mul" and deps[0] == deps[1]:
+            # A square: g*a + g*a and 2*(g*a) are the same float.
+            pulled = (be.mul(2.0, be.mul(totals[i], args[0])), None)
+        else:
+            pulled = _pullback(op, totals[i], values[i], args, be, want)
+        for j, gj, wanted in zip(deps, pulled, want):
+            if wanted and gj is not None:
                 totals[j] = add(j, gj)
 
 
-def run_vjp(program: Program, p: V3, params: torch.Tensor, cotangents,
-            want_color: bool = True):
-    """The program's adjoint as torch ops, the counterpart of :func:`run`.
+def _gather_slots(node, values, shape):
+    """Per point, the flat parameter slot a gather read and whether it read
+    one: (slot, hit), both flattened to the points."""
+    _, base, rows, channel, pos = node
+    k = values[pos]
+    valid = (k >= 0) & (k < rows) & (k == torch.floor(k))
+    slot = base + 3 * torch.where(valid, k, torch.zeros_like(k)).long() + channel
+    return (torch.broadcast_to(slot, shape).reshape(-1),
+            torch.broadcast_to(valid, shape).reshape(-1))
 
-    ``cotangents`` is the distance's cotangent, or ``(gr, gg, gb, gd)`` with
-    ``want_color``; each has the points' shape. Returns ``(gp, gparams)``:
-    the cotangent of the points as a V3 and of the flat parameter buffer,
-    summed over the points."""
-    live = program.eval_live if want_color else program.dist_live
+
+def _run_reverse(program: Program, live, p: V3, params: torch.Tensor, seeds, param_leaf):
+    """The reverse sweep as torch ops: returns the points' cotangent.
+    ``seeds`` are the (node id, cotangent) pairs of the outputs, and
+    ``param_leaf(node, values, total)`` receives the total of a parameter or
+    a gather, broadcast to the points' shape."""
     with torch.no_grad():
         x = torch.broadcast_tensors(p.x, p.y, p.z)
         values = _forward(program, live, V3(*x), params)
-
         zero = torch.zeros_like(x[0])
         gp = [zero, zero, zero]
-        gparams = torch.zeros_like(params)
         totals = {}
 
         def add(i, g):
@@ -379,56 +451,106 @@ def run_vjp(program: Program, p: V3, params: torch.Tensor, cotangents,
         def leaf(i, node, total):
             if node[0] == "input":
                 gp[node[1]] = total
-            elif node[0] == "param":
-                gparams[node[1]] += total.sum()
             else:
-                _, base, rows, channel, pos = node
-                k = values[pos]
-                valid = (k >= 0) & (k < rows) & (k == torch.floor(k))
-                slot = base + 3 * torch.where(valid, k, torch.zeros_like(k)).long() + channel
-                slot = torch.broadcast_to(slot, zero.shape).reshape(-1)
-                hit = torch.broadcast_to(valid, zero.shape).reshape(-1)
-                gparams.index_add_(0, slot, torch.where(hit, total.reshape(-1), 0.0))
+                param_leaf(node, values, total)
 
-        if want_color:
-            gr, gg, gb, gd = cotangents
-            seeds = [*zip(program.color, (gr, gg, gb)), (program.dist, gd)]
+        _reverse(program, live, seeds, values, _TorchOps(), add, leaf)
+    return V3(*gp)
+
+
+def run_vjp(program: Program, p: V3, params: torch.Tensor, cotangents,
+            want_color: bool = True):
+    """The program's adjoint as torch ops, the counterpart of :func:`run`.
+
+    ``cotangents`` is the distance's cotangent, or ``(gr, gg, gb, gd)`` with
+    ``want_color``; each has the points' shape. Returns ``(gp, gparams)``:
+    the cotangent of the points as a V3 and of the flat parameter buffer,
+    summed over the points."""
+    live = program.eval_live if want_color else program.dist_live
+    gparams = torch.zeros_like(params)
+
+    def param_leaf(node, values, total):
+        if node[0] == "param":
+            gparams[node[1]] += total.sum()
         else:
-            seeds = [(program.dist, cotangents)]
-        _reverse(program, live, seeds, values, _TorchOps, add, leaf)
-    return V3(*gp), gparams
+            slot, hit = _gather_slots(node, values, total.shape)
+            gparams.index_add_(0, slot, torch.where(hit, total.reshape(-1), 0.0))
+
+    if want_color:
+        gr, gg, gb, gd = cotangents
+        seeds = [*zip(program.color, (gr, gg, gb)), (program.dist, gd)]
+    else:
+        seeds = [(program.dist, cotangents)]
+    return _run_reverse(program, live, p, params, seeds, param_leaf), gparams
+
+
+def run_unit(program: Program, p: V3, params: torch.Tensor):
+    """The distance's adjoint for a cotangent of one at every point, as torch
+    ops: the plain version of the emitted ``sdf_dist_unit``. Returns ``(u,
+    uparams)``: the distance's gradient in the point as a V3, and in the flat
+    parameter buffer as ``(n_params, *points)``, one column per point and not
+    summed. ``run_vjp(..., g, want_color=False)`` is ``g * u`` and the sum
+    over the points of ``g * uparams``."""
+    shape = torch.broadcast_shapes(p.x.shape, p.y.shape, p.z.shape)
+    uparams = torch.zeros((params.numel(), math.prod(shape)), dtype=params.dtype,
+                          device=params.device)
+
+    def param_leaf(node, values, total):
+        if node[0] == "param":
+            uparams[node[1]] += total.reshape(-1)
+        else:
+            slot, hit = _gather_slots(node, values, total.shape)
+            points = torch.arange(slot.numel(), device=slot.device)
+            uparams.index_put_((slot, points), torch.where(hit, total.reshape(-1), 0.0),
+                               accumulate=True)
+
+    u = _run_reverse(program, program.dist_live, p, params, [(program.dist, 1.0)], param_leaf)
+    return u, uparams.reshape(params.numel(), *shape)
 
 
 def operation_counts(program: Program) -> dict:
     """Scalar operations of one call of each emitted function, for a bound on
     the kernels' work: one per arithmetic node (a division, a square root, a
     select or a palette load counts as one), and for an adjoint its forward
-    recompute plus every expression and accumulation of its reverse sweep."""
+    recompute plus every expression and accumulation of its reverse sweep.
+    ``dist_unit`` is ``sdf_dist_unit`` with one accumulation per parameter
+    slot it reaches (``dist_slots`` of them, ``SDF_N_DIST_SLOTS`` in the
+    emitted source). These are nodes of the program, not instructions: the
+    card issues several for an IEEE division or square root (``PERF.md`` has
+    the measured ratio)."""
     def forward(live):
         return sum(program.nodes[i][0] not in ("const", "input", "param") for i in live)
 
-    def reverse(live, roots):
+    def reverse(live, seeds):
+        """(operations, parameter slots reached) of one reverse sweep."""
         be = _CountOps()
         seen = set()
+        slots = set()
 
         def add(i, g):
             be.n += i in seen
             seen.add(i)
-            return 0.0
+            return "x"
 
         def leaf(i, node, total):
-            be.n += 3 if node[0] == "input" else 1 if node[0] == "param" else 2 * node[2]
+            if node[0] == "input":
+                be.n += 3
+            elif node[0] == "param":
+                be.n += 1
+                slots.add(node[1])
+            else:
+                _, base, rows, channel, _ = node
+                be.n += 2 * rows
+                slots.update(base + 3 * t + channel for t in range(rows))
 
-        _reverse(program, live, [(r, 0.0) for r in roots], dict.fromkeys(live, 0.0), be, add, leaf)
-        return be.n
+        _reverse(program, live, seeds, dict.fromkeys(live, "x"), be, add, leaf)
+        return be.n, slots
 
     dist, both = forward(program.dist_live), forward(program.eval_live)
-    return {
-        "dist": dist,
-        "eval": both,
-        "dist_vjp": dist + reverse(program.dist_live, [program.dist]),
-        "eval_vjp": both + reverse(program.eval_live, [*program.color, program.dist]),
-    }
+    eval_vjp, _ = reverse(program.eval_live, [(r, "x") for r in (*program.color, program.dist)])
+    dist_unit, slots = reverse(program.dist_live, [(program.dist, 1.0)])
+    return {"dist": dist, "eval": both, "dist_unit": dist + dist_unit,
+            "eval_vjp": both + eval_vjp, "dist_slots": len(slots)}
 
 
 # ---------------------------------------------------------------------------
@@ -447,12 +569,38 @@ def _literal(v: float) -> str:
     return f"{np.float32(v):.9e}f"
 
 
+def _uniform(program: Program, live) -> set:
+    """The nodes of ``live`` that do not depend on the point: parameters,
+    constants and what is computed from them alone. They are the same for
+    every evaluation of a launch."""
+    uniform = set()
+    for i in live:
+        node = program.nodes[i]
+        if node[0] in ("const", "param") or (
+                node[0] not in ("input", "gather") and all(j in uniform for j in node[1:])):
+            uniform.add(i)
+    return uniform
+
+
 def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[str], dict]:
     """The forward lines of ``live`` and each node's C++ name. With
     ``keep_rows`` a gather also leaves its palette row in ``k<id>`` (-1 for
-    no row), which the adjoint reads."""
+    no row), which the adjoint reads.
+
+    A division by a uniform value ``c`` (the cell size of a repetition, under
+    a ``floor``) is written as the tail of the IEEE division with the
+    reciprocal taken first: ``rc = 1 / c`` correctly rounded, ``q = x * rc``,
+    ``r = fma(-c, q, x)``, ``fma(r, rc, q)``. With a correctly rounded
+    reciprocal and an exact residual this is the correctly rounded ``x / c``
+    for every normal ``c`` whose reciprocal is normal (Markstein's theorem),
+    so the function computed is the one :func:`run` computes with ``/``. The
+    reciprocal depends on ``c`` alone, so the compiler lifts it out of a
+    march loop, where the full division (a reciprocal seed, two Newton steps
+    and a range check) was paid once per evaluation."""
     names = {}
     lines = []
+    uniform = _uniform(program, live)
+    reciprocals = set()
     for i in live:
         node = program.nodes[i]
         op = node[0]
@@ -489,6 +637,13 @@ def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[st
             lines.append(f"const float {v} = -{a[0]};")
         elif op in _CPP_CALL:
             lines.append(f"const float {v} = {_CPP_CALL[op]}({', '.join(a)});")
+        elif op == "div" and node[2] in uniform and node[1] not in uniform:
+            c = node[2]
+            if c not in reciprocals:
+                reciprocals.add(c)
+                lines.append(f"const float rc{c} = 1.0f / {a[1]};")
+            lines.append(f"const float q{i} = {a[0]} * rc{c};")
+            lines.append(f"const float {v} = fmaf(fmaf(-{a[1]}, q{i}, {a[0]}), rc{c}, q{i});")
         else:
             ty = "bool" if program.is_bool[i] else "float"
             lines.append(f"const {ty} {v} = {a[0]} {_CPP_BINARY[op]} {a[1]};")
@@ -524,61 +679,83 @@ def emit_cpp(program: Program) -> str:
     return "\n".join(out)
 
 
-def _emit_vjp(program: Program, live, seeds) -> list[str]:
+def _emit_reverse(program: Program, live, seeds, param_leaf) -> list[str]:
     """The body of one adjoint function: forward recompute, then the reverse
-    sweep. Cotangents are ``a<id>``; the point's go to gx, gy, gz and the
-    parameters' are added to ``gP[slot]``."""
+    sweep. Cotangents are ``a<id>``; the point's go to ``*gpx, *gpy, *gpz``
+    and ``param_leaf(lines, slot, expression)`` writes a parameter's."""
     lines, names = _emit_body(program, live, keep_rows=True)
     lines.append("float gx = 0.0f, gy = 0.0f, gz = 0.0f;")
     declared = set()
 
     def add(i, g):
-        g = _CppOps._s(g)
         if i in declared:
-            lines.append(f"a{i} += {g};")
+            lines.append(f"a{i} += {_s(g)};")
         else:
             declared.add(i)
-            lines.append(f"float a{i} = {g};")
+            lines.append(f"float a{i} = {_s(g)};")
         return f"a{i}"
 
     def leaf(i, node, total):
         if node[0] == "input":
             lines.append(f"g{'xyz'[node[1]]} = {total};")
         elif node[0] == "param":
-            lines.append(f"gP[{node[1]}] += {total};")
+            param_leaf(lines, node[1], total)
         else:
             # A run-time slot index would force the whole of gP out of
             # registers, so a palette of T rows costs T compare-and-adds per
             # channel here (the one-hot blend's VJP in the JAX package).
             _, base, rows, channel, _ = node
             for t in range(rows):
-                lines.append(f"gP[{base + 3 * t + channel}] += (k{i} == {t}) ? {total} : 0.0f;")
+                param_leaf(lines, base + 3 * t + channel, f"((k{i} == {t}) ? {total} : 0.0f)")
 
-    _reverse(program, live, seeds, names, _CppOps, add, leaf)
+    _reverse(program, live, seeds, names, _CppOps(lines), add, leaf)
     lines += ["*gpx = gx;", "*gpy = gy;", "*gpz = gz;", f"return {names[program.dist]};"]
     return lines
 
 
 def emit_vjp_cpp(program: Program) -> str:
-    """``sdf_dist_vjp`` and ``sdf_eval_vjp`` as C++ for host and device:
-    each recomputes its forward at the point, then runs the reverse sweep in
-    the same straight-line function. They set ``*gpx, *gpy, *gpz`` to the
-    point's cotangent, add the parameters' cotangents to ``gP[slot]`` and
-    return the distance."""
-    head = "__host__ __device__ __forceinline__ float"
-    dist = _emit_vjp(program, program.dist_live, [(program.dist, "g")])
+    """The adjoints as C++ for host and device; each recomputes its forward
+    at the point, then runs the reverse sweep in the same straight-line
+    function, sets ``*gpx, *gpy, *gpz`` and returns the distance.
+
+    * ``sdf_eval_vjp`` takes the cotangents of colour and distance; the
+      point's cotangent is set and the parameters' are added to ``gP[slot]``.
+    * ``sdf_dist_unit`` is the distance's adjoint for a cotangent of one: it
+      sets the distance's gradient in the point, and in the parameters it
+      reaches as ``uP[0..SDF_N_DIST_SLOTS)``, one entry per slot that the
+      distance depends on. ``sdf_dist_unit_add(g, uP, gP)`` adds ``g`` times
+      those to ``gP[slot]``. The kernels use it wherever the cotangent is a
+      scalar that is known late (a march step's, a normal tap's): the unit
+      form does not wait for it."""
+    head = "__host__ __device__ __forceinline__"
+    slots: dict[int, int] = {}  # parameter slot -> its place in uP
+
+    def unit_leaf(lines, slot, total):
+        if slot in slots:
+            lines.append(f"uP[{slots[slot]}] += {total};")
+        else:
+            slots[slot] = len(slots)
+            lines.append(f"uP[{slots[slot]}] = {total};")
+
+    unit = _emit_reverse(program, program.dist_live, [(program.dist, 1.0)], unit_leaf)
     seeds = [*zip(program.color, ("gr", "gg", "gb")), (program.dist, "gd")]
-    both = _emit_vjp(program, program.eval_live, seeds)
+    both = _emit_reverse(program, program.eval_live, seeds,
+                         lambda lines, slot, total: lines.append(f"gP[{slot}] += {total};"))
     out = [
         "// Scene adjoint emitted by sdfkit_tpu_torch.sdf.compile.",
         f"#define SDF_N_PARAMS {program.n_params}",
-        f"{head} sdf_dist_vjp(float px, float py, float pz, const float* __restrict__ P,",
-        "                     float g, float* gpx, float* gpy, float* gpz,",
-        "                     float* __restrict__ gP) {",
-        *(f"  {ln}" for ln in dist),
+        f"#define SDF_N_DIST_SLOTS {len(slots)}",
+        f"{head} float sdf_dist_unit(float px, float py, float pz, const float* __restrict__ P,",
+        "                     float* gpx, float* gpy, float* gpz, float* __restrict__ uP) {",
+        *(f"  {ln}" for ln in unit),
         "}",
         "",
-        f"{head} sdf_eval_vjp(float px, float py, float pz, const float* __restrict__ P,",
+        f"{head} void sdf_dist_unit_add(float g, const float* __restrict__ uP,",
+        "                     float* __restrict__ gP) {",
+        *(f"  gP[{slot}] += g * uP[{k}];" for slot, k in slots.items()),
+        "}",
+        "",
+        f"{head} float sdf_eval_vjp(float px, float py, float pz, const float* __restrict__ P,",
         "                     float gr, float gg, float gb, float gd,",
         "                     float* gpx, float* gpy, float* gpz, float* __restrict__ gP) {",
         *(f"  {ln}" for ln in both),
@@ -589,4 +766,4 @@ def emit_vjp_cpp(program: Program) -> str:
 
 
 __all__ = ["Program", "compile_scene", "emit_cpp", "emit_vjp_cpp", "flat_params",
-           "operation_counts", "run", "run_vjp", "trace"]
+           "operation_counts", "run", "run_unit", "run_vjp", "trace"]

@@ -6,7 +6,15 @@ cotangents for (r, g, b, distance) go through
 * ``run_vjp``, the adjoint as torch ops;
 * torch autograd of the port's ``expr.eval``;
 * ``jax.vjp`` of the JAX package's ``eval`` (eager, op by op, on the CPU);
-* the emitted ``sdf_eval_vjp`` / ``sdf_dist_vjp``, compiled with g++.
+* the emitted ``sdf_eval_vjp`` and ``sdf_dist_unit``, compiled with g++.
+
+The distance's adjoint is emitted in unit form (``sdf_dist_unit``: the
+gradient for a cotangent of one, which the kernels scale by a seed); its torch
+counterpart is ``run_unit``. Both are held to ``run_vjp`` with a seeded
+cotangent at rtol 1e-6 plus 1e-6 of the point's largest entry: a vjp is
+linear in its seed, and scaling after the sweep moves one rounding per
+product, which an entry that sums products of opposite sign (a rotation's
+angle) keeps at the products' size.
 
 The points' cotangents are per point and are held at rtol 1e-5 / atol 1e-6.
 The parameters' cotangents are sums over the 1024 points, which each program
@@ -30,7 +38,7 @@ import torch
 import sdfkit_tpu_torch as st
 import torch_parity as tp
 from sdfkit_tpu.utils.v3 import V3 as JV
-from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params, run_vjp
+from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params, run_unit, run_vjp
 from sdfkit_tpu_torch.utils.v3 import V3
 from test_torch_kernel_host import SHIM, _gxx
 
@@ -113,17 +121,24 @@ def test_run_vjp_matches_jax_vjp(name):
     np.testing.assert_allclose(gparams, flat(tp.jax_leaf_grads(g_expr)), rtol=1e-5, atol=SUM_ATOL)
 
 
-def test_emitted_adjoints_match_run_vjp(tmp_path):
-    """Every node type through the adjoint emitter: one translation unit
-    holds each scene in its own namespace; per point it writes the point's
-    cotangent, the distance and that point's parameter cotangents."""
+@pytest.fixture(scope="module")
+def emitted(tmp_path_factory):
+    """name -> (expr, gp, dist, gparams) from the g++ build of every scene's
+    emitted adjoints: one translation unit holds each scene in its own
+    namespace. Per point, entry 0 is ``sdf_eval_vjp`` with the four seeded
+    cotangents and entry 1 ``sdf_dist_unit`` scaled by the distance's
+    (``sdf_dist_unit_add`` for the parameters): the point's cotangent (3),
+    the distance, and that point's parameter cotangents."""
     if shutil.which("g++") is None:
         pytest.skip("no host C++ compiler (g++) to build the emitted code")
+    tmp_path = tmp_path_factory.mktemp("adjoints")
     exprs = [tp.build(name, perturb_seed=5)[1] for name in tp.NAMES]
     parts = [SHIM]
     for i, expr in enumerate(exprs):
         prog = compile_scene(expr)
-        parts.append(f"namespace s{i} {{\n{prog.source}\n{prog.adjoint_source}}}\n#undef SDF_N_PARAMS\n")
+        parts.append(f"namespace s{i} {{\n{prog.source}\n{prog.adjoint_source}\n"
+                     f"const int n_slots = SDF_N_DIST_SLOTS;\n}}\n"
+                     f"#undef SDF_N_PARAMS\n#undef SDF_N_DIST_SLOTS\n")
         parts.append(
             f'extern "C" void vjp_{i}(const float* P, const float* pts, const float* cot, int n,\n'
             f"                       int n_params, float* gp, float* dist, float* gP) {{\n"
@@ -132,13 +147,17 @@ def test_emitted_adjoints_match_run_vjp(tmp_path):
             f"    dist[2 * k] = s{i}::sdf_eval_vjp(pts[3 * k], pts[3 * k + 1], pts[3 * k + 2], P,\n"
             f"        cot[k], cot[n + k], cot[2 * n + k], cot[3 * n + k], e, e + 1, e + 2,\n"
             f"        gP + (long)(2 * k) * n_params);\n"
-            f"    dist[2 * k + 1] = s{i}::sdf_dist_vjp(pts[3 * k], pts[3 * k + 1], pts[3 * k + 2], P,\n"
-            f"        cot[3 * n + k], e + 3, e + 4, e + 5, gP + (long)(2 * k + 1) * n_params);\n"
+            f"    float uP[s{i}::n_slots + 1];\n"
+            f"    dist[2 * k + 1] = s{i}::sdf_dist_unit(pts[3 * k], pts[3 * k + 1], pts[3 * k + 2], P,\n"
+            f"        e + 3, e + 4, e + 5, uP);\n"
+            f"    for (int c = 3; c < 6; ++c) e[c] *= cot[3 * n + k];\n"
+            f"    s{i}::sdf_dist_unit_add(cot[3 * n + k], uP, gP + (long)(2 * k + 1) * n_params);\n"
             f"  }}\n}}\n"
         )
     src = tmp_path / "all_adjoints.cc"
     src.write_text("".join(parts))
     lib = _gxx(src, tmp_path / "all_adjoints.so")
+    results = {}
     for i, (name, expr) in enumerate(zip(tp.NAMES, exprs)):
         fn = getattr(lib, f"vjp_{i}")
         fn.restype = None
@@ -150,6 +169,13 @@ def test_emitted_adjoints_match_run_vjp(tmp_path):
         gparams = np.zeros((N, 2, n_params), np.float32)
         fn(params.data_ptr(), POINTS.ctypes.data, COTANGENTS.ctypes.data, N, n_params,
            gp.ctypes.data, dist.ctypes.data, gparams.ctypes.data)
+        results[name] = (expr, gp, dist, gparams)
+    return results
+
+
+def test_emitted_adjoints_match_run_vjp(emitted):
+    """Every node type through the adjoint emitter, seeded and unit form."""
+    for name, (expr, gp, dist, gparams) in emitted.items():
         with torch.no_grad():
             ref_dist = expr(torch.from_numpy(POINTS)).numpy()[:, 3]
         for k, want_color in enumerate((True, False)):
@@ -158,6 +184,56 @@ def test_emitted_adjoints_match_run_vjp(tmp_path):
             np.testing.assert_allclose(gp[:, k], ref_gp, rtol=1e-5, atol=1e-6, err_msg=name)
             np.testing.assert_allclose(gparams[:, k].astype(np.float64).sum(axis=0), ref_gparams,
                                        rtol=1e-5, atol=SUM_ATOL, err_msg=name)
+
+
+def assert_rows_close(got, want):
+    """rtol 1e-6 plus 1e-6 of each row's largest entry (module docstring)."""
+    bound = 1e-6 * np.abs(want) + 1e-6 * np.abs(want).max(axis=-1, keepdims=True) + 1e-30
+    worst = float((np.abs(got - want) / bound).max())
+    assert worst <= 1.0, f"{worst:.3g} times the bound"
+
+
+def seeded_distance_vjp(texpr):
+    """run_vjp of the distance per point: (gp (N, 3), gparams (N, n_params)),
+    the parameters' cotangents not summed (one point per call)."""
+    program, params = compile_scene(texpr), flat_params(texpr).detach()
+    gp, gparams = adjoint(texpr, COTANGENTS, want_color=False)
+    rows = np.zeros((N, params.numel()), np.float32)
+    pts = torch.from_numpy(POINTS)
+    for k in range(0, N, 64):  # every 64th point: one run_vjp call per point is slow
+        _, g = run_vjp(program, V3.from_array(pts[k:k + 1]), params,
+                       torch.from_numpy(COTANGENTS[3, k:k + 1]), want_color=False)
+        rows[k] = g.numpy()
+    return gp, gparams, rows
+
+
+@pytest.mark.parametrize("name", tp.NAMES)
+def test_unit_pullback_times_a_seed_is_run_vjp(name):
+    """``run_unit`` scaled by the distance's cotangent against ``run_vjp``
+    seeded with it: per point for the point's cotangent and (every 64th
+    point) the parameters', and summed over the points."""
+    _, texpr = tp.build(name, perturb_seed=5)
+    u, uparams = run_unit(compile_scene(texpr), V3.from_array(torch.from_numpy(POINTS)),
+                          flat_params(texpr).detach())
+    seed = COTANGENTS[3]
+    gp, gparams, rows = seeded_distance_vjp(texpr)
+    got_gp = np.stack([seed * np.broadcast_to(c.numpy(), (N,)) for c in (u.x, u.y, u.z)], -1)
+    assert_rows_close(got_gp, gp)
+    scaled = uparams.numpy().astype(np.float64) * seed
+    assert_rows_close(scaled[:, ::64].T, rows[::64])
+    np.testing.assert_allclose(scaled.sum(axis=1), gparams, rtol=1e-5, atol=SUM_ATOL)
+
+
+@pytest.mark.parametrize("name", tp.NAMES)
+def test_emitted_unit_pullback_times_a_seed_is_run_vjp(emitted, name):
+    """The g++ build of ``sdf_dist_unit`` / ``sdf_dist_unit_add`` scaled by
+    the distance's cotangent against ``run_vjp`` seeded with it."""
+    expr, gp, _, gparams = emitted[name]
+    ref_gp, ref_gparams, rows = seeded_distance_vjp(expr)
+    assert_rows_close(gp[:, 1], ref_gp)
+    assert_rows_close(gparams[::64, 1], rows[::64])
+    np.testing.assert_allclose(gparams[:, 1].astype(np.float64).sum(axis=0), ref_gparams,
+                               rtol=1e-5, atol=SUM_ATOL)
 
 
 def test_where_selects_the_cotangent():
@@ -185,5 +261,6 @@ def test_min_max_tie_splits_the_cotangent():
 
 def test_forward_source_and_hash_do_not_hold_the_adjoint():
     prog = compile_scene(tp.build("sphere_repeat")[1])
-    assert "_vjp" not in prog.source and "sdf_dist_vjp" in prog.adjoint_source
+    assert "_vjp" not in prog.source and "_unit" not in prog.source
+    assert "sdf_dist_unit" in prog.adjoint_source and "sdf_eval_vjp" in prog.adjoint_source
     assert prog.hash != prog.adjoint_hash and len(prog.adjoint_hash) == 16

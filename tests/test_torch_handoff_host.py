@@ -192,10 +192,11 @@ def test_a_store_needs_the_library_built_for_it():
 
 
 def test_a_store_lifts_the_iteration_limit_of_the_backward(host_kernels):
-    """The replay keeps its history in a per-thread array of
-    ``MAX_BWD_ITERS`` floats; the store-fed form has no such array."""
+    """Neither form has a limit: the store-fed form reads every depth from the
+    store, the replay keeps one segment of 64 at a time and replays for each.
+    At 70 iterations (two segments) the two are equal bit for bit."""
     _, texpr = tp.build("plane_xy")  # every ray hits: a miss would overflow float32 by step 70
-    cfg = RenderConfig(8, 6, depth_iterations=build.MAX_BWD_ITERS + 6)
+    cfg = RenderConfig(8, 6, depth_iterations=70)
     program, params, v19 = launch_args(texpr, cfg)
     out, store = forward_with_store(texpr, cfg, False)
     assert float(out.max()) < 50.0
@@ -203,3 +204,5 @@ def test_a_store_lifts_the_iteration_limit_of_the_backward(host_kernels):
     fed = rk.launch_bwd(build.load_bwd(program, store=True), params, v19, cfg, False, grad,
                         store=store)
     assert np.isfinite(fed.numpy()).all() and float(fed.abs().max()) > 0
+    replay = rk.launch_bwd(build.load_bwd(program), params, v19, cfg, False, grad)
+    np.testing.assert_array_equal(fed.numpy(), replay.numpy())

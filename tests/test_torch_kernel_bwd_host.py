@@ -36,7 +36,6 @@ such steps per pixel. Two things widen them here, each by what was measured:
 
 import functools
 import shutil
-import types
 
 import jax
 import jax.numpy as jnp
@@ -46,14 +45,16 @@ import torch
 
 import sdfkit_tpu_torch as st
 import torch_parity as tp
-from sdfkit_tpu_torch.render.cuda import build
 from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
 from sdfkit_tpu_torch.render.raymarch import (
     RenderConfig,
     render_depth_image_torch,
+    render_depth_rays,
     render_image_torch,
+    render_rays,
 )
 from sdfkit_tpu_torch.sdf.compile import compile_scene
+from sdfkit_tpu_torch.utils.camera import camera_rays
 from torch_host import host_libraries, patch_kernels
 
 torch.set_num_threads(1)
@@ -109,7 +110,8 @@ def jax_grads(jexpr, view, cfg, want_color, backend):
     from sdfkit_tpu.render.pallas import raymarch_kernel as jrk
     from sdfkit_tpu.utils.camera import camera_rays
 
-    jcfg = jrm.RenderConfig(width=cfg.width, height=cfg.height)
+    jcfg = jrm.RenderConfig(width=cfg.width, height=cfg.height,
+                            depth_iterations=cfg.depth_iterations)
 
     def loss(s, v):
         if backend == "fused":
@@ -248,8 +250,97 @@ def test_row_band_pullbacks_sum_to_the_frame(host_libs):
     np.testing.assert_allclose(band(0, 5 * 24) + band(5 * 24, 11 * 24), whole, rtol=1e-12, atol=1e-12)
 
 
-def test_march_iterations_above_the_history_raise():
-    cfg = RenderConfig(8, 4, depth_iterations=build.MAX_BWD_ITERS + 1)
-    z = torch.zeros(1)
-    with pytest.raises(ValueError, match="depth history"):
-        rk.launch_bwd(types.SimpleNamespace(), z, z, cfg, True, z)
+# -- marches longer than one segment of the kept depths ------------------------
+#
+# The replay keeps 64 depths (``kSdfHistory`` of ``csrc/raymarch_bwd.cuh``) and
+# sweeps a longer march segment by segment, each after a replay of its own; 70
+# iterations are two segments (5 + 64 steps), 80 are 15 + 64. The JAX package
+# takes any count. The scene is a plane that every ray hits: a ray that
+# misses doubles its depth each step and leaves float32 by step 70. It is seen
+# from z = 2: the eps=1e-5 taps at a point x carry ulp(x) / 2e-5 of rounding
+# into the gradient of the plane's normal, which from z = 5 (points out to
+# |x| = 3) puts the plain path and JAX 1.0e-2 of the largest entry apart.
+
+LONG_SIZE = (8, 6)
+
+
+def long_march_grads(expr, iters, want_color, path, through, rays=None):
+    """Gradients of the loss at ``iters`` march iterations: every leaf, then
+    the 4x4 view (``path="image"``) or the rays' origins and directions
+    (``"rays"``: ``rays``, or the 8x6 camera rays as arrays). ``through`` is ``"kernel"``
+    (the host-built kernel bodies behind the autograd nodes), ``"torch"``
+    (autograd of the plain path) or ``"jax"`` (``jax.grad`` of the jnp path)."""
+    w, h = LONG_SIZE
+    view = st.look_at((0.3, 0.2, 2.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = RenderConfig(w, h, depth_iterations=iters)
+    if path == "image":
+        if through == "jax":
+            return jax_grads(expr, view, cfg, want_color, "jnp")
+        return port_grads(expr, view, cfg, want_color, through)
+    if rays is None:
+        with torch.no_grad():
+            ro, rd = camera_rays(w, h, view)
+        ro = np.stack([c.expand(h, w).numpy() for c in (ro.x, ro.y, ro.z)], -1).copy()
+        rd = np.stack([c.numpy() for c in (rd.x, rd.y, rd.z)], -1).copy()
+    else:
+        ro, rd = rays
+    if through == "jax":
+        from sdfkit_tpu.render import raymarch as jrm
+
+        jcfg = jrm.RenderConfig(width=w, height=h, depth_iterations=iters)
+        fn = jrm.render_rays if want_color else jrm.render_depth_rays
+        gs, go, gd = jax.grad(lambda s, o, d: j_loss(fn(s, o, d, jcfg), want_color),
+                              argnums=(0, 1, 2))(expr, tp.jax_v3(ro), tp.jax_v3(rd))
+        g_rays = [np.asarray(c) for v in (go, gd) for c in (v.x, v.y, v.z)]
+        return tp.jax_leaf_grads(gs), np.stack(g_rays)
+    for q in st.leaves(expr):
+        q.grad = None
+    tro, trd = tp.torch_v3(ro, True), tp.torch_v3(rd, True)
+    if through == "kernel":
+        fn = rk.render_rays_kernel if want_color else rk.render_depth_rays_kernel
+    else:
+        fn = render_rays if want_color else render_depth_rays
+    t_loss(fn(expr, tro, trd, cfg), want_color).backward()
+    return tp.leaf_grads(expr), np.stack([c.grad.numpy() for v in (tro, trd)
+                                          for c in (v.x, v.y, v.z)])
+
+
+@pytest.mark.parametrize("iters", [70, 80])
+@pytest.mark.parametrize("path", ["image", "rays"])
+@pytest.mark.parametrize("want_color", [True, False], ids=["rgb", "depth"])
+def test_a_march_longer_than_the_kept_depths_differentiates(host_kernels, want_color, path, iters):
+    """Through ``_RenderImage`` and ``_RenderRays`` with the host-built kernel
+    bodies, against autograd of the plain path, and at 70 iterations against
+    the JAX package: the bounds of this module (the second entry is the view's
+    gradient or the rays' cotangents)."""
+    jexpr, texpr = tp.build("plane_xy")
+    got = long_march_grads(texpr, iters, want_color, path, "kernel")
+    launched = ("fwd", "bwd") if path == "image" else ("rays_fwd", "rays_bwd")
+    assert [host_kernels[k] for k in launched] == [1, 1]
+    assert host_kernels["store_fwd"] == host_kernels["store_bwd"] == 0
+    assert max(float(np.abs(g).max()) for g in got[0]) > 0 and float(np.abs(got[1]).max()) > 0
+    assert_grads_close(got, long_march_grads(texpr, iters, want_color, path, "torch"),
+                       exact_program=not want_color)
+    if iters == 70:
+        assert_grads_close(got, long_march_grads(jexpr, iters, want_color, path, "jax"))
+
+
+@pytest.mark.parametrize("iters", [65, 66, 129, 130])
+def test_segments_of_the_kept_depths_join(host_kernels, iters):
+    """One march step more or less than a whole number of segments (64 steps
+    are 65 iterations). On a ray that hits, a step's share of the gradient
+    falls off geometrically with the steps after it, so the early segments
+    would carry nothing. These rays skim a floor at a height of 0.3, nearly
+    level: every step advances by about 0.3 and (1 + grad d . rd) is about 1,
+    so every step of every segment carries the same share. Depth gradients
+    (130 steps end at a depth under 50) against autograd of the plain path."""
+    _, texpr = tp.build("plane_xz")  # the floor y = -0.2
+    rng = np.random.default_rng(17)
+    n = 24
+    ro = np.stack([rng.uniform(-1, 1, n), np.full(n, 0.1), np.full(n, 5.0)], -1).astype(np.float32)
+    rd = np.stack([rng.uniform(-0.1, 0.1, n), rng.uniform(-2e-3, 2e-3, n), -np.ones(n)], -1)
+    rd = (rd / np.linalg.norm(rd, axis=-1, keepdims=True)).astype(np.float32)
+    got = long_march_grads(texpr, iters, False, "rays", "kernel", (ro, rd))
+    ref = long_march_grads(texpr, iters, False, "rays", "torch", (ro, rd))
+    assert float(np.abs(ref[1]).max()) > 10.0 * iters  # the steps add up; they do not decay
+    assert_grads_close(got, ref, exact_program=True)

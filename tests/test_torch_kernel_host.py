@@ -12,6 +12,7 @@ differ by O(1), is held to the distributional contract.
 
 import ctypes
 import pathlib
+import re
 import shutil
 import subprocess
 
@@ -29,7 +30,8 @@ from sdfkit_tpu_torch.render.raymarch import (
     render_depth_image_torch,
     render_image_torch,
 )
-from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params
+from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params, run
+from sdfkit_tpu_torch.utils.v3 import V3
 
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
@@ -188,3 +190,66 @@ def test_emitted_scene_code_for_every_node_type(tmp_path):
         with torch.no_grad():
             ref = expr(torch.from_numpy(pts)).numpy()
         np.testing.assert_allclose(out, ref, rtol=1e-5, atol=1e-6, err_msg=name)
+
+
+def test_division_by_a_uniform_computes_the_plain_division(tmp_path):
+    """The emitter writes ``x / c`` with a parameter-only ``c`` (a
+    repetition's cell size) as a reciprocal taken once and two fused
+    multiply-adds. The g++ build of ``sdf_dist`` and ``sdf_eval`` against the
+    plain executor ``run``, which divides, at the tolerance of this module,
+    and bit for bit against the g++ build of the same source with the
+    division written back as ``/``. A parameter edit keeps both hashes."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to build the emitted code")
+    exprs = [tp.build(name, perturb_seed=5)[1] for name in tp.NAMES]
+    parts = [SHIM]
+    tail = re.compile(r"const float q(\d+) = (\w+) \* rc(\d+);\n\s*"
+                      r"const float v\1 = fmaf\(fmaf\(-([^,]+), q\1, \2\), rc\3, q\1\);")
+    for i, expr in enumerate(exprs):
+        source = compile_scene(expr).source
+        divided = tail.sub(r"const float v\1 = \2 / \4;", source)
+        assert ("const float rc" in source) == (divided != source) and " * rc" not in divided
+        for ns, text in ((f"s{i}", source), (f"d{i}", divided)):
+            parts.append(f"namespace {ns} {{\n{text}}}\n")
+        parts.append(
+            f'extern "C" void both_{i}(const float* P, const float* pts, int n, float* out) {{\n'
+            f"  for (int k = 0; k < n; ++k) {{\n"
+            f"    const float x = pts[3 * k], y = pts[3 * k + 1], z = pts[3 * k + 2];\n"
+            f"    float* o = out + 10 * k;\n"
+            f"    o[3] = s{i}::sdf_eval(x, y, z, P, o, o + 1, o + 2);\n"
+            f"    o[4] = s{i}::sdf_dist(x, y, z, P);\n"
+            f"    o[8] = d{i}::sdf_eval(x, y, z, P, o + 5, o + 6, o + 7);\n"
+            f"    o[9] = d{i}::sdf_dist(x, y, z, P);\n"
+            "  }\n}\n"
+        )
+    src = tmp_path / "uniform.cc"
+    src.write_text("".join(parts))
+    lib = _gxx(src, tmp_path / "uniform.so")
+    n = 4096
+    rng = np.random.default_rng(2)
+    pts = (rng.random((n, 3)) * 12 - 6).astype(np.float32)
+    pts[: n // 4] = np.round(pts[: n // 4] * 2) / 2  # cell borders and centres of the default sizes
+    hoisted = 0
+    for i, (name, expr) in enumerate(zip(tp.NAMES, exprs)):
+        program = compile_scene(expr)
+        fn = getattr(lib, f"both_{i}")
+        fn.restype = None
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+        params = flat_params(expr).detach().contiguous()
+        out = np.empty((n, 10), np.float32)
+        fn(params.data_ptr(), pts.ctypes.data, n, out.ctypes.data)
+        with torch.no_grad():
+            color, dist = run(program, V3.from_array(torch.from_numpy(pts)), params)
+            ref = np.stack([np.broadcast_to(np.asarray(c, np.float32), (n,))
+                            for c in (color.x, color.y, color.z, dist)], -1)
+        np.testing.assert_allclose(out[:, :4], ref, rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(out[:, 4], ref[:, 3], rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_array_equal(out[:, :5], out[:, 5:], err_msg=name)
+        hoisted += "= 1.0f / " in program.source
+        hashes = (program.hash, program.adjoint_hash)
+        with torch.no_grad():
+            for q in st.leaves(expr):
+                q.mul_(1.25)
+        edited = compile_scene(expr)
+        assert (edited.hash, edited.adjoint_hash) == hashes, name
+    assert hoisted >= 9  # every repetition divides by its cell size
