@@ -515,6 +515,24 @@ def main() -> int:
           f"the mostly-sky frame (one sphere, {lone_hits} of {WIDTH * HEIGHT} pixels hit) has a "
           f"finite gradient")
     del lone_frame, lone_cot, lone_grad
+    # A library's uniforms are one buffer in constant memory: two streams that
+    # render two parameter sets through it must not see each other's.
+    with torch.no_grad():
+        other_params = params * 0.9
+        alone = [rk.launch(lib, p, v19, cfg, True) for p in (params, other_params)]
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+        mixed = []
+        for _ in range(4):
+            for stream, p in zip(streams, (params, other_params)):
+                with torch.cuda.stream(stream):
+                    mixed.append(rk.launch(lib, p, v19, cfg, True))
+        torch.cuda.synchronize()
+    check(not torch.equal(alone[0], alone[1])
+          and all(torch.equal(f, alone[i % 2]) for i, f in enumerate(mixed)),
+          "eight frames of two parameter sets launched in turns on two streams through one "
+          "library are each bit-identical to the frame rendered alone")
+    del alone, mixed, other_params
 
     def grad_step(w, h, backend, tgt):
         m = st.RayMarcher(w, h, hero, view=hero_view, backend=backend)
@@ -1329,6 +1347,9 @@ def main() -> int:
             report["kernel_instructions"] = listing["rgb"]["instructions"]
             report["loops"] = [{k: lp[k] for k in ("own", "rsq", "rcp", "fchk", "loads")}
                                for lp in loops]
+            # Innermost loops that do not evaluate the scene.
+            report["other_loops"] = sum(lp["rsq"] == 0 and lp["own"] == lp["instructions"]
+                                        for lp in listing["rgb"]["loops"])
         compiled[name] = report
         print(f"compiled: {name} (RGB kernel) {report}")
     check(all(r["resident_blocks_per_sm"] > 0 for r in compiled.values()),
@@ -1362,39 +1383,60 @@ def main() -> int:
     print(f"work: {ops_n} operations per call (nodes of the program, not instructions); {hits} "
           f"of {npix} pixels hit; forward {fwd_ops:.4g} operations / {fwd_bytes} bytes, backward "
           f"{bwd_ops:.4g} / {bwd_bytes}")
-    # The forward against the rate at which the card issues instructions: one
-    # per lane and cycle, 128 lanes an SM, at the highest SM clock.
+    # Both image kernels against the rate at which the card starts
+    # instructions: one per lane and cycle, 128 lanes an SM, at the highest SM
+    # clock. Every count is read from this build's SASS: a loop's instructions
+    # times the passes this frame gives it are the least a launch executes, and
+    # every instruction outside the innermost loops once a pixel more is the
+    # most (none of them runs more than once a pixel, the slow paths of a
+    # square root or a division aside; a sky pixel skips many, so the most can
+    # come out above 1).
     march_per = (compiled["raymarch_fwd"]["instructions_per_evaluation"] or {}).get("march")
     clock = sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
-    issue_share = bwd_issue_share = None
     if march_per is not None and clock.strip().isdigit():
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        issue_rate = sms * 128 * float(clock) * 1e6
-        issued = npix * (n - 1 + 7) * march_per
-        issue_share = issued / (launch_ms * 1e-3) / issue_rate
-        print(f"work: the forward issues {march_per:.1f} instructions per distance evaluation "
-              f"in its march loop for {ops_n['dist']} counted operations "
-              f"({march_per / ops_n['dist']:.2f} per operation); {n - 1 + 7} evaluations a pixel "
-              f"are {issued:.4g} thread instructions in {launch_ms:.4f} ms, {issue_share:.3f} of "
-              f"the {issue_rate:.4g} per second that {sms} SMs issue at {clock.strip()} MHz")
+        instruction_rate = sms * 128 * float(clock) * 1e6
+
+        def rate_shares(name, in_loops, ms):
+            """What kernel `name`, which executed `in_loops` instructions inside
+            its innermost loops in `ms`, reaches of the instruction rate at the
+            least, and at the most where every other loop's passes are known."""
+            outside = (compiled[name]["kernel_instructions"]
+                       - sum(lp["own"] for lp in compiled[name]["loops"]))
+            text = f"{in_loops / (ms * 1e-3) / instruction_rate:.3f} of the instruction rate"
+            if compiled[name]["other_loops"] == 0:
+                most = (in_loops + npix * outside) / (ms * 1e-3) / instruction_rate
+                text += (f", and {most:.3f} with the kernel's other {outside} instructions "
+                         f"once a pixel")
+            return text
+
+        fwd_loops = compiled["raymarch_fwd"]["loops"]
+        if len(fwd_loops) == 1:  # the march; the final step and the taps are straight-line
+            in_loops = npix * (n - 1) * fwd_loops[0]["own"] * roots / fwd_loops[0]["rsq"]
+            print(f"work: the forward executes {march_per:.1f} instructions per distance "
+                  f"evaluation in its march loop for {ops_n['dist']} counted operations "
+                  f"({march_per / ops_n['dist']:.2f} per operation); {n - 1} march steps a pixel "
+                  f"are {in_loops:.4g} thread instructions in {launch_ms:.4f} ms; {sms} SMs start "
+                  f"{instruction_rate:.4g} per second at {clock.strip()} MHz: "
+                  f"{rate_shares('raymarch_fwd', in_loops, launch_ms)}")
         # The backward's loops in address order: the replay, the taps' forward
-        # pass, the taps' unit gradients, the sweep (then the pair that serves
-        # a march of more than 64 steps). Every pixel replays; a hit pixel
-        # also taps twice and sweeps. The straight-line code between the loops
-        # (ray, colour step and its pullback, shading, ray_vjp) is taken as
-        # 150 instructions a pixel and 500 more a hit pixel.
+        # pass, the taps' unit gradients (three passes of two evaluations
+        # each), the sweep, then the pair that serves a march of more than 64
+        # steps and does not run here. Every pixel replays; a hit pixel also
+        # taps and sweeps.
         bwd_loops = compiled["raymarch_bwd"].get("loops", [])
         if len(bwd_loops) >= 4:
-            replay, tap_fwd, tap_unit, sweep = (
-                lp["own"] * roots / lp["rsq"] for lp in bwd_loops[:4])
-            issued = (npix * ((n - 1) * replay + 150)
-                      + hits * (6 * tap_fwd + 6 * tap_unit + (n - 1) * sweep + 500))
-            bwd_issue_share = issued / (bwd_launch_ms * 1e-3) / issue_rate
-            print(f"work: the backward issues {replay:.1f} instructions per replayed step, "
-                  f"{tap_fwd:.1f} / {tap_unit:.1f} per tap (forward / unit gradient) and "
-                  f"{sweep:.1f} per sweep step for {ops_n['dist_unit']} + "
-                  f"{28 + ops_n['dist_slots']} counted operations; about {issued:.4g} thread "
-                  f"instructions in {bwd_launch_ms:.4f} ms, {bwd_issue_share:.3f} of the issue rate")
+            replay, tap_fwd, tap_unit, sweep = bwd_loops[:4]
+            in_loops = (npix * (n - 1) * replay["own"] * roots / replay["rsq"]
+                        + hits * (3 * tap_fwd["own"] + 3 * tap_unit["own"]
+                                  + (n - 1) * sweep["own"] * roots / sweep["rsq"]))
+            print(f"work: the backward executes {replay['own'] * roots / replay['rsq']:.1f} "
+                  f"instructions per replayed step, {tap_fwd['own'] / 2:.1f} / "
+                  f"{tap_unit['own'] / 2:.1f} per tap (forward / unit gradient) and "
+                  f"{sweep['own'] * roots / sweep['rsq']:.1f} per sweep step for "
+                  f"{ops_n['dist_unit']} + {28 + ops_n['dist_slots']} counted operations; its "
+                  f"loops are {in_loops:.4g} thread instructions in {bwd_launch_ms:.4f} ms: "
+                  f"{rate_shares('raymarch_bwd', in_loops, bwd_launch_ms)}")
 
     def bound(ops_count, nbytes):
         by_ops, by_bytes = ops_count / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1434,13 +1476,13 @@ def main() -> int:
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
          "max_abs_err": full_stats["max"], "ms": launch_ms, "frame_ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
-         "mostly_sky_ms": sky_fwd_ms, "share_of_issue_rate": issue_share,
+         "mostly_sky_ms": sky_fwd_ms,
          **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES, "launches": bwd_launches, "max_abs_err": bwd_err,
          "ms": bwd_launch_ms, "plain_ms": plain_bwd_ms, "plain_shape": [pw, ph],
          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
-         "mostly_sky_ms": sky_bwd_ms, "share_of_issue_rate": bwd_issue_share,
+         "mostly_sky_ms": sky_bwd_ms,
          **compiled["raymarch_bwd"]},
         {"name": "raymarch_rays_fwd", "route": "cuda", "source": RAYS_SOURCE,
          "replaces": RAYS_REPLACES, "launches": rays_launches, "max_abs_err": rays_stats["max"],

@@ -27,14 +27,15 @@
 //     across the loop (4.5% on SphereRepeat at 1920x1080x40, 10% on a frame
 //     that is mostly sky, against reading them from device memory);
 //   * launches one full wave of blocks (raymarch_reduce.cuh).
-// With these the kernel issues about 0.65 of the instructions an H100 can (its
-// SASS loops times their trip counts over its time), and neither more warps
-// (6 or 8 blocks an SM) nor two sweep steps in flight make it faster: what is
+// With these the kernel executes between 0.64 and 0.72 of the instructions an
+// H100 can (the least is its SASS loops times their passes over its time, the
+// most adds every other instruction once a pixel), and neither more warps (6
+// or 8 blocks an SM) nor two sweep steps in flight make it faster: what is
 // left is the instruction count. The running sums over a thread's pixels stay
-// in the thread's own array, registers for a small scene: moving the 19 view
-// sums, or all of them, into shared memory (SDF_BWD_SHARED_SUMS 1 and 2, one
-// column per thread) measured 0-0.6% and 1.5% slower at every register
-// budget, since what the compiler spills instead costs less than the copies.
+// in the thread's own array, registers for a small scene: with the 19 view
+// sums, or all of them, in shared memory (one column per thread) the kernel
+// measured 0-0.6% and 1.5% slower at every register budget, since what the
+// compiler spills instead costs less than the copies.
 // Everything per pixel stays in registers and thread-local memory: the ray
 // comes from the pixel index and the kept depths live in a per-thread array
 // (the TPU kernel's VMEM scratch). With a store the replay goes, and 4 bytes
@@ -54,66 +55,26 @@
 #ifndef SDF_STORE
 #define SDF_STORE 0
 #endif
-// Where the running sums live can be overridden, to measure what each
-// placement is worth (tools/torch_kernel_probe.py). SDF_BWD_SHARED_SUMS: 0 keeps every running sum in the thread's own array,
-// 1 puts the 19 view sums in shared memory, 2 the parameter sums too (a scene
-// with more parameters than registers may want them there).
-#ifndef SDF_BWD_SHARED_SUMS
-#define SDF_BWD_SHARED_SUMS 0
-#endif
 constexpr bool kHasStore = SDF_STORE != 0;
 constexpr int kNOut = kSdfNOut;
-// Running sums of a scene too large for a block's static shared memory
-// (48 KB) all stay in the thread's own array, which is then local memory.
-constexpr int kSharedSums = kNOut * kBwdThreads * 4 <= 48 * 1024 ? SDF_BWD_SHARED_SUMS : 0;
-constexpr int kSharedRows = kSharedSums == 2 ? kNOut : kSharedSums == 1 ? 19 : 1;
-constexpr int kOwnSums = kSharedSums == 2 ? 1 : kSharedSums == 1 ? (SDF_N_PARAMS > 0 ? SDF_N_PARAMS : 1) : kNOut;
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kBwdThreads, SDF_BWD_MIN_BLOCKS)
-    raymarch_bwd_kernel(const float* __restrict__ params, const float* __restrict__ view,
-                        RenderArgs a, const float* __restrict__ grad,
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    raymarch_bwd_kernel(RenderArgs a, const float* __restrict__ grad,
                         const float* __restrict__ store, float* __restrict__ partials) {
-  // A thread's column of the shared sums, and its own.
-  __shared__ float shared_sums[kSharedRows][kBwdThreads];
-  float* column = &shared_sums[0][threadIdx.x];
-  float own[kOwnSums];
+  float acc[kNOut];  // the thread's running sums: parameters, then the view
 #pragma unroll kSdfAccUnroll
-  for (int j = 0; j < kSharedRows; ++j) column[j * kBwdThreads] = 0.0f;
-#pragma unroll kSdfAccUnroll
-  for (int j = 0; j < kOwnSums; ++j) own[j] = 0.0f;
-  const float* P = uniform_params(params);
-  const float* view19 = uniform_view(view);
+  for (int j = 0; j < kNOut; ++j) acc[j] = 0.0f;
+  const float* P = c_uniform;
+  const float* view19 = c_uniform + SDF_N_PARAMS;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long local = blockIdx.x * blockDim.x + threadIdx.x; local < a.local_npix;
        local += stride) {
-    const int idx = a.pix0 + (int)local;
-    const float* g = grad + (WANT_COLOR ? 3 : 1) * local;
-    if (kSharedSums == 0) {
-      pullback_pixel<WANT_COLOR, kHasStore>(idx, P, view19, a, g, own, own + SDF_N_PARAMS, store);
-    } else if (kSharedSums == 1) {
-      pullback_pixel<WANT_COLOR, kHasStore, kBwdThreads>(idx, P, view19, a, g, own, column, store);
-    } else {
-      float pixel[kNOut];  // this pixel's share
-#pragma unroll kSdfAccUnroll
-      for (int j = 0; j < kNOut; ++j) pixel[j] = 0.0f;
-      if (pullback_pixel<WANT_COLOR, kHasStore>(idx, P, view19, a, g, pixel,
-                                                pixel + SDF_N_PARAMS, store)) {
-#pragma unroll kSdfAccUnroll
-        for (int j = 0; j < kNOut; ++j) column[j * kBwdThreads] += pixel[j];
-      }
-    }
+    pullback_pixel<WANT_COLOR, kHasStore>(a.pix0 + (int)local, P, view19, a,
+                                          grad + (WANT_COLOR ? 3 : 1) * local, acc,
+                                          acc + SDF_N_PARAMS, store);
   }
-  float* row = partials + (long long)blockIdx.x * kNOut;
-  if (kSharedSums == 0) {
-    block_sum_to_row<kNOut>(own, 1, row);
-  } else if (kSharedSums == 1) {
-    block_sum_to_row<SDF_N_PARAMS>(own, 1, row);
-    __syncthreads();  // the two sums share their scratch
-    block_sum_to_row<19>(column, kBwdThreads, row + SDF_N_PARAMS);
-  } else {
-    block_sum_to_row<kNOut>(column, kBwdThreads, row);
-  }
+  block_sum_to_row<kNOut>(acc, partials + (long long)blockIdx.x * kNOut);
 }
 
 // Outputs of one backward: the parameter slots, 16 of inverse(view @ proj),
@@ -150,17 +111,16 @@ extern "C" int raymarch_bwd_launch(const void* params, const void* view19, int w
   }
   RenderArgs a{width, height, pix0, local_npix, iters, depth0, near_, far_};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* P = static_cast<const float*>(params);
-  const float* v = static_cast<const float*>(view19);
-  cudaError_t err = copy_uniforms(P, v, s);
+  cudaError_t err = copy_uniforms(static_cast<const float*>(params),
+                                  static_cast<const float*>(view19), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   const float* g = static_cast<const float*>(grad);
   const float* st = static_cast<const float*>(store);
   float* part = static_cast<float*>(partials);
   if (want_color) {
-    raymarch_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(P, v, a, g, st, part);
+    raymarch_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(a, g, st, part);
   } else {
-    raymarch_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(P, v, a, g, st, part);
+    raymarch_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(a, g, st, part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

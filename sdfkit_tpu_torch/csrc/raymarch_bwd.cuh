@@ -47,15 +47,6 @@
 // limit on the iterations, and up to 65 of them cost one replay.
 constexpr int kSdfHistory = 64;
 
-// How far the sweep loop is unrolled. The unit gradients of two steps share
-// no value, so unrolling lets the compiler interleave them; on an H100 that
-// bought nothing over the warps already in flight (2: 0-2% slower, 3: 12-20%
-// slower, with more registers spilled), so the steps run one at a time.
-#ifndef SDF_SWEEP_UNROLL
-#define SDF_SWEEP_UNROLL 1
-#endif
-constexpr int kSdfSweepUnroll = SDF_SWEEP_UNROLL;
-
 // Loops over the accumulators are unrolled for a small scene, so that every
 // index is a constant and the accumulators can live in registers.
 constexpr int kSdfNOut = SDF_N_PARAMS + 19;
@@ -90,10 +81,14 @@ __host__ __device__ __forceinline__ float step_vjp(const Ray& r, float depth, fl
 
 // The sweep over `count` kept depths (depths[i * stride], the last first),
 // from the cotangent `g` of the depth after them to that of the depth before.
+// The steps run one at a time: their unit gradients share no value, so an
+// unrolled loop lets the compiler interleave them, but on an H100 that bought
+// nothing over the warps already in flight (by two: 0-2% slower, by three:
+// 12-20% slower, with more registers spilled).
 __host__ __device__ __forceinline__ float sweep_vjp(const Ray& r, const float* depths,
                                                     long long stride, int count, float g,
                                                     const float* P, RayGrad& gr, float* gP) {
-#pragma unroll kSdfSweepUnroll
+#pragma unroll 1
   for (int i = count - 1; i >= 0; --i) g = step_vjp(r, depths[i * stride], g, P, gr, gP);
   return g;
 }
@@ -215,9 +210,7 @@ __host__ __device__ __forceinline__ bool final_shade_vjp(const Ray& r, float dep
 
 // ray_from_index pulled back: the ray's cotangent becomes that of the 16
 // entries of inverse(view @ proj) (row 2 never enters a ray and gets zero)
-// and of the camera position, added to gV[k * GV_STRIDE] for k in 0..19 (a
-// caller's own array, or its column of a table that threads share).
-template <int GV_STRIDE = 1>
+// and of the camera position, added to gV[0..19).
 __host__ __device__ __forceinline__ void ray_vjp(int idx, const float* view19,
                                                  const RenderArgs& a, const Ray& r,
                                                  const RayGrad& gr, float* gV) {
@@ -241,25 +234,25 @@ __host__ __device__ __forceinline__ void ray_vjp(int idx, const float* view19,
   const float g_vy = (gr.dy - r.dy * along) / len;
   const float g_vz = (gr.dz - r.dz * along) / len;
   // v = h.xyz / h.w - cam, and the camera is the ray origin too.
-  gV[16 * GV_STRIDE] += gr.ox - g_vx;
-  gV[17 * GV_STRIDE] += gr.oy - g_vy;
-  gV[18 * GV_STRIDE] += gr.oz - g_vz;
+  gV[16] += gr.ox - g_vx;
+  gV[17] += gr.oy - g_vy;
+  gV[18] += gr.oz - g_vz;
   const float g_hx = g_vx / hw;
   const float g_hy = g_vy / hw;
   const float g_hz = g_vz / hw;
   const float g_hw = -(g_vx * qx + g_vy * qy + g_vz * qz) / hw;
-  gV[0 * GV_STRIDE] += xf * g_hx;
-  gV[1 * GV_STRIDE] += xf * g_hy;
-  gV[2 * GV_STRIDE] += xf * g_hz;
-  gV[3 * GV_STRIDE] += xf * g_hw;
-  gV[4 * GV_STRIDE] += yf * g_hx;
-  gV[5 * GV_STRIDE] += yf * g_hy;
-  gV[6 * GV_STRIDE] += yf * g_hz;
-  gV[7 * GV_STRIDE] += yf * g_hw;
-  gV[12 * GV_STRIDE] += g_hx;
-  gV[13 * GV_STRIDE] += g_hy;
-  gV[14 * GV_STRIDE] += g_hz;
-  gV[15 * GV_STRIDE] += g_hw;
+  gV[0] += xf * g_hx;
+  gV[1] += xf * g_hy;
+  gV[2] += xf * g_hz;
+  gV[3] += xf * g_hw;
+  gV[4] += yf * g_hx;
+  gV[5] += yf * g_hy;
+  gV[6] += yf * g_hz;
+  gV[7] += yf * g_hw;
+  gV[12] += g_hx;
+  gV[13] += g_hy;
+  gV[14] += g_hz;
+  gV[15] += g_hw;
 }
 
 // The march from depth0 through steps [0, end), keeping the pre-step depths
@@ -321,10 +314,10 @@ __host__ __device__ __forceinline__ bool pullback_ray(const Ray& r, const float*
 
 // The whole pullback of pixel `idx`: its ray from the index, pullback_ray,
 // then ray_vjp. `g` is its cotangent (3 floats, or 1 in depth mode); its
-// share is added to gP[0..SDF_N_PARAMS) and gV[k * GV_STRIDE], k in 0..19.
+// share is added to gP[0..SDF_N_PARAMS) and gV[0..19).
 // `store` is the launch's depth history (HAS_STORE), laid out as shade_pixel
 // writes it. Returns false for a sky pixel, which added nothing.
-template <bool WANT_COLOR, bool HAS_STORE = false, int GV_STRIDE = 1>
+template <bool WANT_COLOR, bool HAS_STORE = false>
 __host__ __device__ __forceinline__ bool pullback_pixel(int idx, const float* P,
                                                         const float* view19,
                                                         const RenderArgs& a, const float* g,
@@ -337,6 +330,6 @@ __host__ __device__ __forceinline__ bool pullback_pixel(int idx, const float* P,
                                            a.local_npix)) {
     return false;
   }
-  ray_vjp<GV_STRIDE>(idx, view19, a, r, gr, gV);
+  ray_vjp(idx, view19, a, r, gr, gV);
   return true;
 }

@@ -4,13 +4,14 @@
 // built as it is, the want_store=False form; built with SDF_STORE defined to
 // 1, the form that also writes the depth history.
 //
-// What bounds it on the card: the rate at which an SM issues instructions.
+// What bounds it on the card: the rate at which an SM starts instructions.
 // A pixel runs about 46 scene evaluations (39 march steps, the final colour
 // step, 6 normal taps), writes 12 bytes (RGB) or 4 (depth) and reads nothing
 // per pixel. Measured on an H100 with SphereRepeat at 1920x1080x40: with the
 // division written as `/` and the uniforms read through a pointer, the march
-// loop issued 135 instructions per evaluation, and times its evaluations that
-// was all that 132 SMs issue at their highest clock, in 0.390 ms; more warps
+// loop executed 135 instructions per evaluation, and times its 39 steps a pixel
+// that was 0.84 of all that 132 SMs can start at their highest clock in 0.390 ms,
+// with the final step and the six taps still to come; more warps
 // or another block size change nothing (64, 128 and 256 threads are within
 // 0.5% of each other). So the design keeps
 // the whole march in registers (rays come from the pixel index and 19 view
@@ -24,8 +25,9 @@
 //     (raymarch_uniforms.cuh): read through a pointer, four of them were
 //     loaded again in every pass of the loop; as operands they cost nothing:
 //     88 instructions, 32 registers where there were 40, 0.268 ms.
-// The square roots stay IEEE, and at about 0.9 of the issue rate what is left
-// is them and the scene's own operations. The TPU's 256x128 tile, lane
+// The square roots stay IEEE. The march loop alone now executes 0.79 of what the
+// card can, and the final step and the six taps run outside it: what is left
+// is the square roots and the scene's own operations. The TPU's 256x128 tile, lane
 // padding and SMEM/VMEM parameter split do not carry over: a thread past
 // local_npix returns before it marches. The depth history adds 4 bytes
 // written per step and pixel (160 per pixel at 40 steps, 13 times the RGB),
@@ -41,28 +43,20 @@
 #ifndef SDF_STORE
 #define SDF_STORE 0
 #endif
-// Threads of a block: 64, 128 and 256 measured within 0.5% of each other on
-// an H100.
-#ifndef SDF_FWD_THREADS
-#define SDF_FWD_THREADS 128
-#endif
-// Resident blocks per SM the register allocation aims at; 0 leaves it to the
-// compiler, which reaches 16 blocks of 128 on its own (32 registers). The
-// kernel is not short of warps: 12 or 16 blocks measured the same.
-#ifndef SDF_FWD_MIN_BLOCKS
-#define SDF_FWD_MIN_BLOCKS 0
-#endif
 constexpr bool kWantStore = SDF_STORE != 0;
-constexpr int kThreads = SDF_FWD_THREADS;
+// Threads of a block: 64, 128 and 256 measured within 0.5% of each other on
+// an H100. The register allocation is left to the compiler, which reaches 16
+// blocks an SM on its own (32 registers); the kernel is not short of warps,
+// and a budget set for 12 or 16 blocks measured the same.
+constexpr int kThreads = 128;
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kThreads, SDF_FWD_MIN_BLOCKS)
-    raymarch_fwd_kernel(const float* __restrict__ params, const float* __restrict__ view,
-                        RenderArgs a, float* __restrict__ out, float* __restrict__ store) {
+__global__ void __launch_bounds__(kThreads)
+    raymarch_fwd_kernel(RenderArgs a, float* __restrict__ out, float* __restrict__ store) {
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   if (local >= a.local_npix) return;
-  shade_pixel<WANT_COLOR, kWantStore>(a.pix0 + local, uniform_params(params),
-                                      uniform_view(view), a, out, store);
+  shade_pixel<WANT_COLOR, kWantStore>(a.pix0 + local, c_uniform, c_uniform + SDF_N_PARAMS, a,
+                                      out, store);
 }
 
 // Blocks of the kernel one SM of the current device holds at once, or a
@@ -90,16 +84,15 @@ extern "C" int raymarch_fwd_launch(const void* params, const void* view19, int w
   RenderArgs a{width, height, pix0, local_npix, iters, depth0, near_, far_};
   const int blocks = (local_npix + kThreads - 1) / kThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* P = static_cast<const float*>(params);
-  const float* v = static_cast<const float*>(view19);
   float* o = static_cast<float*>(out);
   float* st = static_cast<float*>(store);
-  const cudaError_t err = copy_uniforms(P, v, s);
+  const cudaError_t err = copy_uniforms(static_cast<const float*>(params),
+                                        static_cast<const float*>(view19), s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (want_color) {
-    raymarch_fwd_kernel<true><<<blocks, kThreads, 0, s>>>(P, v, a, o, st);
+    raymarch_fwd_kernel<true><<<blocks, kThreads, 0, s>>>(a, o, st);
   } else {
-    raymarch_fwd_kernel<false><<<blocks, kThreads, 0, s>>>(P, v, a, o, st);
+    raymarch_fwd_kernel<false><<<blocks, kThreads, 0, s>>>(a, o, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,8 +28,8 @@ constexpr int kNParams = SDF_N_PARAMS;
 constexpr int kNAcc = kNParams > 0 ? kNParams : 1;
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kBwdThreads, SDF_BWD_MIN_BLOCKS)
-    raymarch_rays_bwd_kernel(const float* __restrict__ params, const float* __restrict__ ox,
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    raymarch_rays_bwd_kernel(const float* __restrict__ ox,
                              const float* __restrict__ oy, const float* __restrict__ oz,
                              const float* __restrict__ dx, const float* __restrict__ dy,
                              const float* __restrict__ dz, RenderArgs a,
@@ -38,7 +38,7 @@ __global__ void __launch_bounds__(kBwdThreads, SDF_BWD_MIN_BLOCKS)
   float acc[kNAcc];
 #pragma unroll kSdfAccUnroll
   for (int j = 0; j < kNAcc; ++j) acc[j] = 0.0f;
-  const float* P = uniform_params(params);
+  const float* P = c_uniform;
   const long long n = a.local_npix;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kBwdThreads, SDF_BWD_MIN_BLOCKS)
     g_rays[4 * n + i] = gr.dy;
     g_rays[5 * n + i] = gr.dz;
   }
-  block_sum_to_row<kNParams>(acc, 1, partials + (long long)blockIdx.x * kNParams);
+  block_sum_to_row<kNParams>(acc, partials + (long long)blockIdx.x * kNParams);
 }
 
 // Scalars one backward sums: the parameter slots.
@@ -88,21 +88,20 @@ extern "C" int raymarch_rays_bwd_launch(const void* params, const void* ox, cons
   }
   RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* P = static_cast<const float*>(params);
   const float* c[6] = {static_cast<const float*>(ox), static_cast<const float*>(oy),
                        static_cast<const float*>(oz), static_cast<const float*>(dx),
                        static_cast<const float*>(dy), static_cast<const float*>(dz)};
   const float* g = static_cast<const float*>(grad);
   float* gr = static_cast<float*>(g_rays);
   float* part = static_cast<float*>(partials);
-  cudaError_t err = copy_uniforms(P, nullptr, s);
+  cudaError_t err = copy_uniforms(static_cast<const float*>(params), nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (want_color) {
-    raymarch_rays_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(P, c[0], c[1], c[2], c[3], c[4],
-                                                                c[5], a, g, gr, part);
+    raymarch_rays_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4], c[5],
+                                                                a, g, gr, part);
   } else {
-    raymarch_rays_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(P, c[0], c[1], c[2], c[3],
-                                                                 c[4], c[5], a, g, gr, part);
+    raymarch_rays_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4], c[5],
+                                                                 a, g, gr, part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -21,7 +21,7 @@ constexpr int kRayThreads = 128;
 
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kRayThreads)
-    raymarch_rays_fwd_kernel(const float* __restrict__ params, const float* __restrict__ ox,
+    raymarch_rays_fwd_kernel(const float* __restrict__ ox,
                              const float* __restrict__ oy, const float* __restrict__ oz,
                              const float* __restrict__ dx, const float* __restrict__ dy,
                              const float* __restrict__ dz, RenderArgs a,
@@ -29,7 +29,7 @@ __global__ void __launch_bounds__(kRayThreads)
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.local_npix) return;
   const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-  shade_ray<WANT_COLOR>(r, uniform_params(params), a, out + (WANT_COLOR ? 3 : 1) * (long long)i);
+  shade_ray<WANT_COLOR>(r, c_uniform, a, out + (WANT_COLOR ? 3 : 1) * (long long)i);
 }
 
 // Blocks of the kernel one SM of the current device holds at once, or a
@@ -56,19 +56,18 @@ extern "C" int raymarch_rays_fwd_launch(const void* params, const void* ox, cons
   RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
   const int blocks = (n + kRayThreads - 1) / kRayThreads;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* P = static_cast<const float*>(params);
   const float* c[6] = {static_cast<const float*>(ox), static_cast<const float*>(oy),
                        static_cast<const float*>(oz), static_cast<const float*>(dx),
                        static_cast<const float*>(dy), static_cast<const float*>(dz)};
   float* o = static_cast<float*>(out);
-  const cudaError_t err = copy_uniforms(P, nullptr, s);
+  const cudaError_t err = copy_uniforms(static_cast<const float*>(params), nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (want_color) {
-    raymarch_rays_fwd_kernel<true><<<blocks, kRayThreads, 0, s>>>(P, c[0], c[1], c[2], c[3],
-                                                                  c[4], c[5], a, o);
+    raymarch_rays_fwd_kernel<true><<<blocks, kRayThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4],
+                                                                  c[5], a, o);
   } else {
-    raymarch_rays_fwd_kernel<false><<<blocks, kRayThreads, 0, s>>>(P, c[0], c[1], c[2], c[3],
-                                                                   c[4], c[5], a, o);
+    raymarch_rays_fwd_kernel<false><<<blocks, kRayThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4],
+                                                                   c[5], a, o);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,29 +27,24 @@ constexpr int kBwdThreads = 128;
 // registers, 364 bytes) 1.412, and 8 no faster than 6. Warps pay up to about
 // 20 an SM, and 5 blocks leave a larger scene the most registers at that
 // speed.
-#ifndef SDF_BWD_MIN_BLOCKS
-#define SDF_BWD_MIN_BLOCKS 5
-#endif
+constexpr int kBwdMinBlocks = 5;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kReduceThreads = 256;
 
-// Block sum of each of a thread's N running sums (acc[j * stride]: an array
-// of the thread's own with stride 1, or its column of a shared
-// [N][kBwdThreads] table) into row[0..N): shuffles within a warp, then the
-// warps' sums in order. Two rows of shared memory alternate, so one barrier
-// per sum is enough. The loop is unrolled for a small N, so that every index
-// is a constant and an array of the thread's own can live in registers. Every
-// thread of the block must call it.
+// Block sum of each of a thread's N running sums acc[0..N) into row[0..N):
+// shuffles within a warp, then the warps' sums in order. Two rows of shared
+// memory alternate, so one barrier per sum is enough. The loop is unrolled
+// for a small N, so that every index is a constant and the array can live in
+// registers. Every thread of the block must call it.
 template <int N>
-__device__ __forceinline__ void block_sum_to_row(const float* acc, int stride,
-                                                 float* __restrict__ row) {
+__device__ __forceinline__ void block_sum_to_row(const float* acc, float* __restrict__ row) {
   constexpr int kUnroll = N > 0 && N <= 96 ? N : 1;
   __shared__ float warp_sums[2][kBwdWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll kUnroll
   for (int j = 0; j < N; ++j) {
-    float v = acc[j * stride];
+    float v = acc[j];
     for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
     if (lane == 0) warp_sums[j & 1][warp] = v;
     __syncthreads();

@@ -6,47 +6,34 @@
 // held there, or loaded again inside the march loop where registers are
 // short; read from constant memory they are operands of the instructions
 // that use them. Measured on an H100 with SphereRepeat at 1920x1080x40
-// (tools/torch_kernel_probe.py): the image forward 0.2905 -> 0.2678 ms (its
+// the image forward 0.2905 -> 0.2678 ms (its
 // march loop 93 -> 88 instructions and no load, 40 -> 32 registers), the image
 // backward 1.4476 -> 1.3841 ms, the copies included.
 //
 // Constant memory is one buffer per library, that is per scene structure and
-// kernel family. Each launch copies its parameters and view into it on its
-// stream (device to device, no synchronisation, no host copy: the parameters
-// live on the card) ahead of its kernel, so launches on one stream, PyTorch's
-// default, are ordered. Two streams that render two parameter sets or views
-// through one structure at the same time would overwrite each other's
-// uniforms between copy and kernel: such a caller must order the two launches
-// with an event.
+// kernel family, of at most 64 KB (render/cuda/build.py refuses a scene with
+// more parameters than fit). Each launch copies its parameters and view into
+// it on its stream (device to device, no synchronisation, no host copy: the
+// parameters live on the card) ahead of its kernel, so launches on one
+// stream, PyTorch's default, are ordered. Two streams that launch through one
+// library would overwrite each other's uniforms between copy and kernel, so
+// the wrappers (render/cuda/raymarch_kernel.py) make a launch on another
+// stream than the library's last wait for that one with an event; a caller of
+// the C entry points must do the same.
 //
 // The including translation unit defines SDF_N_PARAMS first.
-// SDF_CONSTANT_UNIFORMS 0 reads the uniforms from device memory instead, to
-// measure what the placement is worth.
 #pragma once
 
 #include <cuda_runtime.h>
 
-#ifndef SDF_CONSTANT_UNIFORMS
-#define SDF_CONSTANT_UNIFORMS 1
-#endif
-
 constexpr int kViewScalars = 19;
+// The scene parameters, then the view scalars.
 __constant__ float c_uniform[SDF_N_PARAMS + kViewScalars];
-
-// The scene parameters a kernel evaluates with, and the view scalars behind
-// them: constant memory, or the launch's own pointers.
-__device__ __forceinline__ const float* uniform_params(const float* params) {
-  return SDF_CONSTANT_UNIFORMS ? c_uniform : params;
-}
-__device__ __forceinline__ const float* uniform_view(const float* view19) {
-  return SDF_CONSTANT_UNIFORMS ? c_uniform + SDF_N_PARAMS : view19;
-}
 
 // Copies the launch's uniforms into constant memory on `stream`, ahead of its
 // kernel; `view19` is null for a kernel that takes its rays as arrays.
 static cudaError_t copy_uniforms(const float* params, const float* view19, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
-  if (!SDF_CONSTANT_UNIFORMS) return err;
   if (SDF_N_PARAMS > 0) {
     err = cudaMemcpyToSymbolAsync(c_uniform, params, SDF_N_PARAMS * sizeof(float), 0,
                                   cudaMemcpyDeviceToDevice, stream);

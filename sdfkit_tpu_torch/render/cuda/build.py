@@ -36,6 +36,7 @@ import pathlib
 import re
 import shutil
 import subprocess
+import threading
 import time
 
 from sdfkit_tpu_torch.sdf.compile import Program
@@ -48,6 +49,10 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILDS = 0  # nvcc runs in this process
+# A library's uniforms (csrc/raymarch_uniforms.cuh) are one __constant__ array
+# of the parameter slots and the view scalars; the constant bank is 64 KB.
+VIEW_SCALARS = 19
+CONSTANT_FLOATS = 64 * 1024 // 4
 
 
 @dataclasses.dataclass
@@ -60,6 +65,19 @@ class KernelLib:
     rows: ctypes._CFuncPtr | None = None  # backward: (count, want_color) -> partial rows
     store: bool = False  # the depth-history variant of its family
     resident: ctypes._CFuncPtr | None = None  # (want_color) -> resident blocks per SM
+    # The stream of the library's last launch and a lock around a launch: its
+    # uniforms are one buffer that every launch overwrites (``order_uniforms``).
+    last_stream: object = None
+    lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
+
+    def order_uniforms(self, stream) -> None:
+        """Make ``stream``, about to launch through this library, wait for the
+        library's last launch where that was on another stream: both write
+        the library's constant memory. Call it with ``lock`` held."""
+        last = self.last_stream
+        if last is not None and last != stream:
+            stream.wait_event(last.record_event())
+        self.last_stream = stream
 
 
 _LIBS: dict[tuple, KernelLib] = {}
@@ -123,15 +141,11 @@ FAMILIES = {
 }
 
 
-def translation_unit(program: Program, family: str = "fwd", defines: tuple = ()) -> str:
+def translation_unit(program: Program, family: str = "fwd") -> str:
     """The generated .cu of one family: the scene's functions (and their
-    adjoints, for a backward), then the kernel source. ``defines`` are
-    ``"NAME value"`` macros set ahead of everything: the sources' tuning
-    constants (``SDF_BWD_MIN_BLOCKS``, ``SDF_SWEEP_UNROLL``,
-    ``SDF_BWD_SHARED_SUMS``, ``SDF_CONSTANT_UNIFORMS``, ``SDF_FWD_THREADS``,
-    ``SDF_FWD_MIN_BLOCKS``) can be overridden to measure a variant."""
+    adjoints, for a backward), then the kernel source."""
     fam = FAMILIES[family]
-    unit = "".join(f"#define {d}\n" for d in defines) + _HEAD + program.source + "\n"
+    unit = _HEAD + program.source + "\n"
     if fam.adjoint:
         unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS itself
     else:
@@ -200,16 +214,19 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     return so, seconds, log
 
 
-def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib:
-    """The library of ``family`` for ``program``, built on first use.
-    ``defines``: see :func:`translation_unit`; a variant is a library of its
-    own (``tools/torch_kernel_probe.py`` times them side by side)."""
+def load_family(program: Program, family: str) -> KernelLib:
+    """The library of ``family`` for ``program``, built on first use."""
     fam = FAMILIES[family]
     name = program.adjoint_hash if fam.adjoint else program.hash
-    lib = _LIBS.get((family, name, defines))
+    lib = _LIBS.get((family, name))
     if lib is not None:
         return lib
-    unit = translation_unit(program, family, defines)
+    if program.n_params + VIEW_SCALARS > CONSTANT_FLOATS:
+        raise ValueError(
+            f"the scene has {program.n_params} parameter slots; the kernels read them and the "
+            f"{VIEW_SCALARS} view scalars from constant memory, which holds {CONSTANT_FLOATS} floats"
+        )
+    unit = translation_unit(program, family)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
     so, seconds, log = _compile(f"raymarch_{family}_{name}_{digest}", unit)
@@ -234,7 +251,7 @@ def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib
                 f"the program has {program.n_params}"
             )
     registers, local = _ptxas(log)
-    lib = _LIBS[(family, name, defines)] = KernelLib(
+    lib = _LIBS[(family, name)] = KernelLib(
         launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
         rows=rows, store=fam.store, resident=resident,
     )

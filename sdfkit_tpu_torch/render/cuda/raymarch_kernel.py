@@ -24,11 +24,12 @@ The plain version of all of them is ``render/raymarch.py``: ``render_rays`` /
 through them, and ``march_history`` for the depth history.
 
 What bounds them on an H100 (``PERF.md`` has the measurements): the forwards
-issue an instruction nearly every cycle (about 46 scene evaluations per ray,
+start an instruction nearly every cycle (about 46 scene evaluations per ray,
 12 bytes written), so only a shorter instruction stream makes them faster:
 the scene compiler writes a division by a uniform as a reciprocal taken
 once and two multiply-adds, and the parameters and the view come through
-constant memory (``csrc/raymarch_uniforms.cuh``). The backwards run those evaluations again (they
+constant memory (``csrc/raymarch_uniforms.cuh``; one buffer per library, so a
+launch on another stream than the library's last waits for that one). The backwards run those evaluations again (they
 replay the march) plus about 46 gradients of the scene, long chains of
 dependent operations; they are written so that many warps are in flight
 (uniforms in constant memory, a register budget set for five blocks an SM,
@@ -117,6 +118,19 @@ def _check_store_build(lib: build.KernelLib, store: bool) -> None:
         )
 
 
+def _run(lib: build.KernelLib, what: str, *args) -> None:
+    """``lib.launch(*args, stream)`` on the current stream of the current
+    device, after the library's last launch where that was on another stream
+    (a library's uniforms are one buffer in constant memory). Raises on a
+    CUDA error."""
+    stream = torch.cuda.current_stream()
+    with lib.lock:
+        lib.order_uniforms(stream)
+        rc = lib.launch(*args, stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{what} launch failed with CUDA error {rc}")
+
+
 def launch(lib: build.KernelLib, params: torch.Tensor, v19: torch.Tensor, cfg: RenderConfig,
            want_color: bool, pix0: int = 0, local_npix: int | None = None,
            want_store: bool = False):
@@ -145,13 +159,9 @@ def launch(lib: build.KernelLib, params: torch.Tensor, v19: torch.Tensor, cfg: R
     if local_npix == 0:
         return (out, store) if want_store else out
     with torch.cuda.device(params.device):
-        rc = lib.launch(
-            params.data_ptr(), v19.data_ptr(), cfg.width, cfg.height, pix0, local_npix,
-            *_scalars(cfg, want_color), out.data_ptr(),
-            store.data_ptr() if want_store else None, torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"raymarch_fwd launch failed with CUDA error {rc}")
+        _run(lib, "raymarch_fwd", params.data_ptr(), v19.data_ptr(), cfg.width, cfg.height, pix0,
+             local_npix, *_scalars(cfg, want_color), out.data_ptr(),
+             store.data_ptr() if want_store else None)
     if want_store:
         STORE_LAUNCHES += 1
         return out, store
@@ -202,14 +212,10 @@ def launch_bwd(lib: build.KernelLib, params: torch.Tensor, v19: torch.Tensor,
         return out.zero_()
     with torch.cuda.device(params.device):
         partials = _partials(lib, local_npix, n_out, want_color, params.device)
-        rc = lib.launch(
-            params.data_ptr(), v19.data_ptr(), cfg.width, cfg.height, pix0, local_npix,
-            *_scalars(cfg, want_color), grad.data_ptr(),
-            None if store is None else store.data_ptr(), partials.data_ptr(),
-            partials.shape[0], out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"raymarch_bwd launch failed with CUDA error {rc}")
+        _run(lib, "raymarch_bwd", params.data_ptr(), v19.data_ptr(), cfg.width, cfg.height, pix0,
+             local_npix, *_scalars(cfg, want_color), grad.data_ptr(),
+             None if store is None else store.data_ptr(), partials.data_ptr(),
+             partials.shape[0], out.data_ptr())
     if store is None:
         BWD_LAUNCHES += 1
     else:
@@ -246,12 +252,8 @@ def launch_rays(lib: build.KernelLib, params: torch.Tensor, rays, cfg: RenderCon
     if n == 0:
         return out
     with torch.cuda.device(params.device):
-        rc = lib.launch(
-            params.data_ptr(), *(c.data_ptr() for c in rays), n, *_scalars(cfg, want_color),
-            out.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"raymarch_rays_fwd launch failed with CUDA error {rc}")
+        _run(lib, "raymarch_rays_fwd", params.data_ptr(), *(c.data_ptr() for c in rays), n,
+             *_scalars(cfg, want_color), out.data_ptr())
     RAYS_LAUNCHES += 1
     return out
 
@@ -274,13 +276,9 @@ def launch_rays_bwd(lib: build.KernelLib, params: torch.Tensor, rays, cfg: Rende
         return g_params.zero_(), g_rays
     with torch.cuda.device(params.device):
         partials = _partials(lib, n, n_out, want_color, params.device)
-        rc = lib.launch(
-            params.data_ptr(), *(c.data_ptr() for c in rays), n, *_scalars(cfg, want_color),
-            grad.data_ptr(), g_rays.data_ptr(), partials.data_ptr(), partials.shape[0],
-            g_params.data_ptr(), torch.cuda.current_stream().cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"raymarch_rays_bwd launch failed with CUDA error {rc}")
+        _run(lib, "raymarch_rays_bwd", params.data_ptr(), *(c.data_ptr() for c in rays), n,
+             *_scalars(cfg, want_color), grad.data_ptr(), g_rays.data_ptr(), partials.data_ptr(),
+             partials.shape[0], g_params.data_ptr())
     RAYS_BWD_LAUNCHES += 1
     return g_params, g_rays
 

@@ -1,10 +1,10 @@
 """What the compiler made of a kernel library: instructions and loops from SASS.
 
 ``operation_counts`` of the scene compiler counts nodes of a program; the
-card issues instructions, several for an IEEE division or square root. This
+card executes instructions, several for an IEEE division or square root. This
 module reads ``cuobjdump -sass`` of a built library and finds each kernel's
 loops (a branch to a lower address closes one), so that a run can say how
-many instructions one pass of the march loop or of the sweep issues, and how
+many instructions one pass of the march loop or of the sweep executes, and how
 many scene evaluations that pass holds (a square root is one ``MUFU.RSQ``
 and a division or reciprocal one ``MUFU.RCP``, whatever else they expand to).
 Nothing here runs on import, and nothing in the render path uses it.
@@ -62,7 +62,8 @@ def parse_sass(text: str) -> dict:
         ends: dict[int, int] = {}  # loop start -> its last back edge
         for address, op, operands in instructions:
             target = _TARGET.search(operands)
-            if op.startswith("BRA") and target and int(target.group(1), 16) <= address:
+            # A branch to itself is the trap that ends every kernel, not a loop.
+            if op.startswith("BRA") and target and int(target.group(1), 16) < address:
                 start = int(target.group(1), 16)
                 ends[start] = max(ends.get(start, 0), address)
         spans = sorted(ends.items())
@@ -97,7 +98,7 @@ def library_sass(path) -> dict | None:
 
 
 def per_evaluation(loop: dict, roots_per_evaluation: int) -> float | None:
-    """Instructions one pass of ``loop`` issues per scene evaluation in it,
+    """Instructions one pass of ``loop`` executes per scene evaluation in it,
     the evaluations counted by their square roots; None for a loop without
     any."""
     if roots_per_evaluation <= 0 or loop["rsq"] == 0:

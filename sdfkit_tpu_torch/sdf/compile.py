@@ -516,7 +516,7 @@ def operation_counts(program: Program) -> dict:
     ``dist_unit`` is ``sdf_dist_unit`` with one accumulation per parameter
     slot it reaches (``dist_slots`` of them, ``SDF_N_DIST_SLOTS`` in the
     emitted source). These are nodes of the program, not instructions: the
-    card issues several for an IEEE division or square root (``PERF.md`` has
+    card executes several for an IEEE division or square root (``PERF.md`` has
     the measured ratio)."""
     def forward(live):
         return sum(program.nodes[i][0] not in ("const", "input", "param") for i in live)
@@ -590,13 +590,18 @@ def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[st
     A division by a uniform value ``c`` (the cell size of a repetition, under
     a ``floor``) is written as the tail of the IEEE division with the
     reciprocal taken first: ``rc = 1 / c`` correctly rounded, ``q = x * rc``,
-    ``r = fma(-c, q, x)``, ``fma(r, rc, q)``. With a correctly rounded
-    reciprocal and an exact residual this is the correctly rounded ``x / c``
-    for every normal ``c`` whose reciprocal is normal (Markstein's theorem),
-    so the function computed is the one :func:`run` computes with ``/``. The
-    reciprocal depends on ``c`` alone, so the compiler lifts it out of a
-    march loop, where the full division (a reciprocal seed, two Newton steps
-    and a range check) was paid once per evaluation."""
+    ``r = fma(-c, q, x)``, ``fma(r, rc, q)``. The reciprocal depends on ``c``
+    alone, so the compiler lifts it out of a march loop, where the full
+    division (a reciprocal seed, two Newton steps and a range check) was paid
+    once per evaluation. This is not ``x / c`` for every pair: it is measured
+    equal to it where the quotient is a normal number (four million seeded
+    pairs and the neighbourhood of every cell border of the scenes' cell
+    sizes, ``tests/test_torch_kernel_host.py``), no theorem says so, and it
+    has none of the division's range checks. A subnormal quotient may be one
+    subnormal step off (``-2**-149 / 1.75`` gives -0, whose floor is 0 and not
+    -1: the floor-mod returns the other end of the same cell), and a ``c`` of
+    zero, infinity or a subnormal gives NaN where the division gives infinity
+    or zero."""
     names = {}
     lines = []
     uniform = _uniform(program, live)

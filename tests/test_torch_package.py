@@ -1,6 +1,7 @@
 """The port as a package: no JAX, no nvcc at import, the default device, and
 the backend choice on a machine without CUDA."""
 
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -13,6 +14,7 @@ import sdfkit_tpu_torch as st
 from sdfkit_tpu_torch.render.cuda import build
 from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
 from sdfkit_tpu_torch.render.raymarch import RenderConfig
+from sdfkit_tpu_torch.sdf.compile import compile_scene
 
 # The tensors here are small: torch's intra-op thread pool costs more than it
 # saves, and on a loaded CPU its hand-offs made single ops take ~15 ms.
@@ -96,6 +98,77 @@ def test_kernel_backward_is_not_a_silent_fallback():
         rk.launch_bwd(None, torch.zeros(5), torch.zeros(19), RenderConfig(8, 4), True,
                       torch.zeros(32, 3))
     assert (build.BUILDS, rk.BWD_LAUNCHES) == (builds, launches)
+
+
+def test_a_scene_too_large_for_constant_memory_raises_before_any_build(monkeypatch, tmp_path):
+    """The kernels read the parameters and the 19 view scalars from one
+    ``__constant__`` array; a scene that does not fit in the 64 KB bank is
+    refused by name, not by nvcc."""
+    program = compile_scene(st.sphere(1.0))
+    fits = dataclasses.replace(program, n_params=build.CONSTANT_FLOATS - 19, hash="fits")
+    large = dataclasses.replace(program, n_params=build.CONSTANT_FLOATS - 18, hash="large")
+    builds = build.BUILDS
+
+    def no_compiler():
+        raise RuntimeError("no nvcc in this test")
+
+    monkeypatch.setattr(build, "nvcc_path", no_compiler)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+    for family in build.FAMILIES:
+        with pytest.raises(ValueError, match="constant memory"):
+            build.load_family(large, family)
+    with pytest.raises(RuntimeError, match="no nvcc in this test"):  # passes the check
+        build.load_family(fits, "fwd")
+    assert build.BUILDS == builds
+
+
+class _Stream:
+    """A stream as ``KernelLib.order_uniforms`` uses one."""
+
+    def __init__(self, log, name):
+        self.log, self.name = log, name
+
+    def record_event(self):
+        self.log.append(("record", self.name))
+        return "event of " + self.name
+
+    def wait_event(self, event):
+        self.log.append((self.name, "waits for", event))
+
+
+def test_a_launch_on_another_stream_waits_for_the_last_one():
+    """A library's uniforms are one buffer in constant memory that every
+    launch overwrites on its stream. A launch on the stream of the last one is
+    ordered by the stream; on another stream it first waits for an event
+    recorded on the last one; each library keeps its own last stream."""
+    log = []
+    one, two = _Stream(log, "one"), _Stream(log, "two")
+    lib = build.KernelLib(None, None, None, {}, {})
+    other = build.KernelLib(None, None, None, {}, {})
+    lib.order_uniforms(one)
+    lib.order_uniforms(one)
+    other.order_uniforms(two)
+    assert log == [] and lib.last_stream is one and other.last_stream is two
+    lib.order_uniforms(two)
+    assert log == [("record", "one"), ("two", "waits for", "event of one")]
+    lib.order_uniforms(two)
+    other.order_uniforms(two)
+    assert len(log) == 2
+    lib.order_uniforms(one)
+    assert log[2:] == [("record", "two"), ("one", "waits for", "event of two")]
+
+
+def test_the_ordered_launch_passes_the_stream_last_and_raises_on_an_error(monkeypatch):
+    stream = types.SimpleNamespace(cuda_stream=77)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
+    seen = []
+    lib = build.KernelLib(lambda *a: seen.append(a) or 0, None, None, {}, {})
+    rk._run(lib, "raymarch_fwd", 1, 2.5)
+    assert seen == [(1, 2.5, 77)] and lib.last_stream is stream and not lib.lock.locked()
+    failing = build.KernelLib(lambda *a: 9, None, None, {}, {})
+    with pytest.raises(RuntimeError, match="raymarch_bwd launch failed with CUDA error 9"):
+        rk._run(failing, "raymarch_bwd")
+    assert not failing.lock.locked()
 
 
 def test_view_on_another_device_or_shape_raises():

@@ -57,9 +57,8 @@ def test_loops_are_found_by_their_backward_branches():
     assert (outer["instructions"], outer["own"], outer["rsq"], outer["rcp"]) == (8, 3, 0, 1)
     assert outer["loads"] == 0
     assert sass.per_evaluation(inner, 2) == 5.0 and sass.per_evaluation(outer, 2) is None
-    # A branch to itself (the padding behind a kernel) is a loop of one instruction.
-    assert parsed["depth"]["loops"] == [{"start": 0x20, "end": 0x20, "instructions": 1, "own": 1,
-                                         "rsq": 0, "rcp": 0, "fchk": 0, "loads": 0}]
+    # A branch to itself (the trap behind a kernel) is not a loop.
+    assert parsed["depth"] == {"instructions": 3, "loops": []}
 
 
 def test_kernels_are_keyed_as_the_build_report_keys_them():

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--package-root DIR] [--variants] [--tag NAME]
+    python3 tools/torch_kernel_probe.py [--package-root DIR] [--tag NAME]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and prints, one
@@ -16,13 +16,7 @@ JSON object per line with ``"probe"`` naming it:
   1920x1080x40 on SphereRepeat (nearly every pixel hits) and on one sphere of
   radius 0.5 seen by the same camera (mostly sky), in turns, with a hash of
   each frame and the gradient of a seeded cotangent (``frame``), so that two
-  commits can be held against each other;
-* with ``--variants``: the same times for builds of the backward with other
-  ``SDF_BWD_MIN_BLOCKS`` and ``SDF_SWEEP_UNROLL``, with its running sums in
-  the thread's own array or all in shared memory, with its uniforms read from
-  device memory, and of the forward
-  with other ``SDF_FWD_THREADS`` and a register budget for 16 blocks an SM
-  (``SDF_FWD_MIN_BLOCKS``), each result held against the default build's.
+  commits can be held against each other.
 
 ``--package-root`` names a directory that holds another ``sdfkit_tpu_torch``
 (an earlier commit unpacked beside this one) to probe instead; the SASS
@@ -43,31 +37,11 @@ import sys
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED = 3, 10
-BWD_VARIANTS = [(blocks, unroll) for blocks in (4, 5, 6, 8) for unroll in (1, 2)]
-# Where the running sums live (0: the thread's own array, 1: the view sums in
-# shared memory, 2: all of them) at three register budgets, and the uniforms
-# read from device memory instead of constant memory.
-BWD_PLACEMENTS = {
-    f"sums={sums} blocks={blocks}": (f"SDF_BWD_SHARED_SUMS {sums}", f"SDF_BWD_MIN_BLOCKS {blocks}")
-    for sums in (0, 1, 2) for blocks in (4, 5, 6)
-}
-BWD_PLACEMENTS["uniforms from device memory"] = ("SDF_CONSTANT_UNIFORMS 0",)
-BWD_PLACEMENTS["uniforms from device memory, sums=0"] = ("SDF_CONSTANT_UNIFORMS 0",
-                                                         "SDF_BWD_SHARED_SUMS 0")
-FWD_VARIANTS = {
-    "fwd threads=64": ("SDF_FWD_THREADS 64",),
-    "fwd threads=128": ("SDF_FWD_THREADS 128",),
-    "fwd threads=256": ("SDF_FWD_THREADS 256",),
-    "fwd threads=128 blocks=16": ("SDF_FWD_THREADS 128", "SDF_FWD_MIN_BLOCKS 16"),
-    "fwd uniforms from device memory": ("SDF_CONSTANT_UNIFORMS 0",),
-    "fwd uniforms from constant memory": ("SDF_CONSTANT_UNIFORMS 1",),
-}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--package-root", default=str(ROOT))
-    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
     sys.path.insert(0, args.package_root)
@@ -162,33 +136,6 @@ def main() -> int:
                 "forward": lambda: rk.launch(fwd, params, v19, cfg, True),
                 "backward": lambda: rk.launch_bwd(bwd, params, v19, cfg, True, cot),
             }
-            time_all(name, runs)
-            if not args.variants:
-                continue
-            reference = rk.launch_bwd(bwd, params, v19, cfg, True, cot)
-            frame = rk.launch(fwd, params, v19, cfg, True)
-            variants = {f"bwd blocks={blocks} unroll={unroll}":
-                        (f"SDF_BWD_MIN_BLOCKS {blocks}", f"SDF_SWEEP_UNROLL {unroll}")
-                        for blocks, unroll in BWD_VARIANTS}
-            variants.update({f"bwd {k}": v for k, v in BWD_PLACEMENTS.items()})
-            runs = {}
-            for label, defines in variants.items():
-                lib = build.load_family(program, "bwd", defines)
-                got = rk.launch_bwd(lib, params, v19, cfg, True, cot)
-                say("variant", scene=name, family="bwd", variant=label, defines=defines,
-                    registers=lib.registers, local_memory=lib.local_memory,
-                    resident_blocks_per_sm=lib.resident(1), grid=rows(lib, WIDTH * HEIGHT, True),
-                    err_of_largest=float((got - reference).abs().max() / reference.abs().max()))
-                runs[label] = lambda lib=lib: rk.launch_bwd(lib, params, v19, cfg, True, cot)
-            time_all(name, runs)
-            runs = {}
-            for label, defines in FWD_VARIANTS.items():
-                lib = build.load_family(program, "fwd", defines)
-                same = bool(torch.equal(rk.launch(lib, params, v19, cfg, True), frame))
-                say("variant", scene=name, family="fwd", variant=label, registers=lib.registers,
-                    local_memory=lib.local_memory, resident_blocks_per_sm=lib.resident(1),
-                    bit_identical_frame=same)
-                runs[label] = lambda lib=lib: rk.launch(lib, params, v19, cfg, True)
             time_all(name, runs)
     return 0
 
