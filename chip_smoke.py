@@ -19,23 +19,27 @@ iterations:
 9    times with CUDA events, and a profile of the fit steps;
 10   the ray-batch forward kernel on the frame's camera rays and on rays that
      are no camera's, against the plain path and the image kernel;
-11   the ray-batch pullback against autograd of the plain path (every leaf,
-     ``ro``, ``rd``) on small frames and, fed one cotangent, at full size;
-     two launches bit-identical, a gradient step through
-     ``render_rays_kernel``;
+11   the ray-batch pullback (a tangent march) against autograd of the plain
+     path (every leaf, ``ro``, ``rd``) on small frames and, fed one
+     cotangent, at full size; two launches and launches in pieces
+     bit-identical, a gradient step through ``render_rays_kernel``; the
+     forward's hit flags, the pullback with and without them, and the rays
+     whose march ends at another depth than the forward's;
 12   the depth-history handoff: the forward's store against ``march_history``
      (small frames and full size) and against depth renders of fewer
-     iterations, the store-fed backward against autograd of the plain path
-     and against the replay, and the four times;
+     iterations, the store-fed backward (its depths staged in shared memory)
+     against autograd of the plain path and against the replay, on two bands
+     of an odd pixel count, and the four times;
 13   two row bands and nine resumable tiles against the whole frame, bit for
      bit, with three tiles deleted and resumed;
 14   ``sample`` of 1,000,003 points and ``voxelize`` at 256^3 on the card
      against the CPU;
-15   gradients at 80 and 130 march iterations (more than the backward keeps
-     depths for at once) through ``RayMarcher``, ``render_rays_kernel`` and
-     ``fit`` against autograd of the plain path;
+15   gradients at 80 and 130 march iterations (more than the image backward
+     keeps depths for at once) through ``RayMarcher``, ``render_rays_kernel``,
+     the store-fed backward and ``fit`` against autograd of the plain path;
 16   what the compiler made of the six libraries: registers, resident blocks
-     per SM, and the instructions of the march and sweep loops from SASS.
+     per SM, and the instructions of the march, sweep and tangent loops from
+     SASS.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
@@ -66,11 +70,11 @@ WARMUP, TIMED = 3, 10
 FIT_STEPS = 5
 START_RADIUS = 0.55  # the fit's start; the target frame has 0.5
 KERNEL_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_fwd.cu"
-REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:354"
+REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:355"
 BWD_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_bwd.cu"
-BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:479"
+BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:480"
 RAYS_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_rays_fwd.cu"
-RAYS_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:197"
+RAYS_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:198"
 RAYS_BWD_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_rays_bwd.cu"
 RAYS_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:842"
 STORE_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:357"
@@ -717,6 +721,14 @@ def main() -> int:
     check(rays_launches == 2, f"the 1920x1080 camera rays went through the ray kernel, RGB and "
                               f"depth (RAYS_LAUNCHES={rays_launches})")
     rays_frame_card = rays_frame.reshape(-1, 3)
+    with torch.no_grad():
+        rays6 = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+        flagged_frame, rays_hit = rk.launch_rays(rays_lib, params, rays6, cfg, True, want_hit=True)
+        sky = (flagged_frame == torch.tensor([0.5, 0.75, 1.0], device=params.device)).all(-1)
+        check(torch.equal(flagged_frame, rays_frame_card) and torch.equal(rays_hit, ~sky),
+              f"the ray forward that also writes hit flags gives the same frame bit for bit, and "
+              f"its {int(rays_hit.sum())} hit flags mark the rays not shaded as sky")
+        del flagged_frame, sky
     rays_frame, rays_depth = rays_frame.cpu().numpy(), rays_depth.cpu().numpy()
     check(rays_frame.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(rays_frame).all()),
           f"ray-kernel frame {rays_frame.shape} is finite")
@@ -729,7 +741,6 @@ def main() -> int:
 
     with torch.no_grad():
         origin_copy_ms = events(lambda: [c.contiguous() for c in (ro.x, ro.y, ro.z)])
-        rays6 = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
         turn = {"image": [], "rays": []}
         for which in ("image", "rays", "rays", "image"):
             turn[which].append(events(
@@ -899,10 +910,10 @@ def main() -> int:
         with torch.no_grad():
             chunk_rays = [c[part] for c in rays6]
             leaf_sum, kernel_g_rays[:, part] = rk.launch_rays_bwd(
-                rays_bwd_lib, params, chunk_rays, cfg, True, cot_rays[part])
+                rays_bwd_lib, params, chunk_rays, cfg, True, cot_rays[part], rays_hit[part])
             kernel_all += leaf_sum
             kernel_sums[ci] = rk.launch_rays_bwd(rays_bwd_lib, params, chunk_rays, cfg, True,
-                                                 cot_agree)[0]
+                                                 cot_agree, rays_hit[part])[0]
         del out, comps, pull
     torch.cuda.synchronize()
     with torch.no_grad():
@@ -947,12 +958,39 @@ def main() -> int:
         q.grad = None
     torch.cuda.empty_cache()
     with torch.no_grad():
-        g1 = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot)
-        g2 = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot)
+        g1 = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot, rays_hit)
+        g2 = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot, rays_hit)
         torch.cuda.synchronize()
         check(bool(torch.equal(g1[0], g2[0]) and torch.equal(g1[1], g2[1])
                    and torch.isfinite(g1[0]).all() and torch.isfinite(g1[1]).all()),
               "two ray-pullback launches give bit-identical, finite gradients (parameters and rays)")
+        # Without the hit flags every ray is marched and the final shade's own
+        # sky test zeroes the misses: the same cotangent on every ray the
+        # forward hit, bit for bit (the flag only decides whether a ray is
+        # marched). The march's depths against the forward's: the RGB pullback
+        # stops before the final step, where a depth render of n - 1
+        # iterations ends. sdf_dist_unit gives the tangent march its
+        # distances and sdf_dist the forward; a ray whose two marches part
+        # in the last bits is counted, not refused (the contracts above hold
+        # either way).
+        g0, g0_rays, marched_depth = rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True,
+                                                        cot, want_depths=True)
+        fwd_depth = rk.launch_rays(rays_lib, params, rays6, st.RenderConfig(
+            WIDTH, HEIGHT, depth_iterations=cfg.depth_iterations - 1), False)
+        torch.cuda.synchronize()
+        hit_rays_same = torch.equal(g0_rays[:, rays_hit], g1[1][:, rays_hit])
+        sky_rays_zero = bool((g1[1][:, ~rays_hit] == 0).all())
+        found_by_march = int((g0_rays[:, ~rays_hit] != 0).any(0).sum())
+        depths_apart = int((marched_depth != fwd_depth).sum())
+        check(sky_rays_zero and hit_rays_same and found_by_march <= 5e-3 * WIDTH * HEIGHT,
+              f"the ray pullback with the forward's hit flags and without them: ray cotangents "
+              f"{'bit-identical' if hit_rays_same else 'not bit-identical'} on the "
+              f"{int(rays_hit.sum())} rays the forward hit, the {int((~rays_hit).sum())} flagged "
+              f"misses zero; {found_by_march} flagged misses that the march alone shades; the "
+              f"march's depth before the final step differs from the forward's (a depth render "
+              f"of {cfg.depth_iterations - 1} iterations) on {depths_apart} rays, bit for bit")
+        rays_depths_apart = depths_apart
+        del g0, g0_rays, marched_depth, fwd_depth
         # The full-size launch walks its rays with a grid-stride loop, several
         # rays a thread (its grid is one wave of 128-thread blocks). In pieces
         # small enough for one ray a thread (the
@@ -964,7 +1002,7 @@ def main() -> int:
         same_rays = True
         for s0 in range(0, WIDTH * HEIGHT, piece):
             gp, gr = rk.launch_rays_bwd(rays_bwd_lib, params, [c[s0:s0 + piece] for c in rays6],
-                                        cfg, True, cot[s0:s0 + piece])
+                                        cfg, True, cot[s0:s0 + piece], rays_hit[s0:s0 + piece])
             pieces += gp.double()
             same_rays = same_rays and torch.equal(gr, g1[1][:, s0:s0 + piece])
         torch.cuda.synchronize()
@@ -974,17 +1012,47 @@ def main() -> int:
               f"of one ray a thread: ray cotangents bit-identical, parameter sums "
               f"{piece_err:.3g} of the largest entry apart (bound 1e-5)")
         del g1, g2, gp, gr
-        turn = {"image": [], "rays": []}
-        for which in ("image", "rays", "rays", "image"):
-            turn[which].append(events(
-                (lambda: rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot)) if which == "image"
-                else (lambda: rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot))))
+        turn = {"image": [], "rays": [], "rays_unflagged": []}
+        runs = {
+            "image": lambda: rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot),
+            "rays": lambda: rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True, cot,
+                                               rays_hit),
+            "rays_unflagged": lambda: rk.launch_rays_bwd(rays_bwd_lib, params, rays6, cfg, True,
+                                                         cot),
+        }
+        for which in ("image", "rays", "rays_unflagged", "rays_unflagged", "rays", "image"):
+            turn[which].append(events(runs[which]))
+        # The same on the mostly-sky frame: the hit flags spare the misses the march.
+        lone_rays_lib, lone_rays_bwd_lib = build.load_rays(lone_prog), build.load_rays_bwd(lone_prog)
+        lone_frame, lone_hit = rk.launch_rays(lone_rays_lib, lone_params, rays6, cfg, True,
+                                              want_hit=True)
+        lone_cot = ((2.0 / lone_frame.numel()) * (lone_frame - 0.5)).contiguous()
+        lone_g = rk.launch_rays_bwd(lone_rays_bwd_lib, lone_params, rays6, cfg, True, lone_cot,
+                                    lone_hit)
+        check(bool(torch.isfinite(lone_g[0]).all()) and float(lone_g[0].abs().max()) > 0
+              and int(lone_hit.sum()) < 0.1 * WIDTH * HEIGHT,
+              f"the mostly-sky frame's rays ({int(lone_hit.sum())} hit) have a finite ray pullback")
+        sky_turn = {"rays": [], "rays_unflagged": []}
+        sky_runs = {
+            "rays": lambda: rk.launch_rays_bwd(lone_rays_bwd_lib, lone_params, rays6, cfg, True,
+                                               lone_cot, lone_hit),
+            "rays_unflagged": lambda: rk.launch_rays_bwd(lone_rays_bwd_lib, lone_params, rays6,
+                                                         cfg, True, lone_cot),
+        }
+        for which in ("rays", "rays_unflagged", "rays_unflagged", "rays"):
+            sky_turn[which].append(events(sky_runs[which]))
+        del lone_frame, lone_cot, lone_g
     rays_bwd_ms = float(np.mean(turn["rays"]))
+    rays_bwd_unflagged_ms = float(np.mean(turn["rays_unflagged"]))
+    sky_rays_bwd_ms = float(np.mean(sky_turn["rays"]))
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    print(f"timing ray-batch backward launch alone (pullback + reduction): {rays_bwd_ms:.4f} ms "
-          f"(rounds {turn['rays']}) beside the image backward's "
-          f"{float(np.mean(turn['image'])):.4f} ms (rounds {turn['image']}) at "
-          f"{WIDTH}x{HEIGHT}x40 on {smi}")
+    print(f"timing ray-batch backward launch alone (pullback + reduction), with the forward's hit "
+          f"flags: {rays_bwd_ms:.4f} ms (rounds {turn['rays']}), without them "
+          f"{float(np.mean(turn['rays_unflagged'])):.4f} ms (rounds {turn['rays_unflagged']}), "
+          f"beside the image backward's {float(np.mean(turn['image'])):.4f} ms (rounds "
+          f"{turn['image']}) at {WIDTH}x{HEIGHT}x40; on the mostly-sky frame "
+          f"{sky_rays_bwd_ms:.4f} ms with the flags, "
+          f"{float(np.mean(sky_turn['rays_unflagged'])):.4f} ms without them on {smi}")
     del ro, rd, rays6
     for q in st.leaves(hero):
         q.grad = None
@@ -1009,11 +1077,11 @@ def main() -> int:
               and stats["rays_gt_1e-4"] + stats["hit_on_one_side_only"] <= 5e-3 * got.shape[1])
         return ok, stats
 
-    def store_grads(expr, w, h, v, depth):
+    def store_grads(expr, w, h, v, depth, iters=40):
         """(flat leaf gradients, view gradient) of phase 6's losses through
         the forward with store and the store-fed backward, launched by hand as
         ``_RenderImage`` launches the replay pair."""
-        c = st.RenderConfig(w, h)
+        c = st.RenderConfig(w, h, depth_iterations=iters)
         sp = compile_scene(expr)
         v = v.clone().requires_grad_()
         v_s = rk.view19(v, c)
@@ -1106,6 +1174,29 @@ def main() -> int:
               f"{'bit-identical' if same else f'{store_vs_replay / largest:.3g} of the largest entry'}")
         fed2 = rk.launch_bwd(store_bwd_lib, params, v19, cfg, True, cot, store=store)
         check(torch.equal(fed, fed2), "two store-fed backward launches give bit-identical gradients")
+        # Two bands of an odd pixel count, so that no row of a band's store
+        # starts on a 16-byte boundary: each band's store is the whole
+        # frame's columns bit for bit, its store-fed pullback the replay's
+        # over the same pixels, and the two bands' sum the frame's to float
+        # addition order (1e-4 of the largest entry).
+        odd = 1_000_001
+        band_sum = torch.zeros_like(fed, dtype=torch.float64)
+        bands_ok, band_vs_replay = True, 0.0
+        for b0, bn in ((0, odd), (odd, WIDTH * HEIGHT - odd)):
+            _, band_store = rk.launch(store_lib, params, v19, cfg, True, b0, bn, want_store=True)
+            band_fed = rk.launch_bwd(store_bwd_lib, params, v19, cfg, True, cot[b0:b0 + bn], b0, bn,
+                                     store=band_store)
+            band_replay = rk.launch_bwd(bwd_lib, params, v19, cfg, True, cot[b0:b0 + bn], b0, bn)
+            bands_ok = bands_ok and torch.equal(band_store, store[:, b0:b0 + bn])
+            band_vs_replay = max(band_vs_replay, float((band_fed - band_replay).abs().max()))
+            band_sum += band_fed.double()
+        del band_store, band_fed, band_replay
+        band_err = float((band_sum - fed.double()).abs().max()) / largest
+        check(bands_ok and band_vs_replay <= 1e-6 * largest and band_err <= 1e-4,
+              f"two bands of {odd} and {WIDTH * HEIGHT - odd} pixels: stores equal to the frame's "
+              f"columns bit for bit, store-fed pullback vs replay "
+              f"{band_vs_replay / largest:.3g} of the largest entry (bound 1e-6), the bands' sum "
+              f"vs the frame's {band_err:.3g} (bound 1e-4)")
         handoff = {"fwd": [], "fwd_store": [], "bwd": [], "bwd_store": []}
         runs = {
             "fwd": lambda: rk.launch(lib, params, v19, cfg, True),
@@ -1128,7 +1219,34 @@ def main() -> int:
               "the depth-history contract refuses a store whose rows are shifted by one")
         del history
     handoff_ms = {k: float(np.mean(v)) for k, v in handoff.items()}
+    # Both backwards on the mostly-sky frame, in turns: a sky pixel reads its
+    # final depth and stops.
+    with torch.no_grad():
+        lone_store_lib = build.load(lone_prog, store=True)
+        lone_store_bwd_lib = build.load_bwd(lone_prog, store=True)
+        lone_frame, lone_store = rk.launch(lone_store_lib, lone_params, v19, cfg, True,
+                                           want_store=True)
+        lone_cot = ((2.0 / lone_frame.numel()) * (lone_frame - 0.5)).contiguous()
+        lone_fed = rk.launch_bwd(lone_store_bwd_lib, lone_params, v19, cfg, True, lone_cot,
+                                 store=lone_store)
+        lone_replay = rk.launch_bwd(lone_bwd, lone_params, v19, cfg, True, lone_cot)
+        lone_largest = float(lone_replay.abs().max())
+        check(float((lone_fed - lone_replay).abs().max()) <= 1e-6 * lone_largest,
+              "the mostly-sky frame: store-fed pullback vs replay within 1e-6 of the largest entry")
+        sky_handoff = {"bwd": [], "bwd_store": []}
+        sky_runs = {
+            "bwd": lambda: rk.launch_bwd(lone_bwd, lone_params, v19, cfg, True, lone_cot),
+            "bwd_store": lambda: rk.launch_bwd(lone_store_bwd_lib, lone_params, v19, cfg, True,
+                                               lone_cot, store=lone_store),
+        }
+        for which in ("bwd", "bwd_store", "bwd_store", "bwd"):
+            sky_handoff[which].append(events(sky_runs[which]))
+        del lone_frame, lone_store, lone_cot, lone_fed, lone_replay
+    sky_store_bwd_ms = float(np.mean(sky_handoff["bwd_store"]))
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
+    print(f"timing the mostly-sky frame's backwards, launches alone: with replay "
+          f"{float(np.mean(sky_handoff['bwd'])):.4f} ms, fed the store {sky_store_bwd_ms:.4f} ms "
+          f"(rounds {sky_handoff}) at {WIDTH}x{HEIGHT}x40 on {smi}")
     print(f"timing handoff at {WIDTH}x{HEIGHT}x40, launches alone: forward {handoff_ms['fwd']:.4f} "
           f"ms, forward with store {handoff_ms['fwd_store']:.4f} ms, backward with replay "
           f"{handoff_ms['bwd']:.4f} ms, backward fed the store {handoff_ms['bwd_store']:.4f} ms; "
@@ -1293,6 +1411,18 @@ def main() -> int:
     check((rk.LAUNCHES, rk.BWD_LAUNCHES) == (2, 2),
           f"the 80-iteration gradients went through the image kernels (LAUNCHES, BWD_LAUNCHES) = "
           f"{(rk.LAUNCHES, rk.BWD_LAUNCHES)}")
+    # The store-fed backward's ring holds 48 steps: at 80 and 130 iterations
+    # it wraps, once and twice.
+    rk.STORE_BWD_LAUNCHES = 0
+    for iters in (80, 130):
+        for depth in (False, True):
+            ok, stats = grads_close(store_grads(wall, 40, 24, near_view, depth, iters),
+                                    grads(wall, 40, 24, near_view, "torch", depth, iters=iters),
+                                    depth)
+            check(ok, f"plane {'depth' if depth else 'rgb'} 40x24 at {iters} iterations: store-fed "
+                      f"backward vs autograd of the plain path, every leaf and the view {stats}")
+    check(rk.STORE_BWD_LAUNCHES == 4, f"the long store-fed gradients went through the kernel "
+                                      f"(STORE_BWD_LAUNCHES={rk.STORE_BWD_LAUNCHES})")
     with torch.no_grad():
         wall_target = st.RayMarcher(40, 24, wall, view=near_view, depth_iterations=80).render()
         wall.normal.copy_(torch.tensor([0.1, 0.0, 1.0]))  # tilted: the fit turns it back
@@ -1339,21 +1469,39 @@ def main() -> int:
             loops = [lp for lp in listing["rgb"]["loops"]
                      if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
             per = [sass.per_evaluation(lp, roots) for lp in loops]
-            # The first loop that evaluates the scene is the march (or its
-            # replay); the last one of a backward is the sweep.
-            report["instructions_per_evaluation"] = {"march": per[0]} if per else {}
-            if per and "bwd" in name:
+            # The first loop that evaluates the scene is the march (the image
+            # backward's replay; the ray-batch backward's tangent march, the
+            # only loop of it that walks the ray); the last one of the image
+            # backward is the sweep. The store-fed build has no march.
+            if name == "raymarch_rays_bwd":
+                report["instructions_per_evaluation"] = {"tangent": per[0]} if per else {}
+            elif name == "raymarch_bwd_store":
+                report["instructions_per_evaluation"] = {"sweep": per[-1]} if per else {}
+            else:
+                report["instructions_per_evaluation"] = {"march": per[0]} if per else {}
+            if per and name == "raymarch_bwd":
                 report["instructions_per_evaluation"]["sweep"] = per[-1]
             report["kernel_instructions"] = listing["rgb"]["instructions"]
             report["loops"] = [{k: lp[k] for k in ("own", "rsq", "rcp", "fchk", "loads")}
                                for lp in loops]
-            # Innermost loops that do not evaluate the scene.
-            report["other_loops"] = sum(lp["rsq"] == 0 and lp["own"] == lp["instructions"]
-                                        for lp in listing["rgb"]["loops"])
+            # Innermost loops that do not evaluate the scene (the store-fed
+            # build's copies into the ring), with their instructions.
+            other = [lp for lp in listing["rgb"]["loops"]
+                     if lp["rsq"] == 0 and lp["own"] == lp["instructions"]]
+            report["other_loops"] = len(other)
+            report["other_loop_instructions"] = [lp["own"] for lp in other]
+        report["local_memory"] = klib.local_memory.get("rgb")
         compiled[name] = report
         print(f"compiled: {name} (RGB kernel) {report}")
     check(all(r["resident_blocks_per_sm"] > 0 for r in compiled.values()),
           "every library reports its resident blocks per SM")
+    # The ray-batch backward walks the ray once: its loops that evaluate the
+    # scene are the tangent march and the taps' two (no replay, no sweep),
+    # and no history array takes its stack.
+    rays_bwd_loops = compiled["raymarch_rays_bwd"].get("loops")
+    check(rays_bwd_loops is None or len(rays_bwd_loops) == 3,
+          f"the ray-batch backward's loops that evaluate the scene are the tangent march and the "
+          f"taps' two: {rays_bwd_loops}")
 
     # -- bounds: the least time the card could take for the same work ---------
     from sdfkit_tpu_torch.sdf.compile import operation_counts
@@ -1391,6 +1539,17 @@ def main() -> int:
     # most (none of them runs more than once a pixel, the slow paths of a
     # square root or a division aside; a sky pixel skips many, so the most can
     # come out above 1).
+    # The ray-batch backward's work: on a ray the forward hit, n - 1 tangent
+    # steps (a unit gradient with its distance, the point, s = 1 + u . rd,
+    # and the derivatives' multiply-adds: 2 per parameter slot and 12 for the
+    # ray), the colour step, the taps and the final shade's pullback; a ray
+    # the forward missed costs nothing but its flag.
+    ray_hits = int(rays_hit.sum())
+    tangent_ops = ops_n["dist_unit"] + 28 + 2 * ops_n["dist_slots"]
+    rays_bwd_ops = ray_hits * ((n - 1) * tangent_ops + ops_n["eval"]
+                               + 6 * (ops_n["dist"] + step_ops) + 6 * unit_ops
+                               + ops_n["eval_vjp"] + 3 * shade_ops)
+    rays_bwd_bytes = npix * (24 + 12 + 1 + 24) + 4 * prog.n_params * 2
     march_per = (compiled["raymarch_fwd"]["instructions_per_evaluation"] or {}).get("march")
     clock = sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
     if march_per is not None and clock.strip().isdigit():
@@ -1437,6 +1596,32 @@ def main() -> int:
                   f"{ops_n['dist_unit']} + {28 + ops_n['dist_slots']} counted operations; its "
                   f"loops are {in_loops:.4g} thread instructions in {bwd_launch_ms:.4f} ms: "
                   f"{rate_shares('raymarch_bwd', in_loops, bwd_launch_ms)}")
+        # The ray-batch backward: the tangent march, then the taps' two
+        # loops, on the rays the forward hit (the flags skip the others).
+        tangent_loops = compiled["raymarch_rays_bwd"].get("loops", [])
+        if len(tangent_loops) == 3:
+            tangent, tap_fwd, tap_unit = tangent_loops
+            per_step = tangent["own"] * roots / tangent["rsq"]
+            in_loops = ray_hits * (3 * tap_fwd["own"] + 3 * tap_unit["own"] + (n - 1) * per_step)
+            print(f"work: the ray-batch backward executes {per_step:.1f} instructions per tangent "
+                  f"step for {tangent_ops} counted operations; on the {ray_hits} rays the "
+                  f"forward hit its loops are {in_loops:.4g} thread instructions in "
+                  f"{rays_bwd_ms:.4f} ms: {rate_shares('raymarch_rays_bwd', in_loops, rays_bwd_ms)}")
+        # The store-fed backward: the taps' two loops and the sweep, and the
+        # copies into the ring (n - 1 passes of its copy loops a hit pixel).
+        store_loops = compiled["raymarch_bwd_store"].get("loops", [])
+        copies = compiled["raymarch_bwd_store"].get("other_loop_instructions", [])
+        if len(store_loops) == 3 and copies:
+            tap_fwd, tap_unit, sweep = store_loops
+            per_step = sweep["own"] * roots / sweep["rsq"]
+            per_copy = sum(copies) / len(copies)
+            in_loops = hits * (3 * tap_fwd["own"] + 3 * tap_unit["own"]
+                               + (n - 1) * (per_step + per_copy))
+            ms = handoff_ms["bwd_store"]
+            print(f"work: the store-fed backward executes {per_step:.1f} instructions per sweep "
+                  f"step and {per_copy:.1f} per copy into the ring; its loops are "
+                  f"{in_loops:.4g} thread instructions in {ms:.4f} ms: "
+                  f"{in_loops / (ms * 1e-3) / instruction_rate:.3f} of the instruction rate")
 
     def bound(ops_count, nbytes):
         by_ops, by_bytes = ops_count / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
@@ -1450,8 +1635,11 @@ def main() -> int:
     # 24 bytes read per ray, and 24 written by the pullback.
     ray_ops, ray_vjp_ops = 30, 60
     rays_bound, rays_by = bound(fwd_ops - npix * ray_ops, fwd_bytes + npix * 24)
-    rays_bwd_bound, rays_bwd_by = bound(bwd_ops - npix * ray_ops - hits * ray_vjp_ops,
-                                        bwd_bytes + npix * 48)
+    rays_bwd_bound, rays_bwd_by = bound(rays_bwd_ops, rays_bwd_bytes)
+    # The same function's work as the replay and the sweep did it (the bound
+    # this kernel had before the tangent march), for comparison.
+    replay_form_bound, _ = bound(bwd_ops - npix * ray_ops - hits * ray_vjp_ops,
+                                 bwd_bytes + npix * 48)
     # The handoff: the forward writes n depths per pixel; the backward reads
     # them and does not replay the n-1 march steps.
     store_bytes = npix * n * 4
@@ -1459,8 +1647,9 @@ def main() -> int:
     store_bwd_bound, store_bwd_by = bound(
         bwd_ops - npix * (n - 1) * (ops_n["dist"] + step_ops), bwd_bytes + store_bytes)
     print(f"work: ray-batch forward {fwd_ops - npix * ray_ops:.4g} operations / "
-          f"{fwd_bytes + npix * 24} bytes, ray-batch backward "
-          f"{bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g} / {bwd_bytes + npix * 48}; "
+          f"{fwd_bytes + npix * 24} bytes, ray-batch backward {rays_bwd_ops:.4g} / "
+          f"{rays_bwd_bytes} (as a replay and a sweep {bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g}, "
+          f"bound {replay_form_bound:.4f} ms); "
           f"forward with store {fwd_ops:.4g} / {fwd_bytes + store_bytes}, backward fed the store "
           f"{bwd_ops - npix * (n - 1) * (ops_n['dist'] + step_ops):.4g} / "
           f"{bwd_bytes + store_bytes}")
@@ -1493,8 +1682,11 @@ def main() -> int:
          "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
          "full_size_leaf_err_of_largest_entry": rays_full_err,
          "full_size_ray_cotangents": rays_full_stats,
-         "ms": rays_bwd_ms, "plain_ms": plain_bwd_ms,
+         "ms": rays_bwd_ms, "ms_without_hit_flags": rays_bwd_unflagged_ms,
+         "mostly_sky_ms": sky_rays_bwd_ms, "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": rays_bwd_bound, "bound_by": rays_bwd_by,
+         "bound_ms_as_replay_and_sweep": replay_form_bound,
+         "rays_whose_march_ends_elsewhere": rays_depths_apart,
          "library_ms": None, **compiled["raymarch_rays_bwd"]},
         {"name": "raymarch_fwd_store", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
@@ -1504,7 +1696,8 @@ def main() -> int:
         {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
          "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
          "max_abs_err": store_bwd_err, "max_abs_err_vs_replay": store_vs_replay,
-         "ms": handoff_ms["bwd_store"], "plain_ms": plain_bwd_ms,
+         "ms": handoff_ms["bwd_store"], "mostly_sky_ms": sky_store_bwd_ms,
+         "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": store_bwd_bound, "bound_by": store_bwd_by,
          "library_ms": None, **compiled["raymarch_bwd_store"]},
     ]}))

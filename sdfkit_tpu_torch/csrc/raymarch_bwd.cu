@@ -38,10 +38,24 @@
 // compiler spills instead costs less than the copies.
 // Everything per pixel stays in registers and thread-local memory: the ray
 // comes from the pixel index and the kept depths live in a per-thread array
-// (the TPU kernel's VMEM scratch). With a store the replay goes, and 4 bytes
-// per step and pixel are read instead (a warp reads one step's 32 depths
-// side by side); in unit form those loads are off the chain, and the store
-// build is the faster of the two.
+// (the TPU kernel's VMEM scratch).
+//
+// With a store (SDF_STORE) the replay goes, and 4 bytes per step and pixel
+// are read instead: 332 MB per 1080p frame at 40 iterations, read once, so
+// every read goes to device memory. Read at the head of each sweep step, the
+// depth held up the whole step behind a device-memory latency, 39 times a
+// pixel. So the store build stages a hit pixel's depths in shared memory
+// ahead of the sweep (StagedRows): each thread copies its own column of the
+// store with cp.async, 4 bytes a step (a warp's 32 copies of one step are one
+// 128-byte line), into a ring of kStoreStages segments of kStoreStageSteps
+// steps (24 KB a block, 120 KB at five blocks an SM). The copies of the first
+// segments start as soon as the pixel is known to hit, before its taps, and
+// each segment's copies are issued kStoreStages - 1 segments ahead of its
+// sweep, from the last step down. A thread reads only what it copied, so no
+// barrier ties the warps of a block together, and a sky pixel, which needs
+// only its final depth, copies and waits for nothing. The arithmetic is the
+// replay-free sweep's, step for step: the gradients are bit-identical to
+// those of the loads it replaced.
 //
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval, SDF_N_PARAMS and the adjoints
@@ -58,6 +72,118 @@
 constexpr bool kHasStore = SDF_STORE != 0;
 constexpr int kNOut = kSdfNOut;
 
+#if SDF_STORE
+#ifndef SDF_STORE_FEED
+#define SDF_STORE_FEED 2
+#endif
+#ifndef SDF_STORE_STAGES
+#define SDF_STORE_STAGES 3
+#endif
+#ifndef SDF_STORE_STAGE_STEPS
+#define SDF_STORE_STAGE_STEPS 16
+#endif
+// The ring: kStoreStages segments of kStoreStageSteps steps, one float per
+// step and thread, the thread's column at ring[threadIdx.x], step j of a
+// segment kBwdThreads floats further on.
+constexpr int kStoreStages = SDF_STORE_STAGES;
+constexpr int kStoreStageSteps = SDF_STORE_STAGE_STEPS;
+constexpr int kRingFloats = kStoreStages * kStoreStageSteps * kBwdThreads;
+
+// 4 bytes from device memory to shared memory, asynchronously (cp.async).
+__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
+  const unsigned shared = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ void commit_async() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of the thread's groups of copies are in flight.
+template <int N>
+__device__ __forceinline__ void wait_async() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// A pixel's depth history staged through the thread's column of the ring
+// (see the head of this file). Segment k holds rows [lo, hi) with
+// hi = steps - k * kStoreStageSteps, in stage k % kStoreStages; the sweep
+// takes segment k once its copies have landed, after issuing those of
+// segment k + kStoreStages - 1. Every issue commits a group, empty where the
+// segment is past row 0, so that the count of groups in flight is the same
+// at every wait.
+struct StagedRows {
+  static constexpr bool kStored = true;
+  const float* at;  // the pixel's column of the store
+  long long stride;
+  float* column;    // the thread's column of the ring
+
+  __device__ float last(int steps) const { return at[steps * stride]; }
+
+  // The copies of segment k. Unrolled, so that a copy costs its address's
+  // add and its predicate: the ring's offsets are constants of the instruction.
+  __device__ void issue(int steps, int k) const {
+    const int hi = steps - k * kStoreStageSteps;
+    const int lo = hi > kStoreStageSteps ? hi - kStoreStageSteps : 0;
+    const int count = hi - lo;
+    float* dst = column + (k % kStoreStages) * kStoreStageSteps * kBwdThreads;
+    const float* src = at + lo * stride;
+#pragma unroll
+    for (int j = 0; j < kStoreStageSteps; ++j) {
+      if (j < count) copy_async4(dst + j * kBwdThreads, src + j * stride);
+    }
+    commit_async();
+  }
+
+  __device__ void on_hit(int steps) const {
+#if SDF_STORE_FEED == 2
+#pragma unroll
+    for (int k = 0; k < kStoreStages - 1; ++k) issue(steps, k);
+#endif
+  }
+
+  __device__ float sweep(const Ray& r, int steps, float g, const float* P, RayGrad& gr,
+                         float* gP) const {
+#if SDF_STORE_FEED == 1
+    // The variant that loads the next step's depth into a register one step ahead.
+    float next = steps > 0 ? at[(steps - 1) * stride] : 0.0f;
+#pragma unroll 1
+    for (int i = steps - 1; i >= 0; --i) {
+      const float depth = next;
+      if (i > 0) next = at[(i - 1) * stride];
+      g = step_vjp(r, depth, g, P, gr, gP);
+    }
+    return g;
+#elif SDF_STORE_FEED == 3
+    // The variant that loads two steps ahead into registers.
+    float next = steps > 0 ? at[(steps - 1) * stride] : 0.0f;
+    float after = steps > 1 ? at[(steps - 2) * stride] : 0.0f;
+#pragma unroll 1
+    for (int i = steps - 1; i >= 0; --i) {
+      const float depth = next;
+      next = after;
+      if (i > 1) after = at[(i - 2) * stride];
+      g = step_vjp(r, depth, g, P, gr, gP);
+    }
+    return g;
+#else
+    const int segments = (steps + kStoreStageSteps - 1) / kStoreStageSteps;
+#pragma unroll 1
+    for (int k = 0; k < segments; ++k) {
+      issue(steps, k + kStoreStages - 1);
+      wait_async<kStoreStages - 1>();
+      const int hi = steps - k * kStoreStageSteps;
+      const int lo = hi > kStoreStageSteps ? hi - kStoreStageSteps : 0;
+      const float* src = column + (k % kStoreStages) * kStoreStageSteps * kBwdThreads;
+#pragma unroll 1
+      for (int i = hi - 1; i >= lo; --i) g = step_vjp(r, src[(i - lo) * kBwdThreads], g, P, gr, gP);
+    }
+    return g;
+#endif
+  }
+};
+#endif
+
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     raymarch_bwd_kernel(RenderArgs a, const float* __restrict__ grad,
@@ -68,11 +194,19 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   const float* P = c_uniform;
   const float* view19 = c_uniform + SDF_N_PARAMS;
   const long long stride = (long long)gridDim.x * blockDim.x;
+#if SDF_STORE
+  __shared__ float ring[kRingFloats];
+#endif
   for (long long local = blockIdx.x * blockDim.x + threadIdx.x; local < a.local_npix;
        local += stride) {
-    pullback_pixel<WANT_COLOR, kHasStore>(a.pix0 + (int)local, P, view19, a,
-                                          grad + (WANT_COLOR ? 3 : 1) * local, acc,
-                                          acc + SDF_N_PARAMS, store);
+#if SDF_STORE
+    pullback_pixel<WANT_COLOR>(a.pix0 + (int)local, P, view19, a,
+                               grad + (WANT_COLOR ? 3 : 1) * local, acc, acc + SDF_N_PARAMS,
+                               StagedRows{store + local, a.local_npix, ring + threadIdx.x});
+#else
+    pullback_pixel<WANT_COLOR>(a.pix0 + (int)local, P, view19, a,
+                               grad + (WANT_COLOR ? 3 : 1) * local, acc, acc + SDF_N_PARAMS);
+#endif
   }
   block_sum_to_row<kNOut>(acc, partials + (long long)blockIdx.x * kNOut);
 }

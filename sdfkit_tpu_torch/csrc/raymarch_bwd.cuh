@@ -35,6 +35,13 @@
 // multiply-add per step. The six normal taps are taken the same way, the two
 // of an axis side by side.
 //
+// The ray-batch backward takes another route (tangent_pullback_ray): the march
+// is a scalar recurrence, depth' = depth + d(ro + rd * depth), so the
+// derivatives of the depth in the parameters and in the ray can be carried
+// forward beside it, one unit gradient per step, and scaled by the cotangent
+// of the final depth once the final step is pulled back. One pass, no replay
+// and no kept depths, for any number of iterations.
+//
 // Like raymarch_fwd.cuh this is host-and-device code with no CUDA header, so
 // the CPU tests compile it with a host compiler.
 #pragma once
@@ -52,6 +59,7 @@ constexpr int kSdfHistory = 64;
 constexpr int kSdfNOut = SDF_N_PARAMS + 19;
 constexpr int kSdfAccUnroll = kSdfNOut <= 96 ? kSdfNOut : 1;
 constexpr int kSdfNSlots = SDF_N_DIST_SLOTS > 0 ? SDF_N_DIST_SLOTS : 1;
+constexpr int kSdfSlotUnroll = kSdfNSlots <= 96 ? kSdfNSlots : 1;
 
 // Cotangents of one ray: origin and direction.
 struct RayGrad {
@@ -110,21 +118,30 @@ __host__ __device__ __forceinline__ void safe_normalize_vjp(float vx, float vy, 
   gvz = gyz * inv + 2.0f * g_ssq * vz;
 }
 
+struct NoHook {
+  __host__ __device__ void operator()() const {}
+};
+
 // The final colour step and the shading pulled back (the port's forward copy
 // is shade_ray in raymarch_fwd.cuh). `g` is the pixel's RGB cotangent and
 // `depth` the depth after the n-1 march steps. Returns false for a sky
 // pixel, whose colour is a constant: it contributes exactly zero and the
 // caller skips its sweep. Otherwise *g_depth is the cotangent of `depth`.
+// `on_hit()` runs as soon as the pixel is known to hit, before the taps: a
+// caller that has copies to start for the sweep starts them there.
+template <class OnHit = NoHook>
 __host__ __device__ __forceinline__ bool final_shade_vjp(const Ray& r, float depth,
                                                          const float* g, const float* P,
                                                          const RenderArgs& a, RayGrad& gr,
-                                                         float* gP, float* g_depth) {
+                                                         float* gP, float* g_depth,
+                                                         OnHit on_hit = OnHit()) {
   const float px = r.ox + r.dx * depth;
   const float py = r.oy + r.dy * depth;
   const float pz = r.oz + r.dz * depth;
   float cr, cg, cb;
   const float sd = depth + sdf_eval(px, py, pz, P, &cr, &cg, &cb);
   if (sd > a.far_) return false;
+  on_hit();
   // A hit shades at its own depth (shade_depth = bg ? near : depth).
   const float sx = r.ox + r.dx * sd;
   const float sy = r.oy + r.dy * sd;
@@ -268,68 +285,163 @@ __host__ __device__ __forceinline__ float replay_march(const Ray& r, const float
   return depth;
 }
 
+// Where a pullback finds the depths its sweep needs. ReplayRows: nowhere, the
+// pullback replays the march. StoreRows: in the forward's depth history, read
+// where it lies (row i of the pixel at at[i * stride]; row n-1 is the depth
+// before the final step). A kernel may bring its own source with the members
+// of StoreRows (raymarch_bwd.cu stages the rows in shared memory).
+struct ReplayRows {
+  static constexpr bool kStored = false;
+};
+
+struct StoreRows {
+  static constexpr bool kStored = true;
+  const float* at;
+  long long stride;
+  // The depth before the final step (row `steps`).
+  __host__ __device__ float last(int steps) const { return at[steps * stride]; }
+  // The pixel hits and will sweep rows [0, steps): nothing to start here.
+  __host__ __device__ void on_hit(int steps) const {}
+  // The sweep over rows [0, steps), the last first, from the cotangent g of
+  // the depth after them.
+  __host__ __device__ float sweep(const Ray& r, int steps, float g, const float* P, RayGrad& gr,
+                                  float* gP) const {
+    return sweep_vjp(r, at, stride, steps, g, P, gr, gP);
+  }
+};
+
 // The pullback of one ray, marched and shaded (shade_ray in raymarch_fwd.cuh).
 // `g` is its cotangent (3 floats, or 1 in depth mode). The parameters' share
 // is added to gP[0..SDF_N_PARAMS); `gr` is set to the cotangent of the ray's
 // origin and direction. Returns false, with `gr` all zero, for a sky ray: it
 // contributes exactly nothing and the caller skips what follows.
 //
-// Without a store the march is replayed first, keeping the pre-step depths of
+// With ReplayRows the march is replayed first, keeping the pre-step depths of
 // its last segment of at most kSdfHistory steps; each earlier segment is
-// replayed from the start when the sweep reaches it. HAS_STORE reads the
-// depths from the forward's depth history instead (row i at
-// store[i * stride]; row n-1 is the depth before the final step): no replay
-// and no array.
-template <bool WANT_COLOR, bool HAS_STORE = false>
+// replayed from the start when the sweep reaches it. A stored source gives
+// the depths instead: no replay and no array.
+template <bool WANT_COLOR, class Rows = ReplayRows>
 __host__ __device__ __forceinline__ bool pullback_ray(const Ray& r, const float* P,
                                                       const RenderArgs& a, const float* g,
                                                       float* gP, RayGrad& gr,
-                                                      const float* store = nullptr,
-                                                      long long stride = 0) {
+                                                      Rows rows = Rows()) {
   gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
   const int steps = a.iters - 1;  // march steps before the final one
-  float history[HAS_STORE ? 1 : kSdfHistory];
-  int first = HAS_STORE || steps <= 0 ? 0 : (steps - 1) / kSdfHistory * kSdfHistory;
-  const float depth =
-      HAS_STORE ? store[steps * stride] : replay_march(r, P, a.depth0, first, steps, history);
-  float g_depth;
-  if (WANT_COLOR) {
-    if (!final_shade_vjp(r, depth, g, P, a, gr, gP, &g_depth)) return false;
+  if constexpr (Rows::kStored) {
+    const float depth = rows.last(steps);
+    float g_depth;
+    if (WANT_COLOR) {
+      if (!final_shade_vjp(r, depth, g, P, a, gr, gP, &g_depth, [&] { rows.on_hit(steps); })) {
+        return false;
+      }
+    } else {
+      // Depth mode: the last step is one more march step.
+      rows.on_hit(steps);
+      g_depth = step_vjp(r, depth, g[0], P, gr, gP);
+    }
+    rows.sweep(r, steps, g_depth, P, gr, gP);
+    return true;
   } else {
-    // Depth mode: the last step is one more march step.
-    g_depth = step_vjp(r, depth, g[0], P, gr, gP);
-  }
-  if (HAS_STORE) {
-    sweep_vjp(r, store, stride, steps, g_depth, P, gr, gP);
+    float history[kSdfHistory];
+    int first = steps <= 0 ? 0 : (steps - 1) / kSdfHistory * kSdfHistory;
+    const float depth = replay_march(r, P, a.depth0, first, steps, history);
+    float g_depth;
+    if (WANT_COLOR) {
+      if (!final_shade_vjp(r, depth, g, P, a, gr, gP, &g_depth)) return false;
+    } else {
+      // Depth mode: the last step is one more march step.
+      g_depth = step_vjp(r, depth, g[0], P, gr, gP);
+    }
+    g_depth = sweep_vjp(r, history, 1, steps - first, g_depth, P, gr, gP);
+    while (first > 0) {
+      first -= kSdfHistory;
+      replay_march(r, P, a.depth0, first, first + kSdfHistory, history);
+      g_depth = sweep_vjp(r, history, 1, kSdfHistory, g_depth, P, gr, gP);
+    }
     return true;
   }
-  g_depth = sweep_vjp(r, history, 1, steps - first, g_depth, P, gr, gP);
-  while (first > 0) {
-    first -= kSdfHistory;
-    replay_march(r, P, a.depth0, first, first + kSdfHistory, history);
-    g_depth = sweep_vjp(r, history, 1, kSdfHistory, g_depth, P, gr, gP);
-  }
-  return true;
 }
 
 // The whole pullback of pixel `idx`: its ray from the index, pullback_ray,
 // then ray_vjp. `g` is its cotangent (3 floats, or 1 in depth mode); its
-// share is added to gP[0..SDF_N_PARAMS) and gV[0..19).
-// `store` is the launch's depth history (HAS_STORE), laid out as shade_pixel
-// writes it. Returns false for a sky pixel, which added nothing.
-template <bool WANT_COLOR, bool HAS_STORE = false>
+// share is added to gP[0..SDF_N_PARAMS) and gV[0..19). `rows` says where its
+// depths come from (a stored source holds the pixel's own column, as
+// shade_pixel writes the store). Returns false for a sky pixel, which added
+// nothing.
+template <bool WANT_COLOR, class Rows = ReplayRows>
 __host__ __device__ __forceinline__ bool pullback_pixel(int idx, const float* P,
                                                         const float* view19,
                                                         const RenderArgs& a, const float* g,
                                                         float* gP, float* gV,
-                                                        const float* store = nullptr) {
+                                                        Rows rows = Rows()) {
   const Ray r = ray_from_index(idx, view19, a);
   RayGrad gr;
-  if (!pullback_ray<WANT_COLOR, HAS_STORE>(r, P, a, g, gP, gr,
-                                           HAS_STORE ? store + (idx - a.pix0) : nullptr,
-                                           a.local_npix)) {
-    return false;
-  }
+  if (!pullback_ray<WANT_COLOR>(r, P, a, g, gP, gr, rows)) return false;
   ray_vjp(idx, view19, a, r, gr, gV);
+  return true;
+}
+
+// The pullback of one ray by a tangent march (the ray-batch backward). With
+// t' = t + d(ro + rd * t) and u the gradient of d at the step's point (in the
+// point, u_p, and in the parameters the distance reads, u_P), the step's
+// factor is s = 1 + u_p . rd and
+//   dt'/dP = s dt/dP + u_P,  dt'/dro = s dt/dro + u_p,  dt'/drd = s dt/drd + t u_p,
+// from zero at depth0. After the march, the final step and the shading are
+// pulled back (final_shade_vjp: their own shares, and the cotangent g_depth
+// of the depth they start from; in depth mode g_depth is the cotangent
+// itself), and the march's share is g_depth times the three derivatives. The
+// sum has the terms of pullback_ray's sweep, associated the other way, and
+// each step's unit gradient and distance come from one sdf_dist_unit: one
+// evaluation of the scene and its gradient per step, where the replay and
+// the sweep took two.
+//
+// `g` is the ray's cotangent (3 floats, or 1 in depth mode); the parameters'
+// share is added to gP[0..SDF_N_PARAMS) and `gr` is set to the cotangent of
+// the ray. `depth` is set to the depth the march reached (before the final
+// step in RGB, after all n steps in depth mode). Returns false, with `gr` all
+// zero and nothing added, for a sky ray; it has marched all the same, so a
+// caller that knows the ray missed (the forward's hit flag) skips the call.
+template <bool WANT_COLOR>
+__host__ __device__ __forceinline__ bool tangent_pullback_ray(const Ray& r, const float* P,
+                                                              const RenderArgs& a,
+                                                              const float* g, float* gP,
+                                                              RayGrad& gr, float& depth) {
+  gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  float jP[kSdfNSlots];
+#pragma unroll kSdfSlotUnroll
+  for (int k = 0; k < kSdfNSlots; ++k) jP[k] = 0.0f;
+  float jox = 0.0f, joy = 0.0f, joz = 0.0f, jdx = 0.0f, jdy = 0.0f, jdz = 0.0f;
+  float t = a.depth0;
+  const int steps = WANT_COLOR ? a.iters - 1 : a.iters;
+#pragma unroll 1
+  for (int i = 0; i < steps; ++i) {
+    float ux, uy, uz, uP[kSdfNSlots];
+    const float d = sdf_dist_unit(r.ox + r.dx * t, r.oy + r.dy * t, r.oz + r.dz * t, P, &ux,
+                                  &uy, &uz, uP);
+    const float s = 1.0f + (ux * r.dx + uy * r.dy + uz * r.dz);
+#pragma unroll kSdfSlotUnroll
+    for (int k = 0; k < SDF_N_DIST_SLOTS; ++k) jP[k] = jP[k] * s + uP[k];
+    jox = jox * s + ux;
+    joy = joy * s + uy;
+    joz = joz * s + uz;
+    jdx = jdx * s + t * ux;
+    jdy = jdy * s + t * uy;
+    jdz = jdz * s + t * uz;
+    t += d;
+  }
+  depth = t;
+  float g_depth;
+  if (WANT_COLOR) {
+    if (!final_shade_vjp(r, t, g, P, a, gr, gP, &g_depth)) return false;
+  } else {
+    g_depth = g[0];
+  }
+  sdf_dist_unit_add(g_depth, jP, gP);
+  gr.ox += g_depth * jox;
+  gr.oy += g_depth * joy;
+  gr.oz += g_depth * joz;
+  gr.dx += g_depth * jdx;
+  gr.dy += g_depth * jdy;
+  gr.dz += g_depth * jdz;
   return true;
 }

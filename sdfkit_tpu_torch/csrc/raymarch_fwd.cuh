@@ -107,11 +107,17 @@ __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float*
 // One ray, marched and shaded: `o` takes its 3 floats of RGB or its depth.
 // The image kernel makes the ray from the pixel index first; the ray-batch
 // kernel (raymarch_rays_fwd.cu, for _pallas_render_flat) reads it.
-template <bool WANT_COLOR, bool WANT_STORE = false>
+//
+// WANT_HIT (RGB only) also writes *hit: 1 where the ray hit, 0 where its
+// colour is the sky's, a constant. The ray-batch backward skips the rays
+// marked 0 (raymarch_bwd.cuh tangent_pullback_ray).
+template <bool WANT_COLOR, bool WANT_STORE = false, bool WANT_HIT = false>
 __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
                                                    const RenderArgs& a, float* o,
                                                    float* store = nullptr,
-                                                   long long stride = 0) {
+                                                   long long stride = 0,
+                                                   unsigned char* hit = nullptr) {
+  static_assert(WANT_COLOR || !WANT_HIT, "the hit flag is a colour render's");
   float depth = march_depth<WANT_STORE>(r, P, a, store, stride);
   if (!WANT_COLOR) {
     depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
@@ -123,6 +129,7 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
   depth += sdf_eval(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P,
                     &cr, &cg, &cb);
   const bool bg = depth > a.far_;
+  if (WANT_HIT) *hit = bg ? 0 : 1;
   // Misses shade at a benign depth (the JAX package's backward needs this;
   // the forward keeps the same surface point so both agree).
   const float sd = bg ? a.near_ : depth;

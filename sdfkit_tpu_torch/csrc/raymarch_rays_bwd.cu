@@ -4,16 +4,30 @@
 // The backward of what raymarch_rays_fwd.cu computes. In the JAX package this
 // path (sdfkit_tpu/render/pallas/raymarch_kernel.py _render_fused_impl,
 // _fused_bwd) has no TPU kernel of its own: its backward is jax.vjp of the
-// plain path. Here it is the image pullback (raymarch_bwd.cuh pullback_ray:
-// march replay, pullback of the final shade, reverse sweep in unit form)
-// without the pullback of ray generation: the ray's own cotangent is the
-// output. What bounds it on the card: latency, as for the image backward
-// (raymarch_bwd.cu); per ray it reads 24 bytes of ray and 12 (RGB) or 4
-// (depth) of cotangent and writes 24 bytes of ray cotangent, each component
-// array contiguous. The parameters' cotangents are summed over a grid-stride
-// loop in per-thread accumulators, then
-// raymarch_reduce.cuh (one full wave of blocks; no atomics, so two launches
-// give bit-identical sums).
+// plain path. Here it is a tangent march (raymarch_bwd.cuh
+// tangent_pullback_ray): one pass along the ray that carries the derivatives
+// of the depth beside the depth, then the pullback of the final shade, with
+// no replay of the march and no kept depths, so any number of iterations
+// takes one pass. The ray's own cotangent is an output; there is no ray
+// generation to pull back.
+//
+// What bounds it on the card: the instructions it issues. Per ray it reads
+// 24 bytes of ray, 12 (RGB) or 4 (depth) of cotangent and the forward's hit
+// flag, and writes 24 bytes of ray cotangent, each array contiguous; its work
+// is one evaluation of the scene and its gradient per march step, then the
+// final step and six taps. The image pullback that this kernel ran before
+// replayed the march (93.5 instructions a step on SphereRepeat) and then swept
+// it (231 a step, of which 94 evaluated the scene again): about 13k
+// instructions per hit ray against about 9.5k here. The derivatives add
+// SDF_N_DIST_SLOTS + 6 floats that stay live across the march, so the
+// register budget is this kernel's own (kRaysBwdMinBlocks). A sky ray has a
+// constant colour: with the forward's hit flag it costs one byte read, where
+// without it, it would march with a gradient at every step and find the sky
+// at the end.
+//
+// The parameters' cotangents are summed over a grid-stride loop in per-thread
+// accumulators, then raymarch_reduce.cuh (one full wave of blocks; no
+// atomics, so two launches give bit-identical sums).
 //
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval, SDF_N_PARAMS and the adjoints
@@ -26,14 +40,20 @@
 
 constexpr int kNParams = SDF_N_PARAMS;
 constexpr int kNAcc = kNParams > 0 ? kNParams : 1;
+#ifndef SDF_RAYS_BWD_MIN_BLOCKS
+#define SDF_RAYS_BWD_MIN_BLOCKS 5
+#endif
+// Resident blocks per SM that the register allocation aims at.
+constexpr int kRaysBwdMinBlocks = SDF_RAYS_BWD_MIN_BLOCKS;
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+__global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)
     raymarch_rays_bwd_kernel(const float* __restrict__ ox,
                              const float* __restrict__ oy, const float* __restrict__ oz,
                              const float* __restrict__ dx, const float* __restrict__ dy,
                              const float* __restrict__ dz, RenderArgs a,
-                             const float* __restrict__ grad, float* __restrict__ g_rays,
+                             const float* __restrict__ grad, const unsigned char* __restrict__ hit,
+                             float* __restrict__ g_rays, float* __restrict__ depths,
                              float* __restrict__ partials) {
   float acc[kNAcc];
 #pragma unroll kSdfAccUnroll
@@ -42,15 +62,19 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   const long long n = a.local_npix;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-    RayGrad gr;
-    pullback_ray<WANT_COLOR>(r, P, a, grad + (WANT_COLOR ? 3 : 1) * i, acc, gr);
+    RayGrad gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float depth = __int_as_float(0x7fc00000);  // NaN: a ray the flag skips marches nowhere
+    if (hit == nullptr || hit[i]) {
+      const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+      tangent_pullback_ray<WANT_COLOR>(r, P, a, grad + (WANT_COLOR ? 3 : 1) * i, acc, gr, depth);
+    }
     g_rays[i] = gr.ox;
     g_rays[n + i] = gr.oy;
     g_rays[2 * n + i] = gr.oz;
     g_rays[3 * n + i] = gr.dx;
     g_rays[4 * n + i] = gr.dy;
     g_rays[5 * n + i] = gr.dz;
+    if (depths != nullptr) depths[i] = depth;
   }
   block_sum_to_row<kNParams>(acc, partials + (long long)blockIdx.x * kNParams);
 }
@@ -76,14 +100,19 @@ extern "C" int raymarch_rays_bwd_rows(int n, int want_color) {
 // both launches were accepted). Each ray component holds n floats, `grad`
 // n*3 floats (RGB) or n (depth), `g_rays` 6*n floats (the cotangents of ox,
 // oy, oz, dx, dy, dz, one row each), `partials` rows*n_out floats with rows
-// from raymarch_rays_bwd_rows(n, want_color), `out` n_out floats.
+// from raymarch_rays_bwd_rows(n, want_color), `out` n_out floats. `hit` is
+// null (every ray is marched) or the forward's n hit flags (RGB only): a ray
+// flagged 0 gets a zero cotangent and adds nothing. `depths` is null or n
+// floats that take the depth each ray's march reached (before the final
+// step in RGB; NaN for a ray the flag skipped).
 extern "C" int raymarch_rays_bwd_launch(const void* params, const void* ox, const void* oy,
                                         const void* oz, const void* dx, const void* dy,
                                         const void* dz, int n, int iters, float depth0,
                                         float near_, float far_, int want_color,
-                                        const void* grad, void* g_rays, void* partials,
-                                        int rows, void* out, void* stream) {
-  if (iters < 1 || n <= 0 || rows <= 0) {
+                                        const void* grad, const void* hit, void* g_rays,
+                                        void* depths, void* partials, int rows, void* out,
+                                        void* stream) {
+  if (iters < 1 || n <= 0 || rows <= 0 || (hit != nullptr && !want_color)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
@@ -92,16 +121,18 @@ extern "C" int raymarch_rays_bwd_launch(const void* params, const void* ox, cons
                        static_cast<const float*>(oz), static_cast<const float*>(dx),
                        static_cast<const float*>(dy), static_cast<const float*>(dz)};
   const float* g = static_cast<const float*>(grad);
+  const unsigned char* h = static_cast<const unsigned char*>(hit);
   float* gr = static_cast<float*>(g_rays);
+  float* dep = static_cast<float*>(depths);
   float* part = static_cast<float*>(partials);
   cudaError_t err = copy_uniforms(static_cast<const float*>(params), nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (want_color) {
     raymarch_rays_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4], c[5],
-                                                                a, g, gr, part);
+                                                                a, g, h, gr, dep, part);
   } else {
-    raymarch_rays_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4], c[5],
-                                                                 a, g, gr, part);
+    raymarch_rays_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4],
+                                                                 c[5], a, g, h, gr, dep, part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

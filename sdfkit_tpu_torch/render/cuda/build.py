@@ -16,9 +16,11 @@ interface under ``sdfkit_tpu_torch/_build/``.
   A scene that is only rendered builds the image forward and nothing else. A
   parameter edit keeps both hashes, so it costs no build.
 * A library holds one kernel template in its RGB and its depth instance
-  (and, for a backward, the partial-sum kernel), so the ``ptxas -v`` report is
-  keyed ``rgb`` / ``depth`` / ``reduce`` whatever the family. Each library
-  also says how many of its blocks an SM holds at once (``resident``).
+  (and, for a backward, the partial-sum kernel; the ray-batch forward also
+  has an RGB instance that writes hit flags), so the ``ptxas -v`` report is
+  keyed ``rgb`` / ``depth`` / ``reduce`` (``rgb_hit``) whatever the family
+  (``kernel_key``). Each library also says how many of its blocks an SM
+  holds at once (``resident``).
 * ``BUILDS`` counts nvcc runs in this process. Importing the package never
   runs nvcc.
 * No ``--use_fast_math``: the kernels rely on IEEE ``/``, ``sqrtf`` and ``fmaf``.
@@ -134,18 +136,19 @@ FAMILIES = {
     "fwd_store": Family("raymarch_fwd", _FWD_ARGS, store=True),
     "bwd": Family("raymarch_bwd", _BWD_ARGS, adjoint=True, view_outputs=19),
     "bwd_store": Family("raymarch_bwd", _BWD_ARGS, adjoint=True, store=True, view_outputs=19),
-    "rays_fwd": Family("raymarch_rays_fwd", (*_RAYS_ARGS, _P, _P)),  # out, stream
-    # grad, g_rays, partials, rows, out, stream
-    "rays_bwd": Family("raymarch_rays_bwd", (*_RAYS_ARGS, _P, _P, _P, ctypes.c_int, _P, _P),
-                       adjoint=True),
+    "rays_fwd": Family("raymarch_rays_fwd", (*_RAYS_ARGS, _P, _P, _P)),  # out, hit, stream
+    # grad, hit, g_rays, depths, partials, rows, out, stream
+    "rays_bwd": Family("raymarch_rays_bwd",
+                       (*_RAYS_ARGS, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P), adjoint=True),
 }
 
 
-def translation_unit(program: Program, family: str = "fwd") -> str:
+def translation_unit(program: Program, family: str = "fwd", defines: tuple = ()) -> str:
     """The generated .cu of one family: the scene's functions (and their
-    adjoints, for a backward), then the kernel source."""
+    adjoints, for a backward), then the kernel source. ``defines`` are
+    ``"NAME VALUE"`` macros put first, for builds of measured variants."""
     fam = FAMILIES[family]
-    unit = _HEAD + program.source + "\n"
+    unit = "".join(f"#define {d}\n" for d in defines) + _HEAD + program.source + "\n"
     if fam.adjoint:
         unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS itself
     else:
@@ -153,6 +156,17 @@ def translation_unit(program: Program, family: str = "fwd") -> str:
     if fam.store:
         unit += "#define SDF_STORE 1\n"
     return unit + f'#include "{fam.prefix}.cu"\n'
+
+
+def kernel_key(mangled: str) -> str:
+    """``rgb`` / ``depth`` / ``reduce`` for a kernel of a library, from its
+    mangled name: the first template argument of a render kernel is
+    WANT_COLOR, and the ray-batch forward's second, WANT_HIT, adds ``_hit``."""
+    if "reduce" in mangled:
+        return "reduce"
+    m = re.search(r"ILb([01])E(?:Lb([01])E)?", mangled)
+    key = "rgb" if m and m.group(1) == "1" else "depth"
+    return key + "_hit" if m and m.group(2) == "1" else key
 
 
 def _ptxas(log: str) -> tuple[dict, dict]:
@@ -163,11 +177,7 @@ def _ptxas(log: str) -> tuple[dict, dict]:
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
-            # The first template argument of a render kernel is WANT_COLOR.
-            first = re.search(r"ILb([01])E", name)
-            current = ("reduce" if "reduce" in name
-                       else "rgb" if first and first.group(1) == "1" else "depth")
+            current = kernel_key(m.group(1))
             continue
         if current is None:
             continue
@@ -214,11 +224,13 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     return so, seconds, log
 
 
-def load_family(program: Program, family: str) -> KernelLib:
-    """The library of ``family`` for ``program``, built on first use."""
+def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib:
+    """The library of ``family`` for ``program``, built on first use.
+    ``defines``: see :func:`translation_unit`; a variant is a library of its
+    own."""
     fam = FAMILIES[family]
     name = program.adjoint_hash if fam.adjoint else program.hash
-    lib = _LIBS.get((family, name))
+    lib = _LIBS.get((family, name, defines))
     if lib is not None:
         return lib
     if program.n_params + VIEW_SCALARS > CONSTANT_FLOATS:
@@ -226,7 +238,7 @@ def load_family(program: Program, family: str) -> KernelLib:
             f"the scene has {program.n_params} parameter slots; the kernels read them and the "
             f"{VIEW_SCALARS} view scalars from constant memory, which holds {CONSTANT_FLOATS} floats"
         )
-    unit = translation_unit(program, family)
+    unit = translation_unit(program, family, defines)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
     so, seconds, log = _compile(f"raymarch_{family}_{name}_{digest}", unit)
@@ -251,7 +263,7 @@ def load_family(program: Program, family: str) -> KernelLib:
                 f"the program has {program.n_params}"
             )
     registers, local = _ptxas(log)
-    lib = _LIBS[(family, name)] = KernelLib(
+    lib = _LIBS[(family, name, defines)] = KernelLib(
         launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
         rows=rows, store=fam.store, resident=resident,
     )

@@ -17,7 +17,11 @@ Every function of ``sdfkit_tpu/render/pallas/raymarch_kernel.py`` that reaches
 * ``launch_rays`` / ``render_rays_kernel`` / ``render_depth_rays_kernel``
   replace ``_pallas_render_flat`` behind ``render_rays_fused``: rays given as
   arrays. ``launch_rays_bwd`` is its pullback (the JAX package differentiates
-  this path through its plain version; on the card that is a kernel too).
+  this path through its plain version; on the card that is a kernel too): a
+  tangent march, which carries the derivatives of the depth along the march
+  and needs no replay. A colour render that autograd records also keeps one
+  byte per ray, whether it hit (``launch_rays(..., want_hit=True)``), and the
+  pullback skips the rays that did not.
 
 The plain version of all of them is ``render/raymarch.py``: ``render_rays`` /
 ``render_depth_rays`` (on ``camera_rays`` for the image forms), autograd
@@ -29,19 +33,22 @@ start an instruction nearly every cycle (about 46 scene evaluations per ray,
 the scene compiler writes a division by a uniform as a reciprocal taken
 once and two multiply-adds, and the parameters and the view come through
 constant memory (``csrc/raymarch_uniforms.cuh``; one buffer per library, so a
-launch on another stream than the library's last waits for that one). The backwards run those evaluations again (they
-replay the march) plus about 46 gradients of the scene, long chains of
-dependent operations; they are written so that many warps are in flight
-(uniforms in constant memory, a register budget set for five blocks an SM,
-one full wave of blocks) and so that the chain is short (the sweep takes each step's gradient for a cotangent of one,
-independent of the steps around it, and scales it after). All designs keep a
-ray's whole march in registers and thread-local memory; the image kernels
-make the ray from the pixel index and 19 view scalars and read nothing else
-from device memory but the flat parameter buffer. The backwards take any
-number of march iterations: they keep 64 depths at a time and replay the
-march once more for every further 64. They sum over pixels without atomics
-(per-block partial rows, then a second kernel in a fixed order), so their
-gradients are bit-reproducible. The sources are under ``csrc/``; the scene
+launch on another stream than the library's last waits for that one). The
+image backward runs those evaluations again (it replays the march) plus
+about 46 gradients of the scene; it is written so that many warps are in
+flight (uniforms in constant memory, a register budget set for five blocks an
+SM, one full wave of blocks) and so that the chain is short (the sweep takes
+each step's gradient for a cotangent of one, independent of the steps around
+it, and scales it after). Fed the forward's depth history it replays
+nothing, and stages each hit pixel's depths in shared memory ahead of its
+sweep. The ray-batch backward takes one gradient of the scene per march step
+and nothing else (the tangent march). All designs keep a ray's whole march
+in registers and thread-local memory; the image kernels make the ray from
+the pixel index and 19 view scalars. The backwards take any number of march
+iterations: the image backward keeps 64 depths at a time and replays the
+march once more for every further 64, the others need no kept depths. They
+sum over pixels without atomics (per-block partial rows, then a second kernel
+in a fixed order), so their gradients are bit-reproducible. The sources are under ``csrc/``; the scene
 body and its adjoint come from the scene compiler and the builds from
 ``build.py``.
 
@@ -242,45 +249,69 @@ def _check_rays(params: torch.Tensor, rays) -> int:
 
 
 def launch_rays(lib: build.KernelLib, params: torch.Tensor, rays, cfg: RenderConfig,
-                want_color: bool) -> torch.Tensor:
+                want_color: bool, want_hit: bool = False):
     """Run the ray-batch kernel over n rays given as six (n,) component
     tensors: (n, 3) RGB or (n,) depth, on the current stream. Only the march
-    settings of ``cfg`` are read."""
+    settings of ``cfg`` are read.
+
+    ``want_hit`` (RGB only) returns ``(out, hit)``: ``hit`` is the (n,) bool
+    flag of the rays that hit, for ``launch_rays_bwd(..., hit=hit)``."""
     global RAYS_LAUNCHES
+    if want_hit and not want_color:
+        raise ValueError("the hit flag is a colour render's: a depth has a gradient on every ray")
     n = _check_rays(params, rays)
     out = torch.empty((n, 3) if want_color else (n,), dtype=torch.float32, device=params.device)
-    if n == 0:
-        return out
-    with torch.cuda.device(params.device):
-        _run(lib, "raymarch_rays_fwd", params.data_ptr(), *(c.data_ptr() for c in rays), n,
-             *_scalars(cfg, want_color), out.data_ptr())
-    RAYS_LAUNCHES += 1
-    return out
+    hit = torch.empty(n, dtype=torch.bool, device=params.device) if want_hit else None
+    if n > 0:
+        with torch.cuda.device(params.device):
+            _run(lib, "raymarch_rays_fwd", params.data_ptr(), *(c.data_ptr() for c in rays), n,
+                 *_scalars(cfg, want_color), out.data_ptr(), hit.data_ptr() if want_hit else None)
+        RAYS_LAUNCHES += 1
+    return (out, hit) if want_hit else out
 
 
 def launch_rays_bwd(lib: build.KernelLib, params: torch.Tensor, rays, cfg: RenderConfig,
-                    want_color: bool, grad: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                    want_color: bool, grad: torch.Tensor, hit: torch.Tensor | None = None,
+                    want_depths: bool = False):
     """Run the ray-batch pullback on the current stream. ``grad`` is the
     cotangent of ``launch_rays``'s output. Returns ``(g_params, g_rays)``:
     the (n_params,) cotangent of the flat parameter buffer, summed over the
-    rays, and the (6, n) cotangents of the six ray components."""
+    rays, and the (6, n) cotangents of the six ray components.
+
+    ``hit`` is the forward's hit flag of the same rays (``launch_rays(...,
+    want_hit=True)``, RGB only): a ray that missed has the sky's constant
+    colour, gets a zero cotangent and costs no march. Without it every ray
+    is marched, and one that misses still adds exactly nothing.
+    ``want_depths`` also returns the (n,) depth each ray's march reached
+    (before the final step in RGB; NaN where ``hit`` skipped the ray)."""
     global RAYS_BWD_LAUNCHES
     n = _check_rays(params, rays)
     _check("grad", grad, (n, 3) if want_color else (n,))
     if grad.device != params.device:
         raise ValueError(f"the cotangent is on {grad.device} but the scene is on {params.device}")
+    if hit is not None:
+        if not want_color:
+            raise ValueError("the hit flag is a colour render's: a depth has a gradient on every ray")
+        if not isinstance(hit, torch.Tensor) or hit.dtype != torch.bool or hit.shape != (n,):
+            raise ValueError(f"hit must be an ({n},) bool tensor")
+        if hit.device != params.device or not hit.is_contiguous():
+            raise ValueError(f"hit must be contiguous on {params.device}")
     n_out = params.numel()
     g_params = torch.empty(n_out, dtype=torch.float32, device=params.device)
     g_rays = torch.empty((6, n), dtype=torch.float32, device=params.device)
+    depths = torch.empty(n, dtype=torch.float32, device=params.device) if want_depths else None
     if n == 0:
-        return g_params.zero_(), g_rays
-    with torch.cuda.device(params.device):
-        partials = _partials(lib, n, n_out, want_color, params.device)
-        _run(lib, "raymarch_rays_bwd", params.data_ptr(), *(c.data_ptr() for c in rays), n,
-             *_scalars(cfg, want_color), grad.data_ptr(), g_rays.data_ptr(), partials.data_ptr(),
-             partials.shape[0], g_params.data_ptr())
-    RAYS_BWD_LAUNCHES += 1
-    return g_params, g_rays
+        g_params.zero_()
+    else:
+        with torch.cuda.device(params.device):
+            partials = _partials(lib, n, n_out, want_color, params.device)
+            _run(lib, "raymarch_rays_bwd", params.data_ptr(), *(c.data_ptr() for c in rays), n,
+                 *_scalars(cfg, want_color), grad.data_ptr(),
+                 None if hit is None else hit.data_ptr(), g_rays.data_ptr(),
+                 depths.data_ptr() if want_depths else None, partials.data_ptr(),
+                 partials.shape[0], g_params.data_ptr())
+        RAYS_BWD_LAUNCHES += 1
+    return (g_params, g_rays, depths) if want_depths else (g_params, g_rays)
 
 
 class _RenderImage(torch.autograd.Function):
@@ -316,14 +347,19 @@ class _RenderRays(torch.autograd.Function):
     """The ray-batch kernels as one autograd node: ``params`` is the flat
     parameter buffer and the six ray components tensors of one shape. A
     component that is not contiguous (``camera_rays`` hands out stride-0
-    origins) is copied; autograd sums a broadcast component's cotangent."""
+    origins) is copied; autograd sums a broadcast component's cotangent.
+    ``want_hit``: the forward also keeps the rays' hit flags (one byte a ray)
+    for the backward, which then skips the rays that missed."""
 
     @staticmethod
-    def forward(ctx, params, ox, oy, oz, dx, dy, dz, program, cfg, want_color):
+    def forward(ctx, params, ox, oy, oz, dx, dy, dz, program, cfg, want_color, want_hit):
         shape = ox.shape
         params = params.detach().contiguous()
         rays = tuple(c.detach().contiguous().view(-1) for c in (ox, oy, oz, dx, dy, dz))
-        out = launch_rays(build.load_rays(program), params, rays, cfg, want_color)
+        out = launch_rays(build.load_rays(program), params, rays, cfg, want_color, want_hit)
+        ctx.hit = None
+        if want_hit:
+            out, ctx.hit = out
         ctx.save_for_backward(params, *rays)
         ctx.program, ctx.cfg, ctx.want_color, ctx.shape = program, cfg, want_color, shape
         return out.view((*shape, 3) if want_color else shape)
@@ -335,8 +371,8 @@ class _RenderRays(torch.autograd.Function):
         n = rays[0].numel()
         grad = grad.contiguous().view((n, 3) if ctx.want_color else (n,))
         g_params, g_rays = launch_rays_bwd(build.load_rays_bwd(ctx.program), params, rays,
-                                           ctx.cfg, ctx.want_color, grad)
-        return (g_params, *(g.view(ctx.shape) for g in g_rays), None, None, None)
+                                           ctx.cfg, ctx.want_color, grad, ctx.hit)
+        return (g_params, *(g.view(ctx.shape) for g in g_rays), None, None, None, None)
 
 
 def _program_and_params(expr: SdfExpr):
@@ -402,7 +438,10 @@ def _render_rays(expr: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig, want_color: b
                 f"{name} has shape {tuple(c.shape)} but ro.x has {tuple(comps[0].shape)}"
             )
     program, params = _program_and_params(expr)
-    return _RenderRays.apply(params, *comps, program, cfg, want_color)
+    # The hit flags are kept only where autograd records the render.
+    want_hit = want_color and torch.is_grad_enabled() and any(
+        t.requires_grad for t in (params, *comps))
+    return _RenderRays.apply(params, *comps, program, cfg, want_color, want_hit)
 
 
 def render_rays_kernel(expr: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig) -> torch.Tensor:

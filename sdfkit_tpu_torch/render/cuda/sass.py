@@ -17,7 +17,7 @@ import re
 import shutil
 import subprocess
 
-from sdfkit_tpu_torch.render.cuda.build import nvcc_path
+from sdfkit_tpu_torch.render.cuda.build import kernel_key, nvcc_path
 
 _FUNCTION = re.compile(r"^\s*Function : (\S+)")
 _INSTRUCTION = re.compile(r"^\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\d+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
@@ -28,15 +28,6 @@ def cuobjdump_path() -> str | None:
     """``cuobjdump`` beside nvcc or on the PATH, or None."""
     beside = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
     return beside if os.path.exists(beside) else shutil.which("cuobjdump")
-
-
-def kernel_key(mangled: str) -> str:
-    """``rgb`` / ``depth`` / ``reduce`` as ``build._ptxas`` keys a library's
-    kernels (the first template argument of a render kernel is WANT_COLOR)."""
-    if "reduce" in mangled:
-        return "reduce"
-    first = re.search(r"ILb([01])E", mangled)
-    return "rgb" if first and first.group(1) == "1" else "depth"
 
 
 def parse_sass(text: str) -> dict:

@@ -140,7 +140,7 @@ def j_loss(img, want_color):
     return jnp.sum(jnp.where(img < 50.0, img, 0.0) ** 2)
 
 
-def port_ray_grads(texpr, ro, rd, want_color, kernel):
+def port_ray_grads(texpr, ro, rd, want_color, kernel, cfg=CFG):
     """(leaf gradients, d loss / d ro, d loss / d rd) through the port."""
     for p in st.leaves(texpr):
         p.grad = None
@@ -149,16 +149,18 @@ def port_ray_grads(texpr, ro, rd, want_color, kernel):
         fn = rk.render_rays_kernel if want_color else rk.render_depth_rays_kernel
     else:
         fn = render_rays if want_color else render_depth_rays
-    t_loss(fn(texpr, tro, trd, CFG), want_color).backward()
+    t_loss(fn(texpr, tro, trd, cfg), want_color).backward()
     stack = lambda v: np.stack([c.grad.numpy() for c in (v.x, v.y, v.z)], axis=-1)
     return tp.leaf_grads(texpr), stack(tro), stack(trd)
 
 
-def jax_ray_grads(jexpr, ro, rd, want_color):
+def jax_ray_grads(jexpr, ro, rd, want_color, iters=None):
     """The same through ``jax.vjp`` of the fused entry point, whose backward
-    is the jnp path (``_fused_bwd``)."""
+    is the jnp path (``_fused_bwd``); ``iters`` march iterations (the
+    config's default if None)."""
     fn = jrk.render_rays_fused if want_color else jrk.render_depth_rays_fused
-    loss = lambda s, o, d: j_loss(fn(s, o, d, JCFG), want_color)
+    jcfg = JCFG if iters is None else jrm.RenderConfig(width=8, height=8, depth_iterations=iters)
+    loss = lambda s, o, d: j_loss(fn(s, o, d, jcfg), want_color)
     gs, go, gd = jax.grad(loss, argnums=(0, 1, 2))(jexpr, tp.jax_v3(ro), tp.jax_v3(rd))
     stack = lambda v: np.stack([np.asarray(c) for c in (v.x, v.y, v.z)], axis=-1)
     return tp.jax_leaf_grads(gs), stack(go), stack(gd)

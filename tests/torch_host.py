@@ -11,7 +11,11 @@ variants, ray-batch forward and backward). The backward loops sum in float64
 ``patch_kernels`` puts those loops in place of the launch functions of
 ``render/cuda/raymarch_kernel.py``, so that the wrappers' own plumbing
 (layouts, autograd nodes, the split into leaf, view and ray cotangents) runs
-on CPU tensors in the tests.
+on CPU tensors in the tests. The ray-batch loops are the kernel's: the forward
+writes the hit flags it is asked for, and the pullback is the tangent march
+(``tangent_pullback_ray``) that skips a ray flagged as a miss. The library
+also holds the image pullback's replay and sweep (``pullback_ray``) run on
+given rays, which the tangent march is held against.
 """
 
 import ctypes
@@ -63,8 +67,9 @@ extern "C" void raymarch_bwd_store_host(const float* P, const float* view19, int
   for (int j = 0; j < n_out; ++j) out[j] = 0.0;
   for (int i = 0; i < local_npix; ++i) {
     float acc[SDF_N_PARAMS + 19] = {0.0f};
-    if (want_color) pullback_pixel<true, true>(pix0 + i, P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS, store);
-    else pullback_pixel<false, true>(pix0 + i, P, view19, a, grad + i, acc, acc + SDF_N_PARAMS, store);
+    const StoreRows rows{store + i, local_npix};
+    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS, rows);
+    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, acc + SDF_N_PARAMS, rows);
     for (int j = 0; j < n_out; ++j) out[j] += (double)acc[j];
   }
 }
@@ -74,25 +79,55 @@ LOOP_RAYS = """
 extern "C" void raymarch_rays_fwd_host(const float* P, const float* ox, const float* oy,
                                        const float* oz, const float* dx, const float* dy,
                                        const float* dz, int n, int iters, float depth0,
-                                       float near_, float far_, int want_color, float* out) {
+                                       float near_, float far_, int want_color, float* out,
+                                       unsigned char* hit) {
   RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
   for (int i = 0; i < n; ++i) {
     const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-    if (want_color) shade_ray<true>(r, P, a, out + 3 * i);
+    if (hit != nullptr) shade_ray<true, false, true>(r, P, a, out + 3 * i, nullptr, 0, hit + i);
+    else if (want_color) shade_ray<true>(r, P, a, out + 3 * i);
     else shade_ray<false>(r, P, a, out + i);
   }
 }
 
+// The ray-batch kernel's loop: the tangent march, a ray flagged as a miss
+// skipped; depths (NaN for a skipped ray) where asked for.
 extern "C" void raymarch_rays_bwd_host(const float* P, const float* ox, const float* oy,
                                        const float* oz, const float* dx, const float* dy,
                                        const float* dz, int n, int iters, float depth0,
                                        float near_, float far_, int want_color,
-                                       const float* grad, float* g_rays, double* out) {
+                                       const float* grad, const unsigned char* hit,
+                                       float* g_rays, float* depths, double* out) {
   RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
   for (int j = 0; j < SDF_N_PARAMS; ++j) out[j] = 0.0;
   for (int i = 0; i < n; ++i) {
     const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-    float acc[SDF_N_PARAMS] = {0.0f};
+    float acc[SDF_N_PARAMS + 1] = {0.0f};
+    RayGrad gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float depth = NAN;
+    if (hit == nullptr || hit[i]) {
+      if (want_color) tangent_pullback_ray<true>(r, P, a, grad + 3 * i, acc, gr, depth);
+      else tangent_pullback_ray<false>(r, P, a, grad + i, acc, gr, depth);
+    }
+    const float g6[6] = {gr.ox, gr.oy, gr.oz, gr.dx, gr.dy, gr.dz};
+    for (int k = 0; k < 6; ++k) g_rays[(long long)k * n + i] = g6[k];
+    if (depths != nullptr) depths[i] = depth;
+    for (int j = 0; j < SDF_N_PARAMS; ++j) out[j] += (double)acc[j];
+  }
+}
+
+// The image pullback's replay and sweep (pullback_ray) on given rays, as the
+// ray-batch kernel ran them before the tangent march.
+extern "C" void raymarch_rays_bwd_replay_host(const float* P, const float* ox, const float* oy,
+                                              const float* oz, const float* dx, const float* dy,
+                                              const float* dz, int n, int iters, float depth0,
+                                              float near_, float far_, int want_color,
+                                              const float* grad, float* g_rays, double* out) {
+  RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
+  for (int j = 0; j < SDF_N_PARAMS; ++j) out[j] = 0.0;
+  for (int i = 0; i < n; ++i) {
+    const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+    float acc[SDF_N_PARAMS + 1] = {0.0f};
     RayGrad gr;
     if (want_color) pullback_ray<true>(r, P, a, grad + 3 * i, acc, gr);
     else pullback_ray<false>(r, P, a, grad + i, acc, gr);
@@ -111,8 +146,9 @@ _SIGNATURES = {
     "raymarch_bwd_host": _IMAGE + [_P, _P],
     "raymarch_fwd_store_host": _IMAGE + [_P, _P],
     "raymarch_bwd_store_host": _IMAGE + [_P, _P, _P],
-    "raymarch_rays_fwd_host": _RAYS + [_P],
-    "raymarch_rays_bwd_host": _RAYS + [_P, _P, _P],
+    "raymarch_rays_fwd_host": _RAYS + [_P, _P],
+    "raymarch_rays_bwd_host": _RAYS + [_P] * 5,
+    "raymarch_rays_bwd_replay_host": _RAYS + [_P, _P, _P],
 }
 
 
@@ -155,7 +191,8 @@ def patch_kernels(monkeypatch, get):
     """Put the host loops of ``get(program)`` in place of the CUDA launches,
     so the kernel entry points of ``raymarch_kernel`` run on CPU tensors.
     Returns the dict that counts the stand-in launches."""
-    calls = {"fwd": 0, "bwd": 0, "store_fwd": 0, "store_bwd": 0, "rays_fwd": 0, "rays_bwd": 0}
+    calls = {"fwd": 0, "bwd": 0, "store_fwd": 0, "store_bwd": 0, "rays_fwd": 0, "rays_bwd": 0,
+             "hit_flags": 0, "rays_bwd_with_hit": 0}
 
     def launch(lib, params, v19, cfg, want_color, pix0=0, local_npix=None, want_store=False):
         n = cfg.width * cfg.height if local_npix is None else local_npix
@@ -185,24 +222,33 @@ def patch_kernels(monkeypatch, get):
             calls["store_bwd"] += 1
         return torch.from_numpy(out.astype(np.float32))
 
-    def launch_rays(lib, params, rays, cfg, want_color):
+    def launch_rays(lib, params, rays, cfg, want_color, want_hit=False):
         n = rays[0].numel()
         assert all(c.is_contiguous() and c.shape == (n,) for c in rays)
+        assert want_color or not want_hit
         out = torch.empty((n, 3) if want_color else (n,))
+        hit = torch.empty(n, dtype=torch.bool) if want_hit else None
         lib.raymarch_rays_fwd_host(params.data_ptr(), *_ray_args(rays, cfg, want_color),
-                                   out.data_ptr())
+                                   out.data_ptr(), None if hit is None else hit.data_ptr())
         calls["rays_fwd"] += 1
-        return out
+        calls["hit_flags"] += int(want_hit)
+        return (out, hit) if want_hit else out
 
-    def launch_rays_bwd(lib, params, rays, cfg, want_color, grad):
+    def launch_rays_bwd(lib, params, rays, cfg, want_color, grad, hit=None, want_depths=False):
         n = rays[0].numel()
         assert grad.is_contiguous() and grad.shape == ((n, 3) if want_color else (n,))
+        assert hit is None or (want_color and hit.dtype == torch.bool and hit.shape == (n,))
         g_rays = torch.empty((6, n))
+        depths = torch.empty(n) if want_depths else None
         out = np.empty(params.numel(), np.float64)
         lib.raymarch_rays_bwd_host(params.data_ptr(), *_ray_args(rays, cfg, want_color),
-                                   grad.data_ptr(), g_rays.data_ptr(), out.ctypes.data)
+                                   grad.data_ptr(), None if hit is None else hit.data_ptr(),
+                                   g_rays.data_ptr(), None if depths is None else depths.data_ptr(),
+                                   out.ctypes.data)
         calls["rays_bwd"] += 1
-        return torch.from_numpy(out.astype(np.float32)), g_rays
+        calls["rays_bwd_with_hit"] += int(hit is not None)
+        g_params = torch.from_numpy(out.astype(np.float32))
+        return (g_params, g_rays, depths) if want_depths else (g_params, g_rays)
 
     for name, fn in (("launch", launch), ("launch_bwd", launch_bwd),
                      ("launch_rays", launch_rays), ("launch_rays_bwd", launch_rays_bwd)):

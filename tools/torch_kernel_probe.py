@@ -1,50 +1,112 @@
 #!/usr/bin/env python3
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--package-root DIR] [--tag NAME]
+    python3 tools/torch_kernel_probe.py [--against DIR ...] [--variants] [--tag NAME]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
-backward, their depth-history builds, the ray-batch pair) and prints, one
-JSON object per line with ``"probe"`` naming it:
+backward, their depth-history builds, the ray-batch pair) and for one sphere,
+and prints, one JSON object per line with ``"probe"`` naming it:
 
 * ``build``: per library the registers, stack and spills ``ptxas -v``
-  reported, the resident blocks per SM the occupancy calculator gives (where
-  the library has that entry), and from ``cuobjdump -sass`` the instructions
-  of each kernel and of each of its loops with their square roots,
-  reciprocals and division range checks;
-* ``time``: CUDA-event times of the forward and backward launches alone at
-  1920x1080x40 on SphereRepeat (nearly every pixel hits) and on one sphere of
-  radius 0.5 seen by the same camera (mostly sky), in turns, with a hash of
-  each frame and the gradient of a seeded cotangent (``frame``), so that two
-  commits can be held against each other.
+  reported, the resident blocks per SM the occupancy calculator gives, and
+  from ``cuobjdump -sass`` the instructions of each kernel and of each of its
+  loops with their square roots, reciprocals and division range checks;
+* ``listing``: the SASS of the store-fed backward's sweep loop, per package;
+* ``frame``: per scene the hit pixels, a hash of the frame and the image
+  backward's gradient of a seeded cotangent, so that runs can be held
+  against each other;
+* ``same``: the store-fed backward of every package against this
+  checkout's, fed the same depth history and cotangent (bit for bit), and
+  the image and ray-batch backwards likewise (the largest difference over the
+  largest entry);
+* ``time``: CUDA-event times of the backward launches alone at 1920x1080x40
+  on SphereRepeat (nearly every pixel hits) and on one sphere of radius 0.5
+  under the same camera (mostly sky), in turns, there and back, twice: the
+  image backward, the store-fed backward and the ray-batch backward on the
+  frame's camera rays (with the forward's hit flags where the package has
+  them, and without), for this checkout and every ``--against`` package, and
+  the forwards of this checkout.
 
-``--package-root`` names a directory that holds another ``sdfkit_tpu_torch``
-(an earlier commit unpacked beside this one) to probe instead; the SASS
-reader always comes from this checkout. Every line carries ``--tag`` and the
-card's name and power limit.
+``--against DIR`` (repeatable) names a directory that holds another
+``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
+``git archive <commit> sdfkit_tpu_torch | tar -x -C DIR``); each is imported
+in this same process under its own module objects, builds into its own
+``_build/`` and is timed in the same turns. ``--variants`` adds builds of
+this checkout's backwards with other compile-time settings (its
+``VARIANTS``). Every line carries ``--tag`` and the card's name and power
+limit.
 """
 
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import hashlib
-import importlib.util
+import importlib
+import inspect
 import json
 import pathlib
 import subprocess
 import sys
+import types
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
+PKG = "sdfkit_tpu_torch"
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED = 3, 10
+# Compile-time settings of this checkout's backwards, timed beside the
+# defaults: family -> {label: defines}.
+VARIANTS = {
+    "rays_bwd": {
+        "rays_bwd blocks=4": ("SDF_RAYS_BWD_MIN_BLOCKS 4",),
+        "rays_bwd blocks=6": ("SDF_RAYS_BWD_MIN_BLOCKS 6",),
+    },
+    "bwd_store": {
+        "bwd_store register prefetch": ("SDF_STORE_FEED 1",),
+        "bwd_store register prefetch, two steps": ("SDF_STORE_FEED 3",),
+        "bwd_store stages=2 steps=16": ("SDF_STORE_STAGES 2", "SDF_STORE_STAGE_STEPS 16"),
+        "bwd_store stages=4 steps=8": ("SDF_STORE_STAGES 4", "SDF_STORE_STAGE_STEPS 8"),
+        "bwd_store stages=2 steps=32": ("SDF_STORE_STAGES 2", "SDF_STORE_STAGE_STEPS 32"),
+    },
+}
+
+
+def load_package(root: pathlib.Path) -> types.SimpleNamespace:
+    """The modules of the ``sdfkit_tpu_torch`` under ``root``, imported under
+    their own names and then taken out of ``sys.modules`` again, so that
+    packages of several commits live in one process side by side."""
+    def ours():
+        return [k for k in sys.modules if k == PKG or k.startswith(PKG + ".")]
+
+    saved = {k: sys.modules.pop(k) for k in ours()}
+    sys.path.insert(0, str(root))
+    try:
+        pkg = types.SimpleNamespace(
+            st=importlib.import_module(PKG),
+            scenes=importlib.import_module(PKG + ".scenes"),
+            build=importlib.import_module(PKG + ".render.cuda.build"),
+            rk=importlib.import_module(PKG + ".render.cuda.raymarch_kernel"),
+            compile=importlib.import_module(PKG + ".sdf.compile"),
+            camera=importlib.import_module(PKG + ".utils.camera"),
+            sass=importlib.import_module(PKG + ".render.cuda.sass"),
+        )
+    finally:
+        sys.path.remove(str(root))
+        for k in ours():
+            del sys.modules[k]
+        sys.modules.update(saved)
+    if pkg.build.PACKAGE_DIR.resolve() != (root / PKG).resolve():
+        raise RuntimeError(f"{root}: imported {pkg.build.PACKAGE_DIR} instead")
+    return pkg
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--package-root", default=str(ROOT))
+    ap.add_argument("--against", action="append", default=[],
+                    help="another package root to probe beside this checkout")
+    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
-    sys.path.insert(0, args.package_root)
 
     import numpy as np
     import torch
@@ -52,17 +114,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_kernel_probe: no CUDA device", file=sys.stderr)
         return 1
-    import sdfkit_tpu_torch as st
-    from sdfkit_tpu_torch import scenes
-    from sdfkit_tpu_torch.render.cuda import build
-    from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
-    from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params, operation_counts
-
-    # The SASS reader of this checkout, whatever package is probed.
-    spec = importlib.util.spec_from_file_location(
-        "probe_sass", ROOT / "sdfkit_tpu_torch" / "render" / "cuda" / "sass.py")
-    sass = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(sass)
+    packages = {"this": load_package(ROOT)}
+    for root in args.against:
+        packages[pathlib.Path(root).name] = load_package(pathlib.Path(root).resolve())
+    this = packages["this"]
+    sass = this.sass  # this checkout's reader, whatever package built the library
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True).stdout.strip()
@@ -81,62 +137,156 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / TIMED
 
-    view = st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
-    cfg = st.RenderConfig(WIDTH, HEIGHT)
-    frames = {"sphere_repeat": scenes.sphere_repeat_scene(), "one_sphere": st.sphere(0.5)}
+    view = this.st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = this.st.RenderConfig(WIDTH, HEIGHT)
+    scenes = {label: {"sphere_repeat": p.scenes.sphere_repeat_scene(), "one_sphere": p.st.sphere(0.5)}
+              for label, p in packages.items()}
+    programs = {label: {name: p.compile.compile_scene(expr) for name, expr in scenes[label].items()}
+                for label, p in packages.items()}
 
-    def rows(lib, count, want_color):
-        try:
-            return lib.rows(count, int(want_color))
-        except TypeError:  # an earlier commit's entry takes the count alone
-            return lib.rows(count)
+    # Every library this run needs, built in parallel (one nvcc each).
+    variants = VARIANTS if args.variants else {}
+    jobs = [(label, family, name, ()) for label, p in packages.items()
+            for family in p.build.FAMILIES for name in programs[label]]
+    jobs += [("this", family, name, defines) for family, table in variants.items()
+             for defines in table.values() for name in programs["this"]]
 
-    hero = compile_scene(frames["sphere_repeat"])
+    def load(job):
+        label, family, name, defines = job
+        build = packages[label].build
+        program = programs[label][name]
+        return build.load_family(program, family, defines) if defines else \
+            build.load_family(program, family)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        libs = dict(zip(jobs, pool.map(load, jobs)))
+    hero = programs["this"]["sphere_repeat"]
     roots = sum(hero.nodes[i][0] == "sqrt" for i in hero.dist_live)
-    say("program", operations=operation_counts(hero), square_roots_per_distance=roots,
-        divisions_per_distance=sum(hero.nodes[i][0] == "div" for i in hero.dist_live))
-    for family in build.FAMILIES:
-        lib = build.load_family(hero, family)
-        resident = getattr(lib, "resident", None)
-        say("build", family=family, nvcc_seconds=lib.build_seconds, registers=lib.registers,
+    say("program", operations=this.compile.operation_counts(hero),
+        square_roots_per_distance=roots)
+    for (label, family, name, defines), lib in libs.items():
+        if name != "sphere_repeat":
+            continue
+        say("build", package=label, family=family, defines=list(defines),
+            nvcc_seconds=lib.build_seconds, registers=lib.registers,
             local_memory=lib.local_memory,
-            resident_blocks_per_sm=None if resident is None else
-            {"rgb": resident(1), "depth": resident(0)},
+            resident_blocks_per_sm={"rgb": lib.resident(1), "depth": lib.resident(0)},
             sass=sass.library_sass(lib.path))
 
-    inputs = {}
-    for name, expr in frames.items():
-        program = compile_scene(expr)
-        with torch.no_grad():
-            params = flat_params(expr).contiguous()
-            v19 = rk.view19(view, cfg)
-            gen = torch.Generator(device="cuda").manual_seed(5)
-            cot = 1e-6 * torch.randn((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
-            depth = rk.launch(build.load(program), params, v19, cfg, False)
-            hits = int((depth <= cfg.far).sum())
-        inputs[name] = (program, params, v19, cot, hits)
+    def sweep_listing(lib):
+        """The SASS of the last loop of the RGB kernel that evaluates the
+        scene (a backward's sweep), instruction by instruction."""
+        tool = sass.cuobjdump_path()
+        parsed = sass.library_sass(lib.path)
+        if tool is None or parsed is None:
+            return None
+        loops = [lp for lp in parsed["rgb"]["loops"] if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
+        text = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True, text=True).stdout
+        out, current = [], None
+        for line in text.splitlines():
+            m = sass._FUNCTION.match(line)
+            if m:
+                current = sass.kernel_key(m.group(1))
+                continue
+            m = sass._INSTRUCTION.match(line)
+            if m and current == "rgb" and loops[-1]["start"] <= int(m.group(1), 16) <= loops[-1]["end"]:
+                out.append(line.split(";")[0].strip() + " ;")
+        return out
 
-    def time_all(what, runs):
-        """``runs``: label -> callable; timed in turns, there and back."""
-        times = {k: [] for k in runs}
-        for k in [*runs, *reversed(runs)]:
-            times[k].append(events(runs[k]))
-        for k, v in times.items():
-            say("time", what=what, variant=k, ms=float(np.mean(v)), rounds=v)
+    for (label, family, name, defines), lib in libs.items():
+        if name == "sphere_repeat" and family == "bwd_store" and not defines:
+            say("listing", package=label, family=family, sweep=sweep_listing(lib))
+
+    def lib_of(label, family, name, defines=()):
+        return libs[(label, family, name, defines)]
+
+    def rays_bwd(label, lib, params, rays, cot, hit):
+        """A package's ray pullback; with ``hit`` where its wrapper takes it."""
+        fn = packages[label].rk.launch_rays_bwd
+        if hit is not None and "hit" in inspect.signature(fn).parameters:
+            return lambda: fn(lib, params, rays, cfg, True, cot, hit=hit)
+        return lambda: fn(lib, params, rays, cfg, True, cot)
 
     with torch.no_grad():
-        for name, (program, params, v19, cot, hits) in inputs.items():
-            fwd, bwd = build.load(program), build.load_bwd(program)
+        rk = this.rk
+        ro, rd = this.camera.camera_rays(WIDTH, HEIGHT, view, cfg.vfov_degrees, cfg.near, cfg.far)
+        rays = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+        v19 = rk.view19(view, cfg)
+        for name in programs["this"]:
+            params = this.compile.flat_params(scenes["this"][name]).contiguous()
+            for label, p in packages.items():
+                other = p.compile.flat_params(scenes[label][name]).contiguous()
+                if not torch.equal(other, params):
+                    raise RuntimeError(f"{label}: the {name} parameters differ from this checkout's")
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            cot = 1e-6 * torch.randn((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
+            fwd = lib_of("this", "fwd", name)
+            depth = rk.launch(fwd, params, v19, cfg, False)
+            hits = int((depth <= cfg.far).sum())
             rgb = rk.launch(fwd, params, v19, cfg, True)
-            say("frame", scene=name, hit_pixels=hits, pixels=WIDTH * HEIGHT,
+            _, store = rk.launch(lib_of("this", "fwd_store", name), params, v19, cfg, True,
+                                 want_store=True)
+            _, hit = rk.launch_rays(lib_of("this", "rays_fwd", name), params, rays, cfg, True,
+                                    want_hit=True)
+            say("frame", scene=name, hit_pixels=hits, hit_rays=int(hit.sum()),
+                pixels=WIDTH * HEIGHT,
                 frame_sha256=hashlib.sha256(rgb.cpu().numpy().tobytes()).hexdigest(),
-                gradient=rk.launch_bwd(bwd, params, v19, cfg, True, cot).tolist(),
-                backward_grid=rows(bwd, WIDTH * HEIGHT, True), backward_registers=bwd.registers)
-            runs = {
-                "forward": lambda: rk.launch(fwd, params, v19, cfg, True),
-                "backward": lambda: rk.launch_bwd(bwd, params, v19, cfg, True, cot),
-            }
-            time_all(name, runs)
+                gradient=rk.launch_bwd(lib_of("this", "bwd", name), params, v19, cfg, True,
+                                       cot).tolist())
+            runs = {"this forward": lambda: rk.launch(fwd, params, v19, cfg, True),
+                    "this ray forward": lambda: rk.launch_rays(
+                        lib_of("this", "rays_fwd", name), params, rays, cfg, True),
+                    "this ray forward with hit flags": lambda: rk.launch_rays(
+                        lib_of("this", "rays_fwd", name), params, rays, cfg, True, want_hit=True)}
+            outputs = {}
+            for label, p in packages.items():
+                bwd = lib_of(label, "bwd", name)
+                fed = lib_of(label, "bwd_store", name)
+                rays_lib = lib_of(label, "rays_bwd", name)
+                runs[f"{label} image backward"] = (
+                    lambda p=p, bwd=bwd: p.rk.launch_bwd(bwd, params, v19, cfg, True, cot))
+                runs[f"{label} store-fed backward"] = (
+                    lambda p=p, fed=fed: p.rk.launch_bwd(fed, params, v19, cfg, True, cot,
+                                                         store=store))
+                runs[f"{label} ray backward"] = rays_bwd(label, rays_lib, params, rays, cot, hit)
+                outputs[label] = {k: runs[f"{label} {k}"]() for k in
+                                  ("image backward", "store-fed backward", "ray backward")}
+            runs["this ray backward without hit flags"] = rays_bwd(
+                "this", lib_of("this", "rays_bwd", name), params, rays, cot, None)
+            for family, table in variants.items():
+                for label, defines in table.items():
+                    lib = lib_of("this", family, name, defines)
+                    if family == "rays_bwd":
+                        runs[label] = rays_bwd("this", lib, params, rays, cot, hit)
+                    else:
+                        runs[label] = (lambda lib=lib: rk.launch_bwd(lib, params, v19, cfg, True,
+                                                                    cot, store=store))
+                    got = runs[label]()
+                    ref = outputs["this"]["ray backward" if family == "rays_bwd"
+                                          else "store-fed backward"]
+                    got, ref = (got[0], ref[0]) if family == "rays_bwd" else (got, ref)
+                    say("same", scene=name, what=label, against="this",
+                        bit_identical=bool(torch.equal(got, ref)),
+                        largest_difference_of_largest_entry=float(
+                            (got - ref).abs().max() / ref.abs().max()))
+            for label in packages:
+                if label == "this":
+                    continue
+                for what in ("image backward", "store-fed backward", "ray backward"):
+                    got, ref = outputs[label][what], outputs["this"][what]
+                    got, ref = (got[0], ref[0]) if what == "ray backward" else (got, ref)
+                    say("same", scene=name, what=what, against=label,
+                        bit_identical=bool(torch.equal(got, ref)),
+                        largest_difference_of_largest_entry=float(
+                            (got - ref).abs().max() / ref.abs().max()))
+            times = {k: [] for k in runs}
+            order = [*runs, *reversed(runs)]
+            for k in order + order:
+                times[k].append(events(runs[k]))
+            for k, v in times.items():
+                say("time", scene=name, variant=k, ms=float(np.mean(v)), rounds=v)
+            del store, outputs
+            torch.cuda.empty_cache()
     return 0
 
 
