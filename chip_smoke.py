@@ -1023,7 +1023,8 @@ def main() -> int:
         for which in ("image", "rays", "rays_unflagged", "rays_unflagged", "rays", "image"):
             turn[which].append(events(runs[which]))
         # The same on the mostly-sky frame: the hit flags spare the misses the march.
-        lone_rays_lib, lone_rays_bwd_lib = build.load_rays(lone_prog), build.load_rays_bwd(lone_prog)
+        lone_rays_lib = build.load_rays(lone_prog)
+        lone_rays_bwd_lib = build.load_rays_bwd(lone_prog)
         lone_frame, lone_hit = rk.launch_rays(lone_rays_lib, lone_params, rays6, cfg, True,
                                               want_hit=True)
         lone_cot = ((2.0 / lone_frame.numel()) * (lone_frame - 0.5)).contiguous()
@@ -1648,8 +1649,8 @@ def main() -> int:
         bwd_ops - npix * (n - 1) * (ops_n["dist"] + step_ops), bwd_bytes + store_bytes)
     print(f"work: ray-batch forward {fwd_ops - npix * ray_ops:.4g} operations / "
           f"{fwd_bytes + npix * 24} bytes, ray-batch backward {rays_bwd_ops:.4g} / "
-          f"{rays_bwd_bytes} (as a replay and a sweep {bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g}, "
-          f"bound {replay_form_bound:.4f} ms); "
+          f"{rays_bwd_bytes} (as a replay and a sweep "
+          f"{bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g}, bound {replay_form_bound:.4f} ms); "
           f"forward with store {fwd_ops:.4g} / {fwd_bytes + store_bytes}, backward fed the store "
           f"{bwd_ops - npix * (n - 1) * (ops_n['dist'] + step_ops):.4g} / "
           f"{bwd_bytes + store_bytes}")

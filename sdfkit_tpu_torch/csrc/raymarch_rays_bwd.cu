@@ -15,15 +15,17 @@
 // 24 bytes of ray, 12 (RGB) or 4 (depth) of cotangent and the forward's hit
 // flag, and writes 24 bytes of ray cotangent, each array contiguous; its work
 // is one evaluation of the scene and its gradient per march step, then the
-// final step and six taps. The image pullback that this kernel ran before
-// replayed the march (93.5 instructions a step on SphereRepeat) and then swept
-// it (231 a step, of which 94 evaluated the scene again): about 13k
-// instructions per hit ray against about 9.5k here. The derivatives add
-// SDF_N_DIST_SLOTS + 6 floats that stay live across the march, so the
-// register budget is this kernel's own (kRaysBwdMinBlocks). A sky ray has a
-// constant colour: with the forward's hit flag it costs one byte read, where
-// without it, it would march with a gradient at every step and find the sky
-// at the end.
+// final step and six taps. Measured on an H100 with SphereRepeat at
+// 1920x1080x40: the image pullback that this kernel ran before replayed the
+// march (93.5 instructions a step) and then swept it (229 a step, which
+// evaluate the scene again), 14.4k instructions in its loops per hit ray and
+// 1.33 ms; the tangent march takes 232 a step, 10.9k per hit ray, and 1.05
+// ms, issuing 0.63 of what the card can. The derivatives add
+// SDF_N_DIST_SLOTS + 6 floats that stay live across the march. A sky ray has
+// a constant colour: with the forward's hit flag it costs one byte read;
+// without it, it marches with a gradient at every step and finds the sky at
+// the end (on a frame that is mostly sky, 0.09 ms with the flags and 0.18
+// without; the replay took 0.13).
 //
 // The parameters' cotangents are summed over a grid-stride loop in per-thread
 // accumulators, then raymarch_reduce.cuh (one full wave of blocks; no
@@ -40,11 +42,10 @@
 
 constexpr int kNParams = SDF_N_PARAMS;
 constexpr int kNAcc = kNParams > 0 ? kNParams : 1;
-#ifndef SDF_RAYS_BWD_MIN_BLOCKS
-#define SDF_RAYS_BWD_MIN_BLOCKS 5
-#endif
-// Resident blocks per SM that the register allocation aims at.
-constexpr int kRaysBwdMinBlocks = SDF_RAYS_BWD_MIN_BLOCKS;
+// Resident blocks per SM that the register allocation aims at. Measured on
+// an H100 with SphereRepeat at 1920x1080x40: 4 blocks (127 registers, no
+// spill) 1.088 ms, 5 (96, 192 bytes spilled) 1.054, 6 (80, 284 bytes) 1.069.
+constexpr int kRaysBwdMinBlocks = 5;
 
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)

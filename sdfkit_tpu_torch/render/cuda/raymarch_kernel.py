@@ -48,9 +48,9 @@ the pixel index and 19 view scalars. The backwards take any number of march
 iterations: the image backward keeps 64 depths at a time and replays the
 march once more for every further 64, the others need no kept depths. They
 sum over pixels without atomics (per-block partial rows, then a second kernel
-in a fixed order), so their gradients are bit-reproducible. The sources are under ``csrc/``; the scene
-body and its adjoint come from the scene compiler and the builds from
-``build.py``.
+in a fixed order), so their gradients are bit-reproducible. The sources are
+under ``csrc/``; the scene body and its adjoint come from the scene compiler
+and the builds from ``build.py``.
 
 The ``*LAUNCHES`` counters count kernel launches, one counter per kernel, so
 a run can show that its frames and gradients went through the kernels. The
@@ -291,7 +291,8 @@ def launch_rays_bwd(lib: build.KernelLib, params: torch.Tensor, rays, cfg: Rende
         raise ValueError(f"the cotangent is on {grad.device} but the scene is on {params.device}")
     if hit is not None:
         if not want_color:
-            raise ValueError("the hit flag is a colour render's: a depth has a gradient on every ray")
+            raise ValueError("the hit flag is a colour render's: a depth has a gradient on "
+                             "every ray")
         if not isinstance(hit, torch.Tensor) or hit.dtype != torch.bool or hit.shape != (n,):
             raise ValueError(f"hit must be an ({n},) bool tensor")
         if hit.device != params.device or not hit.is_contiguous():

@@ -65,3 +65,10 @@ def test_kernels_are_keyed_as_the_build_report_keys_them():
     assert sass.kernel_key("_Z19raymarch_bwd_kernelILb1EEv10RenderArgsPKfS2_Pf") == "rgb"
     assert sass.kernel_key("_Z19raymarch_bwd_kernelILb0EEv10RenderArgsPKfS2_Pf") == "depth"
     assert sass.kernel_key("_Z22reduce_partials_kernelPKfiiPf") == "reduce"
+    # The ray-batch forward's second template argument, WANT_HIT.
+    assert sass.kernel_key("_Z24raymarch_rays_fwd_kernelILb1ELb1EEvPKfS1_S1_S1_S1_S1_10RenderArgsPfPh") \
+        == "rgb_hit"
+    assert sass.kernel_key("_Z24raymarch_rays_fwd_kernelILb1ELb0EEvPKfS1_S1_S1_S1_S1_10RenderArgsPfPh") \
+        == "rgb"
+    assert sass.kernel_key("_Z24raymarch_rays_fwd_kernelILb0ELb0EEvPKfS1_S1_S1_S1_S1_10RenderArgsPfPh") \
+        == "depth"

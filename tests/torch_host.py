@@ -68,8 +68,9 @@ extern "C" void raymarch_bwd_store_host(const float* P, const float* view19, int
   for (int i = 0; i < local_npix; ++i) {
     float acc[SDF_N_PARAMS + 19] = {0.0f};
     const StoreRows rows{store + i, local_npix};
-    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS, rows);
-    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, acc + SDF_N_PARAMS, rows);
+    float* gV = acc + SDF_N_PARAMS;
+    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, gV, rows);
+    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, gV, rows);
     for (int j = 0; j < n_out; ++j) out[j] += (double)acc[j];
   }
 }

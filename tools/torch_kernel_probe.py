@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--against DIR ...] [--variants] [--tag NAME]
+    python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and for one sphere,
@@ -31,10 +31,8 @@ and prints, one JSON object per line with ``"probe"`` naming it:
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
 ``git archive <commit> sdfkit_tpu_torch | tar -x -C DIR``); each is imported
 in this same process under its own module objects, builds into its own
-``_build/`` and is timed in the same turns. ``--variants`` adds builds of
-this checkout's backwards with other compile-time settings (its
-``VARIANTS``). Every line carries ``--tag`` and the card's name and power
-limit.
+``_build/`` and is timed in the same turns. Every line carries ``--tag``
+and the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -54,21 +52,6 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = "sdfkit_tpu_torch"
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED = 3, 10
-# Compile-time settings of this checkout's backwards, timed beside the
-# defaults: family -> {label: defines}.
-VARIANTS = {
-    "rays_bwd": {
-        "rays_bwd blocks=4": ("SDF_RAYS_BWD_MIN_BLOCKS 4",),
-        "rays_bwd blocks=6": ("SDF_RAYS_BWD_MIN_BLOCKS 6",),
-    },
-    "bwd_store": {
-        "bwd_store register prefetch": ("SDF_STORE_FEED 1",),
-        "bwd_store register prefetch, two steps": ("SDF_STORE_FEED 3",),
-        "bwd_store stages=2 steps=16": ("SDF_STORE_STAGES 2", "SDF_STORE_STAGE_STEPS 16"),
-        "bwd_store stages=4 steps=8": ("SDF_STORE_STAGES 4", "SDF_STORE_STAGE_STEPS 8"),
-        "bwd_store stages=2 steps=32": ("SDF_STORE_STAGES 2", "SDF_STORE_STAGE_STEPS 32"),
-    },
-}
 
 
 def load_package(root: pathlib.Path) -> types.SimpleNamespace:
@@ -104,7 +87,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     help="another package root to probe beside this checkout")
-    ap.add_argument("--variants", action="store_true")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
 
@@ -139,24 +121,18 @@ def main() -> int:
 
     view = this.st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
     cfg = this.st.RenderConfig(WIDTH, HEIGHT)
-    scenes = {label: {"sphere_repeat": p.scenes.sphere_repeat_scene(), "one_sphere": p.st.sphere(0.5)}
-              for label, p in packages.items()}
+    scenes = {label: {"sphere_repeat": p.scenes.sphere_repeat_scene(),
+                      "one_sphere": p.st.sphere(0.5)} for label, p in packages.items()}
     programs = {label: {name: p.compile.compile_scene(expr) for name, expr in scenes[label].items()}
                 for label, p in packages.items()}
 
     # Every library this run needs, built in parallel (one nvcc each).
-    variants = VARIANTS if args.variants else {}
-    jobs = [(label, family, name, ()) for label, p in packages.items()
+    jobs = [(label, family, name) for label, p in packages.items()
             for family in p.build.FAMILIES for name in programs[label]]
-    jobs += [("this", family, name, defines) for family, table in variants.items()
-             for defines in table.values() for name in programs["this"]]
 
     def load(job):
-        label, family, name, defines = job
-        build = packages[label].build
-        program = programs[label][name]
-        return build.load_family(program, family, defines) if defines else \
-            build.load_family(program, family)
+        label, family, name = job
+        return packages[label].build.load_family(programs[label][name], family)
 
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip(jobs, pool.map(load, jobs)))
@@ -164,12 +140,11 @@ def main() -> int:
     roots = sum(hero.nodes[i][0] == "sqrt" for i in hero.dist_live)
     say("program", operations=this.compile.operation_counts(hero),
         square_roots_per_distance=roots)
-    for (label, family, name, defines), lib in libs.items():
+    for (label, family, name), lib in libs.items():
         if name != "sphere_repeat":
             continue
-        say("build", package=label, family=family, defines=list(defines),
-            nvcc_seconds=lib.build_seconds, registers=lib.registers,
-            local_memory=lib.local_memory,
+        say("build", package=label, family=family, nvcc_seconds=lib.build_seconds,
+            registers=lib.registers, local_memory=lib.local_memory,
             resident_blocks_per_sm={"rgb": lib.resident(1), "depth": lib.resident(0)},
             sass=sass.library_sass(lib.path))
 
@@ -180,7 +155,8 @@ def main() -> int:
         parsed = sass.library_sass(lib.path)
         if tool is None or parsed is None:
             return None
-        loops = [lp for lp in parsed["rgb"]["loops"] if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
+        loops = [lp for lp in parsed["rgb"]["loops"]
+                 if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
         text = subprocess.run([tool, "-sass", str(lib.path)], capture_output=True, text=True).stdout
         out, current = [], None
         for line in text.splitlines():
@@ -189,16 +165,17 @@ def main() -> int:
                 current = sass.kernel_key(m.group(1))
                 continue
             m = sass._INSTRUCTION.match(line)
-            if m and current == "rgb" and loops[-1]["start"] <= int(m.group(1), 16) <= loops[-1]["end"]:
+            at = int(m.group(1), 16) if m else -1
+            if current == "rgb" and loops[-1]["start"] <= at <= loops[-1]["end"]:
                 out.append(line.split(";")[0].strip() + " ;")
         return out
 
-    for (label, family, name, defines), lib in libs.items():
-        if name == "sphere_repeat" and family == "bwd_store" and not defines:
+    for (label, family, name), lib in libs.items():
+        if name == "sphere_repeat" and family == "bwd_store":
             say("listing", package=label, family=family, sweep=sweep_listing(lib))
 
-    def lib_of(label, family, name, defines=()):
-        return libs[(label, family, name, defines)]
+    def lib_of(label, family, name):
+        return libs[(label, family, name)]
 
     def rays_bwd(label, lib, params, rays, cot, hit):
         """A package's ray pullback; with ``hit`` where its wrapper takes it."""
@@ -217,7 +194,8 @@ def main() -> int:
             for label, p in packages.items():
                 other = p.compile.flat_params(scenes[label][name]).contiguous()
                 if not torch.equal(other, params):
-                    raise RuntimeError(f"{label}: the {name} parameters differ from this checkout's")
+                    raise RuntimeError(f"{label}: the {name} parameters differ from this "
+                                       f"checkout's")
             gen = torch.Generator(device="cuda").manual_seed(5)
             cot = 1e-6 * torch.randn((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
             fwd = lib_of("this", "fwd", name)
@@ -253,22 +231,6 @@ def main() -> int:
                                   ("image backward", "store-fed backward", "ray backward")}
             runs["this ray backward without hit flags"] = rays_bwd(
                 "this", lib_of("this", "rays_bwd", name), params, rays, cot, None)
-            for family, table in variants.items():
-                for label, defines in table.items():
-                    lib = lib_of("this", family, name, defines)
-                    if family == "rays_bwd":
-                        runs[label] = rays_bwd("this", lib, params, rays, cot, hit)
-                    else:
-                        runs[label] = (lambda lib=lib: rk.launch_bwd(lib, params, v19, cfg, True,
-                                                                    cot, store=store))
-                    got = runs[label]()
-                    ref = outputs["this"]["ray backward" if family == "rays_bwd"
-                                          else "store-fed backward"]
-                    got, ref = (got[0], ref[0]) if family == "rays_bwd" else (got, ref)
-                    say("same", scene=name, what=label, against="this",
-                        bit_identical=bool(torch.equal(got, ref)),
-                        largest_difference_of_largest_entry=float(
-                            (got - ref).abs().max() / ref.abs().max()))
             for label in packages:
                 if label == "this":
                     continue
