@@ -78,7 +78,7 @@ RAYS_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:198"
 RAYS_BWD_SOURCE = "sdfkit_tpu_torch/csrc/raymarch_rays_bwd.cu"
 RAYS_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:842"
 STORE_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:357"
-STORE_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:486"
+STORE_BWD_REPLACES = "sdfkit_tpu/render/pallas/raymarch_kernel.py:516"
 TILE_ROWS = 128
 SAMPLE_POINTS = 1_000_003
 SAMPLE_BATCH = 1 << 18  # an explicit cap: three full batches and a remainder of 213,571

@@ -55,12 +55,15 @@
 // sweep, from the last step down. A thread reads only what it copied, so no
 // barrier ties the warps of a block together, and a sky pixel, which needs
 // only its final depth, copies and waits for nothing. The arithmetic is the
-// replay-free sweep's, step for step. Measured on an H100 with SphereRepeat
-// at 1920x1080x40: 1.269 -> 1.219 ms, the same on a frame that is mostly sky
-// (0.07 ms). The copies cost 18 instructions a step; a register prefetch of
-// the next step's depth (1.173 ms) hides the latency as well; other ring
-// shapes (2x16, 4x8, 2x32 steps) measured no faster, and copies unrolled to
-// constant offsets slower (1.343 ms, with more spilled).
+// replay-free sweep's, step for step. The copies and the sweep walk pointers
+// (a shared-window address up, a store pointer by the row stride, the ring
+// read down) rather than index: 9 instructions a copy where indexing took 18.
+// Measured on an H100 with SphereRepeat at 1920x1080x40: 1.268 -> 1.167 ms
+// (indexed copies 1.222), no slower on a frame that is mostly sky (0.07 ms).
+// A register prefetch of the next step's depth (1.173 ms) hides the latency
+// about as well; other ring shapes (2x16, 4x8, 2x32 steps) measured no
+// faster, and copies unrolled to constant offsets slower (1.343 ms, with more
+// spilled).
 //
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval, SDF_N_PARAMS and the adjoints
@@ -85,10 +88,10 @@ constexpr int kStoreStages = 3;
 constexpr int kStoreStageSteps = 16;
 constexpr int kRingFloats = kStoreStages * kStoreStageSteps * kBwdThreads;
 
-// 4 bytes from device memory to shared memory, asynchronously (cp.async).
-__device__ __forceinline__ void copy_async4(float* dst, const float* src) {
-  const unsigned shared = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared), "l"(src) : "memory");
+// 4 bytes from device memory to shared memory (a shared-window address),
+// asynchronously (cp.async).
+__device__ __forceinline__ void copy_async4(unsigned dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ void commit_async() {
@@ -119,9 +122,11 @@ struct StagedRows {
   __device__ void issue(int steps, int k) const {
     const int hi = steps - k * kStoreStageSteps;
     const int lo = hi > kStoreStageSteps ? hi - kStoreStageSteps : 0;
-    float* dst = column + (k % kStoreStages) * kStoreStageSteps * kBwdThreads;
+    unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(
+        column + (k % kStoreStages) * kStoreStageSteps * kBwdThreads));
+    const float* src = at + lo * stride;
 #pragma unroll 1
-    for (int i = lo; i < hi; ++i) copy_async4(dst + (i - lo) * kBwdThreads, at + i * stride);
+    for (int i = lo; i < hi; ++i, dst += kBwdThreads * 4, src += stride) copy_async4(dst, src);
     commit_async();
   }
 
@@ -139,9 +144,10 @@ struct StagedRows {
       wait_async<kStoreStages - 1>();
       const int hi = steps - k * kStoreStageSteps;
       const int lo = hi > kStoreStageSteps ? hi - kStoreStageSteps : 0;
-      const float* src = column + (k % kStoreStages) * kStoreStageSteps * kBwdThreads;
+      const float* src =
+          column + ((k % kStoreStages) * kStoreStageSteps + hi - 1 - lo) * kBwdThreads;
 #pragma unroll 1
-      for (int i = hi - 1; i >= lo; --i) g = step_vjp(r, src[(i - lo) * kBwdThreads], g, P, gr, gP);
+      for (int i = hi - 1; i >= lo; --i, src -= kBwdThreads) g = step_vjp(r, *src, g, P, gr, gP);
     }
     return g;
   }

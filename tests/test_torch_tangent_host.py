@@ -103,8 +103,8 @@ def both_pullbacks(lib, texpr, ro, rd, cfg, want_color, grad):
 @pytest.mark.parametrize("want_color", [True, False], ids=["rgb", "depth"])
 @pytest.mark.parametrize("iters", ITERS)
 def test_tangent_march_matches_the_replay_pullback(host_libs, iters, want_color):
-    """PR 4's ``pullback_ray`` (replay, unit-form sweep; still the image
-    backward's) and the tangent march on the same rays and cotangents: the
+    """``pullback_ray`` (replay, unit-form sweep; the image backward's, and
+    the ray-batch backward's before the tangent march) and the tangent march on the same rays and cotangents: the
     same terms, summed in another order. A sky ray gets exactly zero from
     both."""
     _, texpr = tp.build(scene_for(iters))

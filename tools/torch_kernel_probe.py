@@ -19,9 +19,11 @@ and prints, one JSON object per line with ``"probe"`` naming it:
   checkout's, fed the same depth history and cotangent (bit for bit), and
   the image and ray-batch backwards likewise (the largest difference over the
   largest entry);
-* ``time``: CUDA-event times of the backward launches alone at 1920x1080x40
-  on SphereRepeat (nearly every pixel hits) and on one sphere of radius 0.5
-  under the same camera (mostly sky), in turns, there and back, twice: the
+* ``time``: CUDA-event times of the launches alone, queued behind a sleep on
+  the stream so that the card's time is read and not the host's (a launch
+  on the mostly-sky frame is shorter than the host's work to make it), at
+  1920x1080x40 on SphereRepeat (nearly every pixel hits) and on one sphere
+  of radius 0.5 under the same camera (mostly sky), in turns, there and back, twice: the
   image backward, the store-fed backward and the ray-batch backward on the
   frame's camera rays (with the forward's hit flags where the package has
   them, and without), for this checkout and every ``--against`` package, and
@@ -46,12 +48,15 @@ import json
 import pathlib
 import subprocess
 import sys
+import time
 import types
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PKG = "sdfkit_tpu_torch"
 WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED = 3, 10
+# A sleep on the stream ahead of the timed calls: about 20 ms at 1980 MHz.
+SLEEP_CYCLES = 40_000_000
 
 
 def load_package(root: pathlib.Path) -> types.SimpleNamespace:
@@ -109,15 +114,38 @@ def main() -> int:
         print(json.dumps({"probe": probe, "tag": args.tag, "gpu": smi, **fields}), flush=True)
 
     def events(fn) -> float:
+        """Device ms per call of ``fn``. The timed calls queue up behind a
+        sleep on the stream, so that a launch shorter than the host's time to
+        make the call (a frame that is mostly sky) is timed on the card, not
+        at the rate the host enqueues; a round whose calls took the host
+        longer than the sleep is refused."""
         for _ in range(WARMUP):
             fn()
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
         start.record()
+        t0 = time.perf_counter()
         for _ in range(TIMED):
             fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
         stop.record()
         torch.cuda.synchronize()
+        if host_ms >= sleep_ms:
+            raise RuntimeError(f"the host took {host_ms:.3f} ms to queue {TIMED} calls, longer "
+                               f"than the {sleep_ms:.3f} ms sleep ahead of them")
         return start.elapsed_time(stop) / TIMED
+
+    def time_sleep() -> float:
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    time_sleep()
+    sleep_ms = time_sleep()
 
     view = this.st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
     cfg = this.st.RenderConfig(WIDTH, HEIGHT)
