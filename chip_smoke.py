@@ -83,6 +83,7 @@ TILE_ROWS = 128
 SAMPLE_POINTS = 1_000_003
 SAMPLE_BATCH = 1 << 18  # an explicit cap: three full batches and a remainder of 213,571
 GRID = 256
+SLEEP_CYCLES = 40_000_000  # about 20 ms at 1980 MHz, ahead of launches timed on the card
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -494,6 +495,39 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(stop) / timed
 
+    def device_events(fn, warmup=WARMUP, timed=TIMED) -> float:
+        """Device ms per call of ``fn``, the timed calls queued behind a sleep
+        on the stream: a launch on the mostly-sky frame is shorter than the
+        host's work to make it, and ``events`` would time the host's pace."""
+        for _ in range(warmup):
+            fn()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        stop.record()
+        torch.cuda.synchronize()
+        check(host_ms < sleep_ms, f"the host queued {timed} launches in {host_ms:.3f} ms, inside "
+                                  f"the {sleep_ms:.3f} ms sleep ahead of them")
+        return start.elapsed_time(stop) / timed
+
+    def time_sleep() -> float:
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(SLEEP_CYCLES)
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop)
+
+    time_sleep()
+    sleep_ms = time_sleep()
+
     cfg = marcher.config
     with torch.no_grad():
         params = torch.cat([q.reshape(-1) for q in st.leaves(hero)]).contiguous()
@@ -511,7 +545,7 @@ def main() -> int:
         lone_frame = rk.launch(lone_fwd, lone_params, v19, cfg, True)
         lone_hits = int((rk.launch(lone_fwd, lone_params, v19, cfg, False) <= cfg.far).sum())
         lone_cot = (2.0 / lone_frame.numel()) * (lone_frame - 0.5)
-        sky_fwd_ms = events(lambda: rk.launch(lone_fwd, lone_params, v19, cfg, True))
+        sky_fwd_ms = device_events(lambda: rk.launch(lone_fwd, lone_params, v19, cfg, True))
         sky_bwd_ms = events(lambda: rk.launch_bwd(lone_bwd, lone_params, v19, cfg, True, lone_cot))
         lone_grad = rk.launch_bwd(lone_bwd, lone_params, v19, cfg, True, lone_cot)
     check(bool(torch.isfinite(lone_grad).all()) and float(lone_grad.abs().max()) > 0
@@ -624,7 +658,7 @@ def main() -> int:
     from sdfkit_tpu_torch.grid import voxelize
     from sdfkit_tpu_torch.parallel import render_tiles_resumable
     from sdfkit_tpu_torch.render.raymarch import (march_history, render_depth_rays,
-                                                  render_rays)
+                                                  render_rays, settled_steps, warp_march_steps)
     from sdfkit_tpu_torch.sdf.compile import flat_params
     from sdfkit_tpu_torch.utils.camera import camera_rays, inv_view_proj
 
@@ -728,7 +762,24 @@ def main() -> int:
         check(torch.equal(flagged_frame, rays_frame_card) and torch.equal(rays_hit, ~sky),
               f"the ray forward that also writes hit flags gives the same frame bit for bit, and "
               f"its {int(rays_hit.sum())} hit flags mark the rays not shaded as sky")
-        del flagged_frame, sky
+        # The same rays in a seeded shuffled order: rays are independent, so
+        # each ray's colour, flag and depth are its own bit for bit, whatever
+        # warp it marches in (a warp leaves the march when all its rays have
+        # settled, which a shuffled warp seldom does).
+        gen = torch.Generator(device=params.device).manual_seed(17)
+        order = torch.randperm(WIDTH * HEIGHT, device=params.device, generator=gen)
+        shuffled6 = [c[order].contiguous() for c in rays6]
+        shuffled_frame, shuffled_hit = rk.launch_rays(rays_lib, params, shuffled6, cfg, True,
+                                                      want_hit=True)
+        shuffled_depth = rk.launch_rays(rays_lib, params, shuffled6, cfg, False)
+        in_order_depth = rays_depth.reshape(-1)
+        check(torch.equal(shuffled_frame.view(torch.int32), flagged_frame[order].view(torch.int32))
+              and torch.equal(shuffled_hit, rays_hit[order])
+              and torch.equal(shuffled_depth.view(torch.int32),
+                              in_order_depth[order].view(torch.int32)),
+              "the frame's rays in a seeded shuffled order: every ray's RGB, hit flag and depth "
+              "are the in-order batch's, bit for bit")
+        del flagged_frame, sky, shuffled_frame, shuffled_hit, shuffled_depth, in_order_depth
     rays_frame, rays_depth = rays_frame.cpu().numpy(), rays_depth.cpu().numpy()
     check(rays_frame.shape == (HEIGHT, WIDTH, 3) and bool(np.isfinite(rays_frame).all()),
           f"ray-kernel frame {rays_frame.shape} is finite")
@@ -741,18 +792,26 @@ def main() -> int:
 
     with torch.no_grad():
         origin_copy_ms = events(lambda: [c.contiguous() for c in (ro.x, ro.y, ro.z)])
-        turn = {"image": [], "rays": []}
-        for which in ("image", "rays", "rays", "image"):
-            turn[which].append(events(
-                (lambda: rk.launch(lib, params, v19, cfg, True)) if which == "image"
-                else (lambda: rk.launch_rays(rays_lib, params, rays6, cfg, True))))
+        turn = {"image": [], "rays": [], "rays_shuffled": []}
+        ray_runs = {"image": lambda: rk.launch(lib, params, v19, cfg, True),
+                    "rays": lambda: rk.launch_rays(rays_lib, params, rays6, cfg, True),
+                    "rays_shuffled": lambda: rk.launch_rays(rays_lib, params, shuffled6, cfg, True)}
+        for which in ("image", "rays", "rays_shuffled", "rays_shuffled", "rays", "image"):
+            turn[which].append(events(ray_runs[which]))
         rays_ms = float(np.mean(turn["rays"]))
+        rays_shuffled_ms = float(np.mean(turn["rays_shuffled"]))
         rays_plain_ms = events(lambda: render_rays(hero, ro, rd, cfg), 1, 3)
+        lone_rays_lib = build.load_rays(lone_prog)
+        sky_rays_ms = device_events(lambda: rk.launch_rays(lone_rays_lib, lone_params, rays6, cfg,
+                                                           True))
+        del shuffled6
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
-    print(f"timing ray-batch forward launch alone: {rays_ms:.4f} ms (rounds {turn['rays']}) "
+    print(f"timing ray-batch forward launch alone: {rays_ms:.4f} ms (rounds {turn['rays']}), "
+          f"the same rays shuffled {rays_shuffled_ms:.4f} ms (rounds {turn['rays_shuffled']}), "
           f"beside the image kernel's {float(np.mean(turn['image'])):.4f} ms (rounds "
-          f"{turn['image']}) at {WIDTH}x{HEIGHT}x40; the three stride-0 origin components of "
-          f"camera_rays made contiguous: {origin_copy_ms:.4f} ms per frame; plain render_rays "
+          f"{turn['image']}) at {WIDTH}x{HEIGHT}x40; on the mostly-sky frame {sky_rays_ms:.4f} ms "
+          f"(on the card: launches queued behind a sleep); the three stride-0 origin components "
+          f"of camera_rays made contiguous: {origin_copy_ms:.4f} ms per frame; plain render_rays "
           f"{rays_plain_ms:.4f} ms on {smi}")
 
     # -- 11. the ray-batch pullback ---------------------------------------------
@@ -1167,6 +1226,33 @@ def main() -> int:
             check(torch.equal(store[i], depth_i),
                   f"store row {i} equals the depth render of {i} iterations, bit for bit")
         del depth_i
+        # Where each ray's march reaches its bitwise fixed point: the first
+        # step that left its depth unchanged. Every later row equals it (the
+        # forward writes those rows without stepping), and a warp of 32
+        # pixels leaves the march when all of them have settled.
+        n_it = cfg.depth_iterations
+        steps = settled_steps(store)
+        bits = store.view(torch.int32)
+        later = torch.arange(n_it, device=store.device)[:, None] > steps[None, :]
+        rows_after_ok = bool(((bits == bits.gather(0, torch.clamp(steps + 1, max=n_it - 1)[None, :]))
+                              | ~later).all())
+        del bits, later
+        settled = steps < n_it - 1
+        ray_need = torch.clamp(steps + 1, max=n_it - 1)
+        warp_steps = warp_march_steps(steps, n_it, rk.SETTLE_EVERY)
+        warp_saved = float(1 - warp_steps.sum() / (warp_steps.numel() * (n_it - 1)))
+        shuffled_steps = warp_march_steps(steps[order], n_it, rk.SETTLE_EVERY)
+        shuffled_saved = float(1 - shuffled_steps.sum() / (shuffled_steps.numel() * (n_it - 1)))
+        ray_saved = float(1 - ray_need.sum() / (ray_need.numel() * (n_it - 1)))
+        check(rows_after_ok and int(settled.sum()) > 0,
+              f"{int(settled.sum())} of {WIDTH * HEIGHT} rays reach their bitwise fixed point "
+              f"before the last march step (mean settled step "
+              f"{float(steps[settled].float().mean()):.2f} of {n_it - 1}); every row of the store "
+              f"after a ray's settled step equals it, bit for bit")
+        print(f"work: march steps saved by leaving at the fixed point, SphereRepeat "
+              f"{WIDTH}x{HEIGHT}x{n_it} (from the store): {ray_saved:.4f} of the ray-steps ray by "
+              f"ray, {warp_saved:.4f} of the warp-steps with a test every {rk.SETTLE_EVERY} "
+              f"step(s) in the frame's order, {shuffled_saved:.4f} with the rays shuffled")
         largest = float(replay.abs().max())
         store_vs_replay = float((fed - replay).abs().max())
         same = torch.equal(fed, replay)
@@ -1242,12 +1328,19 @@ def main() -> int:
         }
         for which in ("bwd", "bwd_store", "bwd_store", "bwd"):
             sky_handoff[which].append(events(sky_runs[which]))
+        sky_store_ms = device_events(lambda: rk.launch(lone_store_lib, lone_params, v19, cfg,
+                                                       True, want_store=True))
+        lone_steps = warp_march_steps(settled_steps(lone_store), n_it, rk.SETTLE_EVERY)
+        sky_warp_saved = float(1 - lone_steps.sum() / (lone_steps.numel() * (n_it - 1)))
+        print(f"work: march steps saved by leaving at the fixed point on the mostly-sky frame: "
+              f"{sky_warp_saved:.4f} of the warp-steps")
         del lone_frame, lone_store, lone_cot, lone_fed, lone_replay
     sky_store_bwd_ms = float(np.mean(sky_handoff["bwd_store"]))
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"timing the mostly-sky frame's backwards, launches alone: with replay "
           f"{float(np.mean(sky_handoff['bwd'])):.4f} ms, fed the store {sky_store_bwd_ms:.4f} ms "
-          f"(rounds {sky_handoff}) at {WIDTH}x{HEIGHT}x40 on {smi}")
+          f"(rounds {sky_handoff}); its forward with store {sky_store_ms:.4f} ms (on the card: "
+          f"launches queued behind a sleep) at {WIDTH}x{HEIGHT}x40 on {smi}")
     print(f"timing handoff at {WIDTH}x{HEIGHT}x40, launches alone: forward {handoff_ms['fwd']:.4f} "
           f"ms, forward with store {handoff_ms['fwd_store']:.4f} ms, backward with replay "
           f"{handoff_ms['bwd']:.4f} ms, backward fed the store {handoff_ms['bwd_store']:.4f} ms; "
@@ -1483,7 +1576,8 @@ def main() -> int:
             if per and name == "raymarch_bwd":
                 report["instructions_per_evaluation"]["sweep"] = per[-1]
             report["kernel_instructions"] = listing["rgb"]["instructions"]
-            report["loops"] = [{k: lp[k] for k in ("own", "rsq", "rcp", "fchk", "loads")}
+            report["loops"] = [{k: lp[k] for k in ("own", "rsq", "rcp", "fchk", "loads", "stores",
+                                                   "votes")}
                                for lp in loops]
             # Innermost loops that do not evaluate the scene (the store-fed
             # build's copies into the ring), with their instructions.
@@ -1491,6 +1585,7 @@ def main() -> int:
                      if lp["rsq"] == 0 and lp["own"] == lp["instructions"]]
             report["other_loops"] = len(other)
             report["other_loop_instructions"] = [lp["own"] for lp in other]
+            report["other_loop_stores"] = [lp["stores"] for lp in other]
         report["local_memory"] = klib.local_memory.get("rgb")
         compiled[name] = report
         print(f"compiled: {name} (RGB kernel) {report}")
@@ -1503,6 +1598,22 @@ def main() -> int:
     check(rays_bwd_loops is None or len(rays_bwd_loops) == 3,
           f"the ray-batch backward's loops that evaluate the scene are the tangent march and the "
           f"taps' two: {rays_bwd_loops}")
+    # The three forwards march in groups of rk.SETTLE_EVERY steps, unrolled in
+    # one loop that ends in the test for a warp at its fixed point (a compare
+    # and a vote), then the steps that fill no group; the build with store
+    # also has the loops that write a settled warp's remaining rows.
+    marches = {name: compiled[name].get("loops") for name in
+               ("raymarch_fwd", "raymarch_rays_fwd", "raymarch_fwd_store")}
+    print(f"compiled: the forwards' march loops (groups of {rk.SETTLE_EVERY} steps with the "
+          f"fixed-point test, then the steps left over): {marches}; the build with store's "
+          f"other loops {compiled['raymarch_fwd_store'].get('other_loops')} "
+          f"({compiled['raymarch_fwd_store'].get('other_loop_instructions')} instructions, "
+          f"{compiled['raymarch_fwd_store'].get('other_loop_stores')} stores a pass)")
+    check(all(loops is None or (loops[0]["votes"] >= 1
+                                and loops[0]["rsq"] == rk.SETTLE_EVERY * roots)
+              for loops in marches.values()),
+          f"each forward marches in a loop of {rk.SETTLE_EVERY} steps that holds the vote of its "
+          f"fixed-point test")
 
     # -- bounds: the least time the card could take for the same work ---------
     from sdfkit_tpu_torch.sdf.compile import operation_counts
@@ -1514,8 +1625,18 @@ def main() -> int:
     n = cfg.depth_iterations
     shade_ops = 60  # ray, normalisations, Lambert and the sky select of one pixel
     step_ops = 7  # ro + rd * depth, and the depth's own add
-    # Forward: every pixel marches n-1 steps, evaluates colour once and taps 6 times.
-    fwd_ops = npix * ((n - 1 + 6) * (ops_n["dist"] + step_ops) + ops_n["eval"] + shade_ops)
+    # Forward, as fixed work: every pixel marches n-1 steps, evaluates colour
+    # once and taps 6 times.
+    fwd_fixed_ops = npix * ((n - 1 + 6) * (ops_n["dist"] + step_ops) + ops_n["eval"] + shade_ops)
+    # Forward, as the work this frame needs: a ray marches until a step shows
+    # its bitwise fixed point (phase 12's store: settled step + 1, at most
+    # n-1), then evaluates colour; a ray that hits taps 6 times and is shaded,
+    # one that misses takes the sky's constant (its ray and the select, about
+    # ray_ops). The ray-batch forward takes the image's settled steps: its
+    # rays are the frame's to an ulp.
+    ray_ops, ray_vjp_ops = 30, 60
+    fwd_ops = (int(ray_need.sum()) * (ops_n["dist"] + step_ops) + npix * ops_n["eval"]
+               + hits * (6 * (ops_n["dist"] + step_ops) + shade_ops) + (npix - hits) * ray_ops)
     fwd_bytes = npix * 12 + 4 * (prog.n_params + 19)
     # Backward: every pixel replays the march and the colour step; only a hit
     # pixel taps, takes the unit gradient at the six taps and at the n-1 kept
@@ -1553,6 +1674,7 @@ def main() -> int:
     rays_bwd_bytes = npix * (24 + 12 + 1 + 24) + 4 * prog.n_params * 2
     march_per = (compiled["raymarch_fwd"]["instructions_per_evaluation"] or {}).get("march")
     clock = sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
+    issue_share = {}  # the forwards' share of the instruction rate, where SASS says it
     if march_per is not None and clock.strip().isdigit():
         sms = torch.cuda.get_device_properties(0).multi_processor_count
         instruction_rate = sms * 128 * float(clock) * 1e6
@@ -1570,15 +1692,50 @@ def main() -> int:
                          f"once a pixel")
             return text
 
-        fwd_loops = compiled["raymarch_fwd"]["loops"]
-        if len(fwd_loops) == 1:  # the march; the final step and the taps are straight-line
-            in_loops = npix * (n - 1) * fwd_loops[0]["own"] * roots / fwd_loops[0]["rsq"]
-            print(f"work: the forward executes {march_per:.1f} instructions per distance "
-                  f"evaluation in its march loop for {ops_n['dist']} counted operations "
-                  f"({march_per / ops_n['dist']:.2f} per operation); {n - 1} march steps a pixel "
-                  f"are {in_loops:.4g} thread instructions in {launch_ms:.4f} ms; {sms} SMs start "
-                  f"{instruction_rate:.4g} per second at {clock.strip()} MHz: "
-                  f"{rate_shares('raymarch_fwd', in_loops, launch_ms)}")
+        # The three forwards: a warp runs the march's groups of SETTLE_EVERY
+        # steps (the first loop, its vote after each group) until a group
+        # ends at or past its slowest lane's settled step, and otherwise all
+        # whole groups and the steps left over (the second loop), as
+        # warp_march_steps gives from phase 12's store, 32 lanes a pass; the
+        # build with store then writes the warp's remaining rows (n minus
+        # its steps) in loops of stores alone, counted at their fewest
+        # instructions a row.
+        warp_passes = int(warp_steps.sum())
+        every = rk.SETTLE_EVERY
+        full = (n - 1) // every
+        groups = torch.clamp(warp_steps, max=every * full) // every
+        group_passes = int(groups.sum())
+        rest_passes = int((warp_steps - every * groups).sum())
+        n_warps = warp_steps.numel()
+        forwards = (("raymarch_fwd", "the image forward", handoff_ms["fwd"]),
+                    ("raymarch_rays_fwd", "the ray-batch forward", rays_ms),
+                    ("raymarch_fwd_store", "the forward with store", handoff_ms["fwd_store"]))
+        for name, what, ms in forwards:
+            loops = compiled[name].get("loops", [])
+            if not loops or loops[0]["rsq"] != every * roots:
+                continue
+            group = loops[0]
+            per = group["own"] / every
+            rest_per = loops[1]["own"] * roots / loops[1]["rsq"] if len(loops) > 1 else per
+            in_loops = 32 * (group_passes * group["own"] + rest_passes * rest_per)
+            fixed = 32 * n_warps * (full * group["own"] + (n - 1 - every * full) * rest_per)
+            text = (f"{per:.1f} instructions per march step in groups of {every} (the vote "
+                    f"included), {rest_per:.1f} per step left over")
+            if name == "raymarch_fwd_store":
+                rows_per = [own / st_ for own, st_ in
+                            zip(compiled[name]["other_loop_instructions"],
+                                compiled[name]["other_loop_stores"]) if st_ > 0]
+                if rows_per:
+                    in_loops += 32 * (n_warps * n - warp_passes) * min(rows_per)
+                    fixed += 32 * n_warps * min(rows_per)
+                    text += f", and at least {min(rows_per):.1f} per row written after it"
+            issue_share[name] = in_loops / (ms * 1e-3) / instruction_rate
+            print(f"work: {what} executes {text}, for {ops_n['dist']} counted operations a step "
+                  f"({per / ops_n['dist']:.2f} per operation); its warps run "
+                  f"{warp_passes} march steps of {n_warps * (n - 1)} ({warp_saved:.4f} saved): "
+                  f"{in_loops:.4g} thread instructions in its loops (fixed work {fixed:.4g}) in "
+                  f"{ms:.4f} ms; {sms} SMs start {instruction_rate:.4g} per second at "
+                  f"{clock.strip()} MHz: {rate_shares(name, in_loops, ms)}")
         # The backward's loops in address order: the replay, the taps' forward
         # pass, the taps' unit gradients (three passes of two evaluations
         # each), the sweep, then the pair that serves a march of more than 64
@@ -1629,13 +1786,14 @@ def main() -> int:
         return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
 
     fwd_bound, fwd_by = bound(fwd_ops, fwd_bytes)
+    fwd_fixed_bound, _ = bound(fwd_fixed_ops, fwd_bytes)
     bwd_bound, bwd_by = bound(bwd_ops, bwd_bytes)
     # The ray-batch kernels do the image kernels' work without ray generation
-    # (about 30 operations: two NDC coordinates, four 3-term rows, three
-    # divides, a normalisation) and its pullback (about 60), and move the rays:
-    # 24 bytes read per ray, and 24 written by the pullback.
-    ray_ops, ray_vjp_ops = 30, 60
+    # (ray_ops, about 30 operations: two NDC coordinates, four 3-term rows,
+    # three divides, a normalisation) and its pullback (about 60), and move the
+    # rays: 24 bytes read per ray, and 24 written by the pullback.
     rays_bound, rays_by = bound(fwd_ops - npix * ray_ops, fwd_bytes + npix * 24)
+    rays_fixed_bound, _ = bound(fwd_fixed_ops - npix * ray_ops, fwd_bytes + npix * 24)
     rays_bwd_bound, rays_bwd_by = bound(rays_bwd_ops, rays_bwd_bytes)
     # The same function's work as the replay and the sweep did it (the bound
     # this kernel had before the tangent march), for comparison.
@@ -1645,6 +1803,12 @@ def main() -> int:
     # them and does not replay the n-1 march steps.
     store_bytes = npix * n * 4
     store_bound, store_by = bound(fwd_ops, fwd_bytes + store_bytes)
+    store_fixed_bound, _ = bound(fwd_fixed_ops, fwd_bytes + store_bytes)
+    print(f"work: the forwards' bounds as the work this frame needs (fixed work beside it): "
+          f"image {fwd_ops:.4g} operations, {fwd_bound:.4f} ms ({fwd_fixed_ops:.4g}, "
+          f"{fwd_fixed_bound:.4f} ms); ray-batch {fwd_ops - npix * ray_ops:.4g}, "
+          f"{rays_bound:.4f} ms ({fwd_fixed_ops - npix * ray_ops:.4g}, {rays_fixed_bound:.4f} ms); "
+          f"with store {store_bound:.4f} ms by {store_by} ({store_fixed_bound:.4f} ms)")
     store_bwd_bound, store_bwd_by = bound(
         bwd_ops - npix * (n - 1) * (ops_n["dist"] + step_ops), bwd_bytes + store_bytes)
     print(f"work: ray-batch forward {fwd_ops - npix * ray_ops:.4g} operations / "
@@ -1666,7 +1830,8 @@ def main() -> int:
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
          "max_abs_err": full_stats["max"], "ms": launch_ms, "frame_ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
-         "mostly_sky_ms": sky_fwd_ms,
+         "bound_ms_fixed_work": fwd_fixed_bound, "issue_share": issue_share.get("raymarch_fwd"),
+         "warp_steps_saved": warp_saved, "mostly_sky_ms": sky_fwd_ms,
          **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES, "launches": bwd_launches, "max_abs_err": bwd_err,
@@ -1677,7 +1842,10 @@ def main() -> int:
         {"name": "raymarch_rays_fwd", "route": "cuda", "source": RAYS_SOURCE,
          "replaces": RAYS_REPLACES, "launches": rays_launches, "max_abs_err": rays_stats["max"],
          "ms": rays_ms, "plain_ms": rays_plain_ms, "bound_ms": rays_bound, "bound_by": rays_by,
-         "library_ms": None, **compiled["raymarch_rays_fwd"]},
+         "library_ms": None, "bound_ms_fixed_work": rays_fixed_bound,
+         "issue_share": issue_share.get("raymarch_rays_fwd"), "warp_steps_saved": warp_saved,
+         "mostly_sky_ms": sky_rays_ms, "shuffled_ms": rays_shuffled_ms,
+         "shuffled_warp_steps_saved": shuffled_saved, **compiled["raymarch_rays_fwd"]},
         {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,
          "replaces": RAYS_BWD_REPLACES, "launches": rays_step_launches[1],
          "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
@@ -1693,7 +1861,9 @@ def main() -> int:
          "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
          "full_size_vs_plain": store_full_stats,
          "ms": handoff_ms["fwd_store"], "plain_ms": history_ms, "bound_ms": store_bound,
-         "bound_by": store_by, "library_ms": None, **compiled["raymarch_fwd_store"]},
+         "bound_by": store_by, "library_ms": None, "bound_ms_fixed_work": store_fixed_bound,
+         "issue_share": issue_share.get("raymarch_fwd_store"), "warp_steps_saved": warp_saved,
+         "mostly_sky_ms": sky_store_ms, **compiled["raymarch_fwd_store"]},
         {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
          "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
          "max_abs_err": store_bwd_err, "max_abs_err_vs_replay": store_vs_replay,

@@ -49,9 +49,19 @@ constexpr bool kWantStore = SDF_STORE != 0;
 // blocks an SM on its own (32 registers); the kernel is not short of warps,
 // and a budget set for 12 or 16 blocks measured the same.
 constexpr int kThreads = 128;
+// Measured variant: SDF_MIN_BLOCKS > 0 asks the compiler for that many
+// resident blocks an SM (a register budget).
+#ifndef SDF_MIN_BLOCKS
+#define SDF_MIN_BLOCKS 0
+#endif
+#if SDF_MIN_BLOCKS > 0
+#define SDF_FWD_BOUNDS __launch_bounds__(kThreads, SDF_MIN_BLOCKS)
+#else
+#define SDF_FWD_BOUNDS __launch_bounds__(kThreads)
+#endif
 
 template <bool WANT_COLOR>
-__global__ void __launch_bounds__(kThreads)
+__global__ void SDF_FWD_BOUNDS
     raymarch_fwd_kernel(RenderArgs a, float* __restrict__ out, float* __restrict__ store) {
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   if (local >= a.local_npix) return;

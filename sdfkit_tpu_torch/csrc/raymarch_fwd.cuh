@@ -21,6 +21,21 @@
 // used.
 #pragma once
 
+#include <string.h>
+
+// Measured variants (one library each, built by tools/torch_kernel_probe.py
+// --variants): SDF_SETTLE_EVERY, how many march steps a group holds, with the
+// test for a warp at its fixed point after each group (0: no test);
+// SDF_SKY_SKIP, whether a sky lane skips the shading.
+#ifndef SDF_SETTLE_EVERY
+#define SDF_SETTLE_EVERY 4
+#endif
+#ifndef SDF_SKY_SKIP
+#define SDF_SKY_SKIP 1
+#endif
+constexpr int kSettleEvery = SDF_SETTLE_EVERY;
+constexpr bool kSkySkip = SDF_SKY_SKIP != 0;
+
 struct RenderArgs {
   int width;
   int height;
@@ -83,24 +98,95 @@ __host__ __device__ __forceinline__ void safe_normalize(float& x, float& y, floa
   z *= inv;
 }
 
+// The bits of a float. Two depths are the same only if their bits are equal:
+// -0.0 == +0.0, yet the two can make points whose zero components differ in
+// sign, and a distance may tell those apart.
+__host__ __device__ __forceinline__ unsigned float_bits(float x) {
+#ifdef __CUDA_ARCH__
+  return __float_as_uint(x);
+#else
+  unsigned u;
+  memcpy(&u, &x, sizeof u);
+  return u;
+#endif
+}
+
+// Whether a step from `depth` to `next` left the depth where it was. The step
+// is a function of the depth's bits alone, so a depth that one step left bit
+// for bit unchanged no later step changes either: the march has reached its
+// fixed point and its result is final. A NaN never settles (the card returns
+// a canonical NaN and the host propagates the payload, so the bits of a NaN
+// would say different things on the two builds).
+__host__ __device__ __forceinline__ bool settled(float next, float depth) {
+  return float_bits(next) == float_bits(depth) && next == next;
+}
+
 // The march from depth0: n-1 distance-only steps. Misses keep accumulating
-// depth (to ~1e12 at 40 steps): no early exit, no hit threshold.
+// depth (to ~1e12 at 40 steps): no hit threshold. The march ends early only
+// where that changes no bit. On the card the steps go in groups of
+// kSettleEvery, unrolled, and after each group a warp leaves the loop when
+// the group's last step left every lane's depth where it was (a vote over the
+// lanes that were active when the march began: a thread past the launch's
+// pixels has returned); the steps that do not fill a group follow without a
+// test. On the host each ray leaves on its own, after any step.
 //
 // WANT_STORE also writes the depth history the backward can take in place of
 // its replay (the TPU kernel's want_store output, _march_and_shade): row i of
 // `store` (stride floats apart) holds the depth before step i for i in
-// 0..n-2, and row n-1 the depth before the final step.
+// 0..n-2, and row n-1 the depth before the final step. The rows are written
+// by walking a pointer; a march that has settled writes its remaining rows,
+// all equal to its depth, with stores alone.
 template <bool WANT_STORE = false>
 __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float* P,
                                                       const RenderArgs& a,
                                                       float* store = nullptr,
                                                       long long stride = 0) {
   float depth = a.depth0;
-  for (int i = 0; i < a.iters - 1; ++i) {
-    if (WANT_STORE) store[i * stride] = depth;
-    depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+  const int steps = a.iters - 1;
+  int i = 0;
+  bool done = false;
+#ifdef __CUDA_ARCH__
+  if (kSettleEvery > 0) {
+    const unsigned lanes = __activemask();
+    while (i + kSettleEvery <= steps) {
+      float before = depth;
+#pragma unroll
+      for (int k = 0; k < (kSettleEvery > 0 ? kSettleEvery : 1); ++k) {
+        if (WANT_STORE) {
+          *store = depth;
+          store += stride;
+        }
+        before = depth;
+        depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+      }
+      i += kSettleEvery;
+      if (__all_sync(lanes, settled(depth, before))) {
+        done = true;
+        break;
+      }
+    }
   }
-  if (WANT_STORE) store[(a.iters - 1) * stride] = depth;
+#endif
+  for (; !done && i < steps; ++i) {
+    if (WANT_STORE) {
+      *store = depth;
+      store += stride;
+    }
+    const float next =
+        depth + sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+#ifndef __CUDA_ARCH__
+    done = kSettleEvery > 0 && settled(next, depth);
+#endif
+    depth = next;
+  }
+  // Rows i..n-1: after a settled step every later depth is this one; after
+  // the last step, row n-1 alone.
+  if (WANT_STORE) {
+    for (; i < a.iters; ++i) {
+      *store = depth;
+      store += stride;
+    }
+  }
   return depth;
 }
 
@@ -130,6 +216,16 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
                     &cr, &cg, &cb);
   const bool bg = depth > a.far_;
   if (WANT_HIT) *hit = bg ? 0 : 1;
+  // A sky lane writes the sky's constant and shades nothing: the taps, the
+  // normalisations and Lambert only make a colour that the sky replaces. A
+  // warp that is all sky skips them all; a mixed warp runs them for its hit
+  // lanes as before.
+  if (kSkySkip && bg) {
+    o[0] = 0.5f;
+    o[1] = 0.75f;
+    o[2] = 1.0f;
+    return;
+  }
   // Misses shade at a benign depth (the JAX package's backward needs this;
   // the forward keeps the same surface point so both agree).
   const float sd = bg ? a.near_ : depth;

@@ -23,9 +23,19 @@
 #include "raymarch_uniforms.cuh"
 
 constexpr int kRayThreads = 128;
+// Measured variant: SDF_MIN_BLOCKS > 0 asks the compiler for that many
+// resident blocks an SM (a register budget).
+#ifndef SDF_MIN_BLOCKS
+#define SDF_MIN_BLOCKS 0
+#endif
+#if SDF_MIN_BLOCKS > 0
+#define SDF_RAYS_BOUNDS __launch_bounds__(kRayThreads, SDF_MIN_BLOCKS)
+#else
+#define SDF_RAYS_BOUNDS __launch_bounds__(kRayThreads)
+#endif
 
 template <bool WANT_COLOR, bool WANT_HIT>
-__global__ void __launch_bounds__(kRayThreads)
+__global__ void SDF_RAYS_BOUNDS
     raymarch_rays_fwd_kernel(const float* __restrict__ ox,
                              const float* __restrict__ oy, const float* __restrict__ oz,
                              const float* __restrict__ dx, const float* __restrict__ dy,

@@ -143,11 +143,12 @@ FAMILIES = {
 }
 
 
-def translation_unit(program: Program, family: str = "fwd") -> str:
+def translation_unit(program: Program, family: str = "fwd", defines: tuple = ()) -> str:
     """The generated .cu of one family: the scene's functions (and their
-    adjoints, for a backward), then the kernel source."""
+    adjoints, for a backward), then the kernel source. ``defines`` are
+    ``"NAME VALUE"`` macros put first, for builds of measured variants."""
     fam = FAMILIES[family]
-    unit = _HEAD + program.source + "\n"
+    unit = "".join(f"#define {d}\n" for d in defines) + _HEAD + program.source + "\n"
     if fam.adjoint:
         unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS itself
     else:
@@ -223,19 +224,32 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     return so, seconds, log
 
 
-def load_family(program: Program, family: str) -> KernelLib:
-    """The library of ``family`` for ``program``, built on first use."""
-    fam = FAMILIES[family]
-    name = program.adjoint_hash if fam.adjoint else program.hash
-    lib = _LIBS.get((family, name))
-    if lib is not None:
-        return lib
-    if program.n_params + VIEW_SCALARS > CONSTANT_FLOATS:
+def fits_constant_memory(program: Program) -> bool:
+    """Whether the kernels can take ``program``: its parameter slots and the
+    view scalars fit in the one ``__constant__`` array of a library."""
+    return program.n_params + VIEW_SCALARS <= CONSTANT_FLOATS
+
+
+def check_constant_memory(program: Program) -> None:
+    """Refuse, by name, a program whose uniforms do not fit in constant memory."""
+    if not fits_constant_memory(program):
         raise ValueError(
             f"the scene has {program.n_params} parameter slots; the kernels read them and the "
             f"{VIEW_SCALARS} view scalars from constant memory, which holds {CONSTANT_FLOATS} floats"
         )
-    unit = translation_unit(program, family)
+
+
+def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib:
+    """The library of ``family`` for ``program``, built on first use.
+    ``defines``: see :func:`translation_unit`; a variant is a library of its
+    own."""
+    fam = FAMILIES[family]
+    name = program.adjoint_hash if fam.adjoint else program.hash
+    lib = _LIBS.get((family, name, defines))
+    if lib is not None:
+        return lib
+    check_constant_memory(program)
+    unit = translation_unit(program, family, defines)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
     so, seconds, log = _compile(f"raymarch_{family}_{name}_{digest}", unit)
@@ -260,7 +274,7 @@ def load_family(program: Program, family: str) -> KernelLib:
                 f"the program has {program.n_params}"
             )
     registers, local = _ptxas(log)
-    lib = _LIBS[(family, name)] = KernelLib(
+    lib = _LIBS[(family, name, defines)] = KernelLib(
         launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
         rows=rows, store=fam.store, resident=resident,
     )

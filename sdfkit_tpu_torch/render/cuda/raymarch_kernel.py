@@ -70,6 +70,10 @@ from sdfkit_tpu_torch.sdf.expr import SdfExpr
 from sdfkit_tpu_torch.utils.camera import inv_view_proj
 from sdfkit_tpu_torch.utils.v3 import V3
 
+# How many march steps a group of the forward kernels holds, with the test
+# for a warp at its bitwise fixed point after each group
+# (csrc/raymarch_fwd.cuh kSettleEvery), for reckoning the work a launch does.
+SETTLE_EVERY = 4
 LAUNCHES = 0  # image forward launches
 BWD_LAUNCHES = 0  # image backward launches (the pullback kernel and its reduction)
 STORE_LAUNCHES = 0  # image forward launches that also wrote the depth history

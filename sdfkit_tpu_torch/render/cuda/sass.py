@@ -35,9 +35,11 @@ def parse_sass(text: str) -> dict:
     ``cuobjdump -sass``. A loop is ``{"start", "end"}`` (addresses),
     ``"instructions"`` (all between them), ``"own"`` (those not in a loop
     nested in it) and, of its own instructions, ``"rsq"``, ``"rcp"``,
-    ``"fchk"`` (the range check of an IEEE division) and ``"loads"`` (from
+    ``"fchk"`` (the range check of an IEEE division), ``"loads"`` (from
     device, local, shared or constant memory as an instruction of its own;
-    a constant operand is not one), in address order."""
+    a constant operand is not one), ``"stores"`` (to device memory) and
+    ``"votes"`` (a warp vote, the forwards' test for a warp at its fixed
+    point), in address order."""
     kernels: dict[str, list] = {}
     current = None
     for line in text.splitlines():
@@ -69,6 +71,8 @@ def parse_sass(text: str) -> dict:
                 "rcp": sum(op == "MUFU.RCP" for op in own),
                 "fchk": sum(op == "FCHK" for op in own),
                 "loads": sum(op.split(".")[0] in ("LD", "LDG", "LDL", "LDS", "LDC") for op in own),
+                "stores": sum(op.split(".")[0] in ("ST", "STG") for op in own),
+                "votes": sum(op.split(".")[0] == "VOTE" for op in own),
             })
         out[key] = {"instructions": len(instructions), "loops": loops}
     return out

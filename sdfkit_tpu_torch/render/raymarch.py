@@ -14,7 +14,8 @@ RayMarcher semantics:
 The functions here are the plain version of the CUDA kernel in
 ``render/cuda/raymarch_kernel.py``: the same math in torch ops, differentiable
 by autograd. ``RayMarcher(backend="auto")`` takes the kernel when the scene's
-parameters are on CUDA and this path when they are on the CPU.
+parameters are on CUDA and fit in the kernels' constant memory, and this path
+otherwise.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import dataclasses
 import torch
 
 from sdfkit_tpu_torch import ops
+from sdfkit_tpu_torch.render.cuda import build
+from sdfkit_tpu_torch.sdf.compile import compile_scene
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, scene_device
 from sdfkit_tpu_torch.utils.camera import camera_rays, default_view, look_at
 from sdfkit_tpu_torch.utils.v3 import V3
@@ -74,6 +77,33 @@ def march_history(sdf: SdfExpr, ro: V3, rd: V3, cfg: RenderConfig) -> torch.Tens
         depth = depth + sdf.distance(ro + rd * depth)
         rows.append(depth)
     return torch.stack(rows)
+
+
+def settled_steps(history: torch.Tensor) -> torch.Tensor:
+    """Per ray of a (depth_iterations, rays) depth history, the first march
+    step that left the depth bit for bit where it was (row ``s + 1`` equal to
+    row ``s`` in every bit), or ``depth_iterations - 1`` where none did. A
+    step is a function of the depth's bits, so every later row equals row
+    ``s + 1``: the forward kernels leave the march there (``march_depth`` in
+    ``csrc/raymarch_fwd.cuh``). A NaN never settles, as there."""
+    b = history.contiguous().view(torch.int32)
+    same = (b[1:] == b[:-1]) & ~torch.isnan(history[1:])
+    first = same.int().argmax(0)
+    return torch.where(same.any(0), first, torch.full_like(first, history.shape[0] - 1))
+
+
+def warp_march_steps(steps: torch.Tensor, iterations: int, every: int,
+                     warp: int = 32) -> torch.Tensor:
+    """The march steps each warp of ``warp`` consecutive rays runs when it
+    tests every ``every`` steps whether all its rays have settled: a ray
+    needs ``settled_steps + 1`` steps (the one that shows it), a warp its
+    slowest ray's, rounded up to a test, and at most ``iterations - 1``."""
+    need = torch.clamp(steps + 1, max=iterations - 1)
+    pad = (-need.numel()) % warp
+    if pad:
+        need = torch.cat([need, need.new_zeros(pad)])
+    slowest = need.view(-1, warp).amax(1)
+    return torch.clamp((slowest + every - 1) // every * every, max=iterations - 1)
 
 
 def _distance_gradient(sdf: SdfExpr, p: V3) -> V3:
@@ -130,20 +160,35 @@ def render_depth_image_torch(sdf: SdfExpr, view: torch.Tensor, cfg: RenderConfig
 BACKENDS = ("auto", "kernel", "torch")
 
 
+def _on_cuda(sdf: SdfExpr) -> bool:
+    """Whether the scene's parameters are on a CUDA device, where the kernels run."""
+    return scene_device(sdf).type == "cuda"
+
+
 def resolve_backend(backend: str, sdf: SdfExpr) -> str:
     """'kernel' or 'torch' for a scene: 'auto' takes the CUDA kernels when the
-    scene's parameters are on CUDA and the plain path on the CPU, and 'kernel'
-    on a CPU scene raises. One rule for ``RayMarcher`` (and so for ``fit``,
-    which renders through it) and the tile renderer (the JAX package's
+    scene's parameters are on CUDA and its parameter slots fit in the
+    kernels' constant memory, and the plain path otherwise (the JAX package's
+    ``auto`` likewise takes the jnp path above ``MAX_FUSED_PARAM_SCALARS``).
+    'kernel' on a CPU scene or on a scene too large for the kernels raises.
+    The size is the scene's compiled program's, decided before any build.
+    One rule for ``RayMarcher`` (and so for ``render`` and ``fit``, which
+    render through it) and the tile renderer (the JAX package's
     ``resolve_shard_backend``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    device = scene_device(sdf)
-    if backend == "auto":
-        return "kernel" if device.type == "cuda" else "torch"
-    if backend == "kernel" and device.type != "cuda":
-        raise ValueError(f"backend='kernel' needs the scene on a CUDA device, not {device}")
-    return backend
+    if backend == "torch":
+        return backend
+    if not _on_cuda(sdf):
+        if backend == "kernel":
+            raise ValueError(
+                f"backend='kernel' needs the scene on a CUDA device, not {scene_device(sdf)}")
+        return "torch"
+    program = compile_scene(sdf)
+    if backend == "auto" and not build.fits_constant_memory(program):
+        return "torch"
+    build.check_constant_memory(program)
+    return "kernel"
 
 
 class RayMarcher:
@@ -155,7 +200,8 @@ class RayMarcher:
 
     backend: 'kernel' = the hand-written CUDA kernel (CUDA scenes only),
     'torch' = the plain path (any device, differentiable by autograd),
-    'auto' = the kernel for a scene on CUDA, the plain path on the CPU.
+    'auto' = the kernel for a scene on CUDA whose parameters fit in the
+    kernels' constant memory, the plain path otherwise.
     The kernel rounds differently from the plain path (FMA contraction
     compounds over the 40 steps), so pixel comparisons against goldens
     should use the plain path or the distributional contract of

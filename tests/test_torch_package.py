@@ -122,6 +122,73 @@ def test_a_scene_too_large_for_constant_memory_raises_before_any_build(monkeypat
     assert build.BUILDS == builds
 
 
+def _render_through_raymarcher(sdf, backend, tmp_path):
+    return st.RayMarcher(8, 4, sdf, backend=backend).render()
+
+
+def _render_through_render(sdf, backend, tmp_path):
+    return st.render(sdf, 8, 4, camera_position=(0.0, 0.0, 5.0), backend=backend)
+
+
+def _render_through_fit(sdf, backend, tmp_path):
+    return torch.tensor(st.fit(sdf, torch.full((4, 8, 3), 0.5), steps=1, backend=backend).losses)
+
+
+def _render_through_tiles(sdf, backend, tmp_path):
+    image, stats = st.parallel.render_tiles_resumable(sdf, 8, 4, tmp_path / "tiles", tile_rows=2,
+                                                      backend=backend)
+    assert stats["rendered"] == 2
+    return torch.from_numpy(image)
+
+
+@pytest.mark.parametrize("entry", [_render_through_raymarcher, _render_through_render,
+                                   _render_through_fit, _render_through_tiles],
+                         ids=["RayMarcher", "render", "fit", "render_tiles_resumable"])
+def test_auto_sends_a_scene_too_large_for_constant_memory_to_the_plain_path(monkeypatch, tmp_path,
+                                                                           entry):
+    """A scene on CUDA whose parameter slots and view scalars do not fit in
+    the kernels' constant memory renders on the plain path under 'auto',
+    decided from its compiled program before any build, as the JAX package's
+    ``auto`` takes the jnp path above ``MAX_FUSED_PARAM_SCALARS``; 'kernel'
+    raises by name. The device check says CUDA and the program has
+    ``CONSTANT_FLOATS - 18`` slots; the frame itself renders on the CPU."""
+    from sdfkit_tpu_torch.parallel import elastic
+    from sdfkit_tpu_torch.render import raymarch
+
+    fit_module = sys.modules["sdfkit_tpu_torch.fit"]  # the package exports the function
+
+    sdf = st.sphere(1.0)
+    program = compile_scene(sdf)
+    large = dataclasses.replace(program, n_params=build.CONSTANT_FLOATS - 18, hash="large")
+    resolved = []
+
+    def spy(backend, expr):
+        resolved.append(resolve(backend, expr))
+        return resolved[-1]
+
+    def no_compiler():
+        raise RuntimeError("no nvcc in this test")
+
+    resolve = raymarch.resolve_backend
+    monkeypatch.setattr(raymarch, "_on_cuda", lambda expr: True)
+    monkeypatch.setattr(raymarch, "compile_scene", lambda expr: large)
+    for module in (raymarch, fit_module, elastic):
+        monkeypatch.setattr(module, "resolve_backend", spy)
+    monkeypatch.setattr(build, "nvcc_path", no_compiler)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    builds, launches = build.BUILDS, rk.LAUNCHES
+
+    out = entry(sdf, "auto", tmp_path)
+    assert resolved and set(resolved) == {"torch"}
+    assert bool(torch.isfinite(out).all()) and out.numel() > 0
+    with pytest.raises(ValueError, match="constant memory"):
+        entry(sdf, "kernel", tmp_path / "kernel")
+    assert (build.BUILDS, rk.LAUNCHES) == (builds, launches)
+    # The same scene whose program fits still takes the kernels.
+    monkeypatch.setattr(raymarch, "compile_scene", lambda expr: program)
+    assert resolve("auto", sdf) == "kernel"
+
+
 class _Stream:
     """A stream as ``KernelLib.order_uniforms`` uses one."""
 

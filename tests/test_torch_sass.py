@@ -52,7 +52,7 @@ def test_loops_are_found_by_their_backward_branches():
     outer, inner = rgb["loops"]
     assert (outer["start"], outer["end"], inner["start"], inner["end"]) == (0x30, 0xa0, 0x40, 0x80)
     assert inner == {"start": 0x40, "end": 0x80, "instructions": 5, "own": 5, "rsq": 2, "rcp": 0,
-                     "fchk": 1, "loads": 1}
+                     "fchk": 1, "loads": 1, "stores": 0, "votes": 0}
     # The outer loop owns its reciprocal, the add and its branch, not the inner loop's body.
     assert (outer["instructions"], outer["own"], outer["rsq"], outer["rcp"]) == (8, 3, 0, 1)
     assert outer["loads"] == 0
@@ -72,3 +72,27 @@ def test_kernels_are_keyed_as_the_build_report_keys_them():
         == "rgb"
     assert sass.kernel_key("_Z24raymarch_rays_fwd_kernelILb0ELb0EEvPKfS1_S1_S1_S1_S1_10RenderArgsPfPh") \
         == "depth"
+
+
+MARCH = """
+		Function : _Z19raymarch_fwd_kernelILb1EEv10RenderArgsPfS0_
+        /*0000*/                   S2R R0, SR_TID.X ;                           /* 0x0000000000007919 */
+        /*0010*/                   VOTE.ANY R8, PT, PT ;                        /* 0x0000000000087806 */
+        /*0020*/                   STG.E desc[UR4][R2.64], R5 ;                 /* 0x0000000502007986 */
+        /*0030*/                   MUFU.RSQ R6, R5 ;                            /* 0x0000000500067308 */
+        /*0040*/                   ISETP.NE.AND P0, PT, R6, R5, PT ;            /* 0x000000050600720c */
+        /*0050*/                   VOTE.ALL P1, P0, R8 ;                        /* 0x0000000000087806 */
+        /*0060*/              @!P1 BRA 0x20 ;                                   /* 0xfffffff800e49947 */
+        /*0070*/                   STG.E desc[UR4][R2.64], R6 ;                 /* 0x0000000602007986 */
+        /*0080*/               @P2 BRA 0x70 ;                                   /* 0xfffffff800e02947 */
+        /*0090*/                   EXIT ;                                       /* 0x000000000000794d */
+"""
+
+
+def test_a_march_loop_counts_its_vote_and_its_stores():
+    """The forwards' march loop holds the vote of a warp at its fixed point
+    (and, with store, a store a step); the loop after it writes the rows a
+    settled warp did not step through."""
+    march, rows = sass.parse_sass(MARCH)["rgb"]["loops"]
+    assert (march["own"], march["rsq"], march["votes"], march["stores"]) == (5, 1, 1, 1)
+    assert (rows["own"], rows["rsq"], rows["votes"], rows["stores"]) == (2, 0, 0, 1)

@@ -153,11 +153,12 @@ _SIGNATURES = {
 }
 
 
-def host_library(build_dir, program):
-    """The g++ build of every kernel family's per-ray code for ``program``."""
+def host_library(build_dir, program, extra=""):
+    """The g++ build of every kernel family's per-ray code for ``program``,
+    with ``extra`` (a test's own host code) appended to the unit."""
     src = build_dir / f"scene_{program.adjoint_hash}.cc"
     src.write_text(SHIM + program.source + program.adjoint_source + LOOP + LOOP_BWD
-                   + LOOP_STORE + LOOP_RAYS)
+                   + LOOP_STORE + LOOP_RAYS + extra)
     lib = _gxx(src, src.with_suffix(".so"))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME]
+    python3 tools/torch_kernel_probe.py [--against DIR ...] [--variants] [--tag NAME]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and for one sphere,
@@ -19,6 +19,18 @@ and prints, one JSON object per line with ``"probe"`` naming it:
   checkout's, fed the same depth history and cotangent (bit for bit), and
   the image and ray-batch backwards likewise (the largest difference over the
   largest entry);
+* ``forward``: per scene and per forward build (this checkout's, every
+  ``--against`` package's, every ``--variants`` build's) whether its outputs
+  are bit for bit the first ``--against`` package's (this checkout's without
+  one): RGB and depth of the image forward, RGB and depth history of the
+  forward with store, RGB, hit flags and depth of the ray-batch forward, the
+  frame's rays in a seeded shuffled order against the same rays in order,
+  two bands of an odd pixel count (store rows against the frame's columns),
+  and all of it again at 80 and 130 iterations on SphereRepeat;
+* ``settle``: per scene, from the depth history, the step at which each
+  ray's march reaches its bitwise fixed point, and the share of a warp's
+  march steps that leaving at it saves when the test comes every 1, 2, 4 or
+  8 steps, for the frame's order and the shuffled one;
 * ``time``: CUDA-event times of the launches alone, queued behind a sleep on
   the stream so that the card's time is read and not the host's (a launch
   on the mostly-sky frame is shorter than the host's work to make it), at
@@ -26,15 +38,17 @@ and prints, one JSON object per line with ``"probe"`` naming it:
   of radius 0.5 under the same camera (mostly sky), in turns, there and back, twice: the
   image backward, the store-fed backward and the ray-batch backward on the
   frame's camera rays (with the forward's hit flags where the package has
-  them, and without), for this checkout and every ``--against`` package, and
-  the forwards of this checkout.
+  them, and without), and the forwards (image, with store, ray-batch with
+  and without hit flags, ray-batch on the shuffled rays) of every build.
 
 ``--against DIR`` (repeatable) names a directory that holds another
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
 ``git archive <commit> sdfkit_tpu_torch | tar -x -C DIR``); each is imported
 in this same process under its own module objects, builds into its own
-``_build/`` and is timed in the same turns. Every line carries ``--tag``
-and the card's name and power limit.
+``_build/`` and is timed in the same turns. ``--variants`` adds builds of this
+checkout's three forwards with the measured variants' macros
+(``VARIANTS``). Every line carries ``--tag`` and the card's name and power
+limit.
 """
 
 from __future__ import annotations
@@ -57,6 +71,17 @@ WIDTH, HEIGHT = 1920, 1080
 WARMUP, TIMED = 3, 10
 # A sleep on the stream ahead of the timed calls: about 20 ms at 1980 MHz.
 SLEEP_CYCLES = 40_000_000
+FWD_FAMILIES = ("fwd", "fwd_store", "rays_fwd")
+# The forwards' measured variants: compile-time macros of csrc/.
+VARIANTS = {
+    "every 1": ("SDF_SETTLE_EVERY 1",),
+    "every 2": ("SDF_SETTLE_EVERY 2",),
+    "every 8": ("SDF_SETTLE_EVERY 8",),
+    "no exit": ("SDF_SETTLE_EVERY 0",),
+    "no sky skip": ("SDF_SKY_SKIP 0",),
+    "16 blocks": ("SDF_MIN_BLOCKS 16",),
+}
+ODD = 1_000_001  # the first band's pixels: no row of its store starts 16-byte aligned
 
 
 def load_package(root: pathlib.Path) -> types.SimpleNamespace:
@@ -77,6 +102,7 @@ def load_package(root: pathlib.Path) -> types.SimpleNamespace:
             compile=importlib.import_module(PKG + ".sdf.compile"),
             camera=importlib.import_module(PKG + ".utils.camera"),
             sass=importlib.import_module(PKG + ".render.cuda.sass"),
+            raymarch=importlib.import_module(PKG + ".render.raymarch"),
         )
     finally:
         sys.path.remove(str(root))
@@ -92,6 +118,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     help="another package root to probe beside this checkout")
+    ap.add_argument("--variants", action="store_true",
+                    help="also build and time the forwards' measured variants")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
 
@@ -154,13 +182,24 @@ def main() -> int:
     programs = {label: {name: p.compile.compile_scene(expr) for name, expr in scenes[label].items()}
                 for label, p in packages.items()}
 
+    # Forward builds: every package's, and this checkout's variants.
+    units = {label: (label, ()) for label in packages}
+    if args.variants:
+        units.update({f"this {v}": ("this", defines) for v, defines in VARIANTS.items()})
     # Every library this run needs, built in parallel (one nvcc each).
     jobs = [(label, family, name) for label, p in packages.items()
             for family in p.build.FAMILIES for name in programs[label]]
+    jobs += [(label, family, name) for label, (_, defines) in units.items() if defines
+             for family in FWD_FAMILIES for name in programs["this"]]
 
     def load(job):
         label, family, name = job
-        return packages[label].build.load_family(programs[label][name], family)
+        pkg_label, defines = units[label]
+        build = packages[pkg_label].build
+        program = programs[pkg_label][name]
+        if defines:
+            return build.load_family(program, family, defines)
+        return build.load_family(program, family)
 
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip(jobs, pool.map(load, jobs)))
@@ -212,10 +251,75 @@ def main() -> int:
             return lambda: fn(lib, params, rays, cfg, True, cot, hit=hit)
         return lambda: fn(lib, params, rays, cfg, True, cot)
 
+    ref_label = next((label for label in packages if label != "this"), "this")
+
+    def bits(t):
+        return t.contiguous().view(torch.int32)
+
+    def same_bits(a, b) -> bool:
+        if a.dtype != torch.float32:  # the hit flags
+            return a.shape == b.shape and bool(torch.equal(a, b))
+        return a.shape == b.shape and bool(torch.equal(bits(a), bits(b)))
+
+    def forward_outputs(label, name, params, v19, c, rays, order):
+        """Every forward output of build ``label`` on scene ``name`` at ``c``:
+        image RGB and depth, RGB and history with store, ray RGB, hit flags
+        and depth, and the RGB of the rays in ``order`` (None: not asked)."""
+        rk = packages[units[label][0]].rk
+        fwd, store_lib, rays_lib = (lib_of(label, f, name) for f in FWD_FAMILIES)
+        out = {"rgb": rk.launch(fwd, params, v19, c, True),
+               "depth": rk.launch(fwd, params, v19, c, False)}
+        out["store_rgb"], out["store"] = rk.launch(store_lib, params, v19, c, True,
+                                                   want_store=True)
+        out["ray_rgb"], out["hit"] = rk.launch_rays(rays_lib, params, rays, c, True,
+                                                    want_hit=True)
+        out["ray_depth"] = rk.launch_rays(rays_lib, params, rays, c, False)
+        if order is not None:
+            out["shuffled_rgb"], out["shuffled_hit"] = rk.launch_rays(
+                rays_lib, params, [r[order] for r in rays], c, True, want_hit=True)
+        return out
+
+    def band_outputs(label, name, params, v19, c):
+        """The forward with store over two bands of an odd pixel count."""
+        rk = packages[units[label][0]].rk
+        store_lib = lib_of(label, "fwd_store", name)
+        return [rk.launch(store_lib, params, v19, c, True, b0, bn, want_store=True)
+                for b0, bn in ((0, ODD), (ODD, WIDTH * HEIGHT - ODD))]
+
+    def compare(got, ref, order) -> dict:
+        """Which outputs are bit for bit the reference's."""
+        verdict = {k: same_bits(got[k], ref[k]) for k in ref if not k.startswith("shuffled")}
+        if order is not None:
+            verdict["shuffled_rgb"] = same_bits(got["shuffled_rgb"], ref["ray_rgb"][order])
+            verdict["shuffled_hit"] = same_bits(got["shuffled_hit"], ref["hit"][order])
+        return verdict
+
+    def settle_report(store, order):
+        """From a depth history: the rays that reach their bitwise fixed
+        point, and the share of march steps that leaving there saves, ray by
+        ray and warp by warp when the test comes every 1, 2, 4 or 8 steps, for
+        the frame's order and the shuffled one."""
+        n = store.shape[0]
+        steps = this.raymarch.settled_steps(store)
+        settled = steps < n - 1
+        need = torch.clamp(steps + 1, max=n - 1)
+        report = {"rays": int(steps.numel()), "settled_rays": int(settled.sum()),
+                  "mean_settled_step": float(steps[settled].float().mean()),
+                  "ray_steps_saved_share": float(1 - need.sum() / (need.numel() * (n - 1)))}
+        for what, s_ in (("in_order", steps), ("shuffled", steps[order])):
+            for every in (1, 2, 4, 8):
+                w = this.raymarch.warp_march_steps(s_, n, every)
+                report[f"warp_steps_saved_share_{what}_every_{every}"] = float(
+                    1 - w.sum() / (w.numel() * (n - 1)))
+        return report
+
     with torch.no_grad():
         rk = this.rk
         ro, rd = this.camera.camera_rays(WIDTH, HEIGHT, view, cfg.vfov_degrees, cfg.near, cfg.far)
         rays = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+        gen = torch.Generator(device="cuda").manual_seed(17)
+        order = torch.randperm(WIDTH * HEIGHT, device="cuda", generator=gen)
+        shuffled = [r[order].contiguous() for r in rays]
         v19 = rk.view19(view, cfg)
         for name in programs["this"]:
             params = this.compile.flat_params(scenes["this"][name]).contiguous()
@@ -239,11 +343,56 @@ def main() -> int:
                 frame_sha256=hashlib.sha256(rgb.cpu().numpy().tobytes()).hexdigest(),
                 gradient=rk.launch_bwd(lib_of("this", "bwd", name), params, v19, cfg, True,
                                        cot).tolist())
-            runs = {"this forward": lambda: rk.launch(fwd, params, v19, cfg, True),
-                    "this ray forward": lambda: rk.launch_rays(
-                        lib_of("this", "rays_fwd", name), params, rays, cfg, True),
-                    "this ray forward with hit flags": lambda: rk.launch_rays(
-                        lib_of("this", "rays_fwd", name), params, rays, cfg, True, want_hit=True)}
+            say("settle", scene=name, iterations=cfg.depth_iterations,
+                **settle_report(store, order))
+
+            # The forwards, bit for bit against the reference build.
+            checks = [(cfg, True)]
+            if name == "sphere_repeat":
+                checks += [(this.st.RenderConfig(WIDTH, HEIGHT, depth_iterations=i), False)
+                           for i in (80, 130)]
+            for c, with_order in checks:
+                o = order if with_order else None
+                ref = forward_outputs(ref_label, name, params, v19, c, rays, o)
+                ref_bands = band_outputs(ref_label, name, params, v19, c)
+                for label in units:
+                    got = forward_outputs(label, name, params, v19, c, rays, o)
+                    verdict = compare(got, ref, o)
+                    del got
+                    bands = band_outputs(label, name, params, v19, c)
+                    b0 = 0
+                    for k, ((b_rgb, b_store), (r_rgb, r_store)) in enumerate(zip(bands,
+                                                                                ref_bands)):
+                        bn = b_rgb.shape[0]
+                        verdict[f"band{k}_rgb"] = same_bits(b_rgb, r_rgb)
+                        verdict[f"band{k}_store"] = same_bits(b_store, r_store)
+                        verdict[f"band{k}_store_vs_frame_columns"] = same_bits(
+                            b_store, ref["store"][:, b0:b0 + bn])
+                        b0 += bn
+                    del bands
+                    say("forward", scene=name, iterations=c.depth_iterations, build=label,
+                        against=ref_label, bit_identical=all(verdict.values()), outputs=verdict)
+                del ref, ref_bands
+                torch.cuda.empty_cache()
+
+            runs = {}
+            for label in units:
+                rk_u = packages[units[label][0]].rk
+                f_lib, s_lib, r_lib = (lib_of(label, f, name) for f in FWD_FAMILIES)
+                runs[f"{label} image forward"] = (
+                    lambda rk_u=rk_u, f_lib=f_lib: rk_u.launch(f_lib, params, v19, cfg, True))
+                runs[f"{label} forward with store"] = (
+                    lambda rk_u=rk_u, s_lib=s_lib: rk_u.launch(s_lib, params, v19, cfg, True,
+                                                               want_store=True))
+                runs[f"{label} ray forward"] = (
+                    lambda rk_u=rk_u, r_lib=r_lib: rk_u.launch_rays(r_lib, params, rays, cfg,
+                                                                    True))
+                runs[f"{label} ray forward with hit flags"] = (
+                    lambda rk_u=rk_u, r_lib=r_lib: rk_u.launch_rays(r_lib, params, rays, cfg,
+                                                                    True, want_hit=True))
+                runs[f"{label} ray forward shuffled"] = (
+                    lambda rk_u=rk_u, r_lib=r_lib: rk_u.launch_rays(r_lib, params, shuffled,
+                                                                    cfg, True))
             outputs = {}
             for label, p in packages.items():
                 bwd = lib_of(label, "bwd", name)
@@ -270,8 +419,8 @@ def main() -> int:
                         largest_difference_of_largest_entry=float(
                             (got - ref).abs().max() / ref.abs().max()))
             times = {k: [] for k in runs}
-            order = [*runs, *reversed(runs)]
-            for k in order + order:
+            order_of_runs = [*runs, *reversed(runs)]
+            for k in order_of_runs + order_of_runs:
                 times[k].append(events(runs[k]))
             for k, v in times.items():
                 say("time", scene=name, variant=k, ms=float(np.mean(v)), rounds=v)
