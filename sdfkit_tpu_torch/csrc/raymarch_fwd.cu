@@ -25,13 +25,20 @@
 //     (raymarch_uniforms.cuh): read through a pointer, four of them were
 //     loaded again in every pass of the loop; as operands they cost nothing:
 //     88 instructions, 32 registers where there were 40, 0.268 ms.
-// The square roots stay IEEE. The march loop alone now executes 0.79 of what the
-// card can, and the final step and the six taps run outside it: what is left
-// is the square roots and the scene's own operations. The TPU's 256x128 tile, lane
-// padding and SMEM/VMEM parameter split do not carry over: a thread past
-// local_npix returns before it marches. The depth history adds 4 bytes
-// written per step and pixel (160 per pixel at 40 steps, 13 times the RGB),
-// step-major so that a warp's 32 writes of one step are one 128-byte line.
+// The square roots stay IEEE. The march loop alone then executed 0.79 of what
+// the card can, and the final step and the six taps run outside it: what was
+// left is the square roots, the scene's own operations and work that changes
+// no bit, which the shared header (raymarch_fwd.cuh) now skips: a warp leaves
+// the march once a group of steps has left all its depths bit for bit where
+// they were (21% of SphereRepeat's warp-steps), and a sky lane is not shaded:
+// 0.2705 -> 0.2367 ms, a mostly-sky frame 0.0787 -> 0.0762. The TPU's 256x128
+// tile, lane padding and SMEM/VMEM parameter split do not carry over: a
+// thread past local_npix returns before it marches. The depth history adds 4
+// bytes written per step and pixel (160 per pixel at 40 steps, 13 times the
+// RGB), step-major so that a warp's 32 writes of one step are one 128-byte
+// line; walking a pointer down the rows took the build from 35 registers and
+// 12 blocks an SM to 32 and 16, and a settled warp writes its remaining rows
+// with stores alone: 0.3017 -> 0.2572 ms.
 //
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval and then includes this file.
@@ -49,19 +56,9 @@ constexpr bool kWantStore = SDF_STORE != 0;
 // blocks an SM on its own (32 registers); the kernel is not short of warps,
 // and a budget set for 12 or 16 blocks measured the same.
 constexpr int kThreads = 128;
-// Measured variant: SDF_MIN_BLOCKS > 0 asks the compiler for that many
-// resident blocks an SM (a register budget).
-#ifndef SDF_MIN_BLOCKS
-#define SDF_MIN_BLOCKS 0
-#endif
-#if SDF_MIN_BLOCKS > 0
-#define SDF_FWD_BOUNDS __launch_bounds__(kThreads, SDF_MIN_BLOCKS)
-#else
-#define SDF_FWD_BOUNDS __launch_bounds__(kThreads)
-#endif
 
 template <bool WANT_COLOR>
-__global__ void SDF_FWD_BOUNDS
+__global__ void __launch_bounds__(kThreads)
     raymarch_fwd_kernel(RenderArgs a, float* __restrict__ out, float* __restrict__ store) {
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   if (local >= a.local_npix) return;

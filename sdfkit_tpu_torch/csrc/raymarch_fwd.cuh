@@ -23,18 +23,20 @@
 
 #include <string.h>
 
-// Measured variants (one library each, built by tools/torch_kernel_probe.py
-// --variants): SDF_SETTLE_EVERY, how many march steps a group holds, with the
-// test for a warp at its fixed point after each group (0: no test);
-// SDF_SKY_SKIP, whether a sky lane skips the shading.
-#ifndef SDF_SETTLE_EVERY
-#define SDF_SETTLE_EVERY 4
-#endif
-#ifndef SDF_SKY_SKIP
-#define SDF_SKY_SKIP 1
-#endif
-constexpr int kSettleEvery = SDF_SETTLE_EVERY;
-constexpr bool kSkySkip = SDF_SKY_SKIP != 0;
+// March steps in a group; the test for a warp at its bitwise fixed point
+// comes after each group (march_depth). Measured on an H100 with SphereRepeat
+// at 1920x1080x40, on a frame that is mostly sky (one sphere) and on the
+// SphereRepeat rays shuffled (where no warp settles), device ms of the image
+// forward / the ray-batch forward: every step and every lane 0.2705 / 0.2635,
+// 0.0787 / 0.0711, shuffled 0.2640; groups of 1 0.2527 / 0.2413, 0.0991 / 0.0845,
+// 0.2833; of 2 0.2434 / 0.2320, 0.0834 / 0.0729, 0.2707; of 4 0.2367 /
+// 0.2279, 0.0762 / 0.0675, 0.2635; of 8 0.2380 / 0.2358, 0.0731 / 0.0644,
+// 0.2671. A test after every step of one rolled loop was 0.2303 / 0.2237 but
+// 0.0868 / 0.0764 (the compare, vote and branch are much of one sphere's
+// step, and nothing settles there) at 38 / 40 registers. Groups of 4: the
+// fastest on SphereRepeat that lose on no frame and stay within 1% shuffled,
+// at 32 registers and 16 blocks an SM as without the test.
+constexpr int kSettleEvery = 4;
 
 struct RenderArgs {
   int width;
@@ -146,24 +148,22 @@ __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float*
   int i = 0;
   bool done = false;
 #ifdef __CUDA_ARCH__
-  if (kSettleEvery > 0) {
-    const unsigned lanes = __activemask();
-    while (i + kSettleEvery <= steps) {
-      float before = depth;
+  const unsigned lanes = __activemask();
+  while (i + kSettleEvery <= steps) {
+    float before = depth;
 #pragma unroll
-      for (int k = 0; k < (kSettleEvery > 0 ? kSettleEvery : 1); ++k) {
-        if (WANT_STORE) {
-          *store = depth;
-          store += stride;
-        }
-        before = depth;
-        depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+    for (int k = 0; k < kSettleEvery; ++k) {
+      if (WANT_STORE) {
+        *store = depth;
+        store += stride;
       }
-      i += kSettleEvery;
-      if (__all_sync(lanes, settled(depth, before))) {
-        done = true;
-        break;
-      }
+      before = depth;
+      depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
+    }
+    i += kSettleEvery;
+    if (__all_sync(lanes, settled(depth, before))) {
+      done = true;
+      break;
     }
   }
 #endif
@@ -175,7 +175,7 @@ __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float*
     const float next =
         depth + sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
 #ifndef __CUDA_ARCH__
-    done = kSettleEvery > 0 && settled(next, depth);
+    done = settled(next, depth);
 #endif
     depth = next;
   }
@@ -219,8 +219,11 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
   // A sky lane writes the sky's constant and shades nothing: the taps, the
   // normalisations and Lambert only make a colour that the sky replaces. A
   // warp that is all sky skips them all; a mixed warp runs them for its hit
-  // lanes as before.
-  if (kSkySkip && bg) {
+  // lanes as before. Measured with the groups of 4 (device ms, image /
+  // ray-batch forward): SphereRepeat 0.2374 / 0.2304 without the skip, 0.2367
+  // / 0.2279 with it; the mostly-sky frame 0.0845 / 0.0748 and 0.0762 /
+  // 0.0675; the forward with store within 0.0004 ms either way.
+  if (bg) {
     o[0] = 0.5f;
     o[1] = 0.75f;
     o[2] = 1.0f;

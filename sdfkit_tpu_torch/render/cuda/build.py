@@ -143,12 +143,11 @@ FAMILIES = {
 }
 
 
-def translation_unit(program: Program, family: str = "fwd", defines: tuple = ()) -> str:
+def translation_unit(program: Program, family: str = "fwd") -> str:
     """The generated .cu of one family: the scene's functions (and their
-    adjoints, for a backward), then the kernel source. ``defines`` are
-    ``"NAME VALUE"`` macros put first, for builds of measured variants."""
+    adjoints, for a backward), then the kernel source."""
     fam = FAMILIES[family]
-    unit = "".join(f"#define {d}\n" for d in defines) + _HEAD + program.source + "\n"
+    unit = _HEAD + program.source + "\n"
     if fam.adjoint:
         unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS itself
     else:
@@ -239,17 +238,15 @@ def check_constant_memory(program: Program) -> None:
         )
 
 
-def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib:
-    """The library of ``family`` for ``program``, built on first use.
-    ``defines``: see :func:`translation_unit`; a variant is a library of its
-    own."""
+def load_family(program: Program, family: str) -> KernelLib:
+    """The library of ``family`` for ``program``, built on first use."""
     fam = FAMILIES[family]
     name = program.adjoint_hash if fam.adjoint else program.hash
-    lib = _LIBS.get((family, name, defines))
+    lib = _LIBS.get((family, name))
     if lib is not None:
         return lib
     check_constant_memory(program)
-    unit = translation_unit(program, family, defines)
+    unit = translation_unit(program, family)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
     so, seconds, log = _compile(f"raymarch_{family}_{name}_{digest}", unit)
@@ -274,7 +271,7 @@ def load_family(program: Program, family: str, defines: tuple = ()) -> KernelLib
                 f"the program has {program.n_params}"
             )
     registers, local = _ptxas(log)
-    lib = _LIBS[(family, name, defines)] = KernelLib(
+    lib = _LIBS[(family, name)] = KernelLib(
         launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
         rows=rows, store=fam.store, resident=resident,
     )

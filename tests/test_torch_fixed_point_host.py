@@ -24,6 +24,7 @@ told apart):
 
 import concurrent.futures
 import ctypes
+import pathlib
 import shutil
 
 import numpy as np
@@ -33,8 +34,9 @@ import torch
 import sdfkit_tpu_torch as st
 import torch_parity as tp
 from sdfkit_tpu_torch import ops, scenes
+from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
 from sdfkit_tpu_torch.render.cuda.raymarch_kernel import view19
-from sdfkit_tpu_torch.render.raymarch import RenderConfig
+from sdfkit_tpu_torch.render.raymarch import RenderConfig, settled_steps, warp_march_steps
 from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params
 from sdfkit_tpu_torch.utils.camera import camera_rays
 from torch_host import host_library
@@ -248,17 +250,6 @@ def assert_forwards_exact(lib, expr, cfg):
     return rgb, depth, history
 
 
-def settled_steps(history: torch.Tensor) -> torch.Tensor:
-    """Per ray, the first step that left its depth bit for bit unchanged
-    (row s + 1 equal to row s), or iters - 1 where none did."""
-    b = torch.from_numpy(_bits(history))
-    same = b[1:] == b[:-1]
-    steps = torch.full((b.shape[1],), history.shape[0] - 1)
-    any_same = same.any(0)
-    steps[any_same] = same.int().argmax(0)[any_same]
-    return steps
-
-
 @pytest.mark.parametrize("iters", ITERS)
 @pytest.mark.parametrize("name", tp.NAMES)
 def test_the_exit_is_exact_on_the_parity_scenes(built, name, iters):
@@ -337,3 +328,23 @@ def test_a_ray_whose_distance_is_nan(built, name):
             assert torch.equal(hit, ref_hit)
     depth, _ = rays_forward(lib, expr, rays, cfg, False, False, full=True)
     assert bool(torch.isnan(depth[::5]).all()) == (name == "sphere")
+
+
+def test_settled_steps_and_the_warps_march_steps():
+    """``settled_steps`` finds the first step that left a depth's bits where
+    they were (a NaN never settles, -0.0 to +0.0 is a move);
+    ``warp_march_steps`` gives a warp its slowest ray's steps, rounded up to
+    a group and at most iterations - 1; the group size is the kernels'."""
+    nan, inf = float("nan"), float("inf")
+    history = torch.tensor([[0.9, 0.9, 0.9, -0.0, 0.9],
+                            [1.0, 2.0, nan, 0.0, inf],
+                            [1.0, 3.0, nan, 0.0, inf],
+                            [1.0, 3.0, nan, 0.0, inf],
+                            [1.0, 3.0, nan, 0.0, inf]])
+    steps = settled_steps(history)
+    assert steps.tolist() == [1, 2, 4, 1, 1]
+    assert warp_march_steps(steps, 5, 1, warp=2).tolist() == [3, 4, 2]
+    assert warp_march_steps(steps, 5, 2, warp=2).tolist() == [4, 4, 2]
+    assert warp_march_steps(steps, 5, 4, warp=5).tolist() == [4]
+    header = (pathlib.Path(st.__file__).parent / "csrc" / "raymarch_fwd.cuh").read_text()
+    assert f"constexpr int kSettleEvery = {rk.SETTLE_EVERY};" in header

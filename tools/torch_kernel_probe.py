@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--against DIR ...] [--variants] [--tag NAME]
+    python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and for one sphere,
@@ -19,10 +19,9 @@ and prints, one JSON object per line with ``"probe"`` naming it:
   checkout's, fed the same depth history and cotangent (bit for bit), and
   the image and ray-batch backwards likewise (the largest difference over the
   largest entry);
-* ``forward``: per scene and per forward build (this checkout's, every
-  ``--against`` package's, every ``--variants`` build's) whether its outputs
-  are bit for bit the first ``--against`` package's (this checkout's without
-  one): RGB and depth of the image forward, RGB and depth history of the
+* ``forward``: per scene and per package (this checkout's and every
+  ``--against`` package's) whether its forwards' outputs are bit for bit the
+  first ``--against`` package's (this checkout's without one): RGB and depth of the image forward, RGB and depth history of the
   forward with store, RGB, hit flags and depth of the ray-batch forward, the
   frame's rays in a seeded shuffled order against the same rays in order,
   two bands of an odd pixel count (store rows against the frame's columns),
@@ -39,16 +38,14 @@ and prints, one JSON object per line with ``"probe"`` naming it:
   image backward, the store-fed backward and the ray-batch backward on the
   frame's camera rays (with the forward's hit flags where the package has
   them, and without), and the forwards (image, with store, ray-batch with
-  and without hit flags, ray-batch on the shuffled rays) of every build.
+  and without hit flags, ray-batch on the shuffled rays) of every package.
 
 ``--against DIR`` (repeatable) names a directory that holds another
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
 ``git archive <commit> sdfkit_tpu_torch | tar -x -C DIR``); each is imported
 in this same process under its own module objects, builds into its own
-``_build/`` and is timed in the same turns. ``--variants`` adds builds of this
-checkout's three forwards with the measured variants' macros
-(``VARIANTS``). Every line carries ``--tag`` and the card's name and power
-limit.
+``_build/`` and is timed in the same turns. Every line carries ``--tag`` and
+the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -72,15 +69,6 @@ WARMUP, TIMED = 3, 10
 # A sleep on the stream ahead of the timed calls: about 20 ms at 1980 MHz.
 SLEEP_CYCLES = 40_000_000
 FWD_FAMILIES = ("fwd", "fwd_store", "rays_fwd")
-# The forwards' measured variants: compile-time macros of csrc/.
-VARIANTS = {
-    "every 1": ("SDF_SETTLE_EVERY 1",),
-    "every 2": ("SDF_SETTLE_EVERY 2",),
-    "every 8": ("SDF_SETTLE_EVERY 8",),
-    "no exit": ("SDF_SETTLE_EVERY 0",),
-    "no sky skip": ("SDF_SKY_SKIP 0",),
-    "16 blocks": ("SDF_MIN_BLOCKS 16",),
-}
 ODD = 1_000_001  # the first band's pixels: no row of its store starts 16-byte aligned
 
 
@@ -118,8 +106,6 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--against", action="append", default=[],
                     help="another package root to probe beside this checkout")
-    ap.add_argument("--variants", action="store_true",
-                    help="also build and time the forwards' measured variants")
     ap.add_argument("--tag", default="")
     args = ap.parse_args()
 
@@ -182,24 +168,13 @@ def main() -> int:
     programs = {label: {name: p.compile.compile_scene(expr) for name, expr in scenes[label].items()}
                 for label, p in packages.items()}
 
-    # Forward builds: every package's, and this checkout's variants.
-    units = {label: (label, ()) for label in packages}
-    if args.variants:
-        units.update({f"this {v}": ("this", defines) for v, defines in VARIANTS.items()})
     # Every library this run needs, built in parallel (one nvcc each).
     jobs = [(label, family, name) for label, p in packages.items()
             for family in p.build.FAMILIES for name in programs[label]]
-    jobs += [(label, family, name) for label, (_, defines) in units.items() if defines
-             for family in FWD_FAMILIES for name in programs["this"]]
 
     def load(job):
         label, family, name = job
-        pkg_label, defines = units[label]
-        build = packages[pkg_label].build
-        program = programs[pkg_label][name]
-        if defines:
-            return build.load_family(program, family, defines)
-        return build.load_family(program, family)
+        return packages[label].build.load_family(programs[label][name], family)
 
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip(jobs, pool.map(load, jobs)))
@@ -262,10 +237,10 @@ def main() -> int:
         return a.shape == b.shape and bool(torch.equal(bits(a), bits(b)))
 
     def forward_outputs(label, name, params, v19, c, rays, order):
-        """Every forward output of build ``label`` on scene ``name`` at ``c``:
+        """Every forward output of package ``label`` on scene ``name`` at ``c``:
         image RGB and depth, RGB and history with store, ray RGB, hit flags
         and depth, and the RGB of the rays in ``order`` (None: not asked)."""
-        rk = packages[units[label][0]].rk
+        rk = packages[label].rk
         fwd, store_lib, rays_lib = (lib_of(label, f, name) for f in FWD_FAMILIES)
         out = {"rgb": rk.launch(fwd, params, v19, c, True),
                "depth": rk.launch(fwd, params, v19, c, False)}
@@ -281,7 +256,7 @@ def main() -> int:
 
     def band_outputs(label, name, params, v19, c):
         """The forward with store over two bands of an odd pixel count."""
-        rk = packages[units[label][0]].rk
+        rk = packages[label].rk
         store_lib = lib_of(label, "fwd_store", name)
         return [rk.launch(store_lib, params, v19, c, True, b0, bn, want_store=True)
                 for b0, bn in ((0, ODD), (ODD, WIDTH * HEIGHT - ODD))]
@@ -355,7 +330,7 @@ def main() -> int:
                 o = order if with_order else None
                 ref = forward_outputs(ref_label, name, params, v19, c, rays, o)
                 ref_bands = band_outputs(ref_label, name, params, v19, c)
-                for label in units:
+                for label in packages:
                     got = forward_outputs(label, name, params, v19, c, rays, o)
                     verdict = compare(got, ref, o)
                     del got
@@ -370,14 +345,14 @@ def main() -> int:
                             b_store, ref["store"][:, b0:b0 + bn])
                         b0 += bn
                     del bands
-                    say("forward", scene=name, iterations=c.depth_iterations, build=label,
+                    say("forward", scene=name, iterations=c.depth_iterations, package=label,
                         against=ref_label, bit_identical=all(verdict.values()), outputs=verdict)
                 del ref, ref_bands
                 torch.cuda.empty_cache()
 
             runs = {}
-            for label in units:
-                rk_u = packages[units[label][0]].rk
+            for label in packages:
+                rk_u = packages[label].rk
                 f_lib, s_lib, r_lib = (lib_of(label, f, name) for f in FWD_FAMILIES)
                 runs[f"{label} image forward"] = (
                     lambda rk_u=rk_u, f_lib=f_lib: rk_u.launch(f_lib, params, v19, cfg, True))
