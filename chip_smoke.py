@@ -8,8 +8,10 @@ every path of the port at full size, SphereRepeat at 1920x1080 with 40
 iterations:
 
 1-5  the forward: the kernel against the plain PyTorch path and the
-     committed goldens, a parameter edit that rebuilds nothing, a frame
-     through ``RayMarcher(backend="auto")``, and its time;
+     committed goldens, a scene too large for the constant bank (its
+     parameters in device memory) through every entry point that renders, a
+     parameter edit that rebuilds nothing, a frame through
+     ``RayMarcher(backend="auto")``, and its time;
 6    the backward kernel against autograd of the plain path on the card,
      every leaf and the view, RGB and depth, on small scenes;
 7    two backward launches at full size: bit-identical, finite gradients;
@@ -18,7 +20,9 @@ iterations:
      tape fits;
 9    times with CUDA events, and a profile of the fit steps;
 10   the ray-batch forward kernel on the frame's camera rays and on rays that
-     are no camera's, against the plain path and the image kernel;
+     are no camera's, against the plain path and the image kernel; the
+     frame's rays shuffled, and the kernel's own depth history (its depth
+     renders of 1 to 39 iterations) with each ray's settled step;
 11   the ray-batch pullback (a tangent march) against autograd of the plain
      path (every leaf, ``ro``, ``rd``) on small frames and, fed one
      cotangent, at full size; two launches and launches in pieces
@@ -236,6 +240,53 @@ def main() -> int:
     check(ok, f"SphereRepeat 192x108 kernel vs golden PNG {stats}")
     ok, stats = distributional(k, p)
     check(ok, f"SphereRepeat 192x108 kernel vs plain {stats}")
+
+    # -- 2b. a scene too large for the constant bank: a palette of 5,500 rows
+    #        makes 16,506 parameter slots, whose libraries keep the uniforms
+    #        in device memory (csrc/raymarch_uniforms.cuh). 'auto' takes the
+    #        kernels through every entry point that renders, and each frame
+    #        agrees with the plain path. The cells in view take rows from both
+    #        ends of the palette (index 37 x + y mod 5,500).
+    from sdfkit_tpu_torch.parallel import render_tiles_resumable
+    from sdfkit_tpu_torch.render.raymarch import render_rays
+    from sdfkit_tpu_torch.utils.camera import camera_rays
+
+    table = np.random.default_rng(5).uniform(0.2, 1.0, (5500, 3)).astype(np.float32)
+    big = st.sphere(0.4).repeat_indexed("xy", (1.125, 1.125), table,
+                                        index_fn=lambda x, y, z: x * 37.0 + y)
+    big_prog = compile_scene(big)
+    bw, bh = 40, 24
+    big_cfg = st.RenderConfig(bw, bh)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = rk.RAYS_LAUNCHES = 0
+    with torch.no_grad(), tempfile.TemporaryDirectory() as tiles_dir:
+        big_marcher = st.RayMarcher(bw, bh, big, view=view())
+        big_rgb = big_marcher.render()
+        big_depth = big_marcher.render_depth()
+        big_render = st.render(big, bw, bh, camera_position=(0.0, 0.0, 5.0))
+        big_tiles, _ = render_tiles_resumable(big, bw, bh, tiles_dir, view=view(), tile_rows=8)
+        ro, rd = camera_rays(bw, bh, view(), big_cfg.vfov_degrees, big_cfg.near, big_cfg.far)
+        big_rays = rk.render_rays_kernel(big, ro, rd, big_cfg)
+        torch.cuda.synchronize()
+        big_launches = (rk.LAUNCHES, rk.RAYS_LAUNCHES)
+        big_plain = st.RayMarcher(bw, bh, big, view=view(), backend="torch")
+        plain_rgb, plain_depth = big_plain.render(), big_plain.render_depth()
+        plain_rays = render_rays(big, ro, rd, big_cfg)
+    torch.cuda.synchronize()
+    check(big_prog.n_params + 19 > 64 * 1024 // 4 and big_marcher.backend == "kernel"
+          and big_launches[0] >= 3 and big_launches[1] == 1,
+          f"a scene of {big_prog.n_params} parameter slots (past the constant bank) renders "
+          f"through the kernels under backend='auto' (LAUNCHES, RAYS_LAUNCHES = {big_launches})")
+    ok, stats = depth_close(big_depth.cpu().numpy(), plain_depth.cpu().numpy())
+    check(ok, f"the {big_prog.n_params}-slot scene, depth {bw}x{bh}: kernel vs plain {stats}")
+    for what, got, ref in (("RayMarcher", big_rgb, plain_rgb), ("render", big_render, plain_rgb),
+                           ("render_tiles_resumable", torch.from_numpy(big_tiles), plain_rgb),
+                           ("render_rays_kernel", big_rays, plain_rays)):
+        ok, stats = rgb_close(got.cpu().numpy(), ref.cpu().numpy())
+        check(ok, f"the {big_prog.n_params}-slot scene, rgb {bw}x{bh} through {what}: kernel vs "
+                  f"plain {stats}")
+    del big, big_marcher, big_plain, big_rgb, big_depth, big_render, big_tiles, big_rays
+    del plain_rgb, plain_depth, plain_rays, ro, rd
 
     # -- 3. a parameter edit rebuilds nothing (checked at full size, where
     #       the distributional contract counts enough pixels) ---------------
@@ -656,11 +707,10 @@ def main() -> int:
         print("profile: the profiler showed no device time; idle share not measured")
     # -- 10. the ray-batch forward kernel ------------------------------------
     from sdfkit_tpu_torch.grid import voxelize
-    from sdfkit_tpu_torch.parallel import render_tiles_resumable
     from sdfkit_tpu_torch.render.raymarch import (march_history, render_depth_rays,
-                                                  render_rays, settled_steps, warp_march_steps)
+                                                  settled_steps, warp_march_steps)
     from sdfkit_tpu_torch.sdf.compile import flat_params
-    from sdfkit_tpu_torch.utils.camera import camera_rays, inv_view_proj
+    from sdfkit_tpu_torch.utils.camera import inv_view_proj
 
     def v3(a, requires_grad=False):
         """An (..., 3) numpy array as a V3 of tensors on the card."""
@@ -804,7 +854,44 @@ def main() -> int:
         lone_rays_lib = build.load_rays(lone_prog)
         sky_rays_ms = device_events(lambda: rk.launch_rays(lone_rays_lib, lone_params, rays6, cfg,
                                                            True))
-        del shuffled6
+        # The ray-batch forward's own depth history: its depth render of i
+        # iterations ends after i march steps, so the renders of 1 .. n - 1
+        # iterations are the rows after the march's start. Each ray's
+        # settled step is the first row that repeats, in the frame's order
+        # and in the shuffled one (phase 12 takes the image forward's from
+        # its store); every later row must equal it.
+        def ray_history(rays):
+            rows = [torch.full_like(rays[0], cfg.near - 0.1)]
+            for i in range(1, cfg.depth_iterations):
+                rows.append(rk.launch_rays(rays_lib, params, rays,
+                                           st.RenderConfig(WIDTH, HEIGHT, depth_iterations=i),
+                                           False))
+            return torch.stack(rows)
+
+        def rows_after_settled(history, steps):
+            """Whether every row after a ray's settled step equals it, bit for bit."""
+            bits = history.view(torch.int32)
+            last = history.shape[0] - 1
+            later = torch.arange(last + 1, device=history.device)[:, None] > steps[None, :]
+            settled_row = bits.gather(0, torch.clamp(steps + 1, max=last)[None, :])
+            return bool(((bits == settled_row) | ~later).all())
+
+        rays_history = ray_history(rays6)
+        rays_steps = settled_steps(rays_history)
+        rays_rows_ok = rows_after_settled(rays_history, rays_steps)
+        del rays_history
+        shuffled_history = ray_history(shuffled6)
+        rays_shuffled_steps = settled_steps(shuffled_history)
+        rays_shuffled_rows_ok = rows_after_settled(shuffled_history, rays_shuffled_steps)
+        del shuffled_history, shuffled6
+    rays_settled = rays_steps < cfg.depth_iterations - 1
+    check(rays_rows_ok and rays_shuffled_rows_ok and int(rays_settled.sum()) > 0
+          and torch.equal(rays_shuffled_steps, rays_steps[order]),
+          f"the ray-batch forward's own depth history (its depth renders of 1 to "
+          f"{cfg.depth_iterations - 1} iterations): {int(rays_settled.sum())} of {WIDTH * HEIGHT} "
+          f"rays settle before the last march step (mean settled step "
+          f"{float(rays_steps[rays_settled].float().mean()):.2f}), every later row equals the "
+          f"settled one, and the shuffled batch's settled steps are the same rays' in order")
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
     print(f"timing ray-batch forward launch alone: {rays_ms:.4f} ms (rounds {turn['rays']}), "
           f"the same rays shuffled {rays_shuffled_ms:.4f} ms (rounds {turn['rays_shuffled']}), "
@@ -1232,17 +1319,9 @@ def main() -> int:
         # pixels leaves the march when all of them have settled.
         n_it = cfg.depth_iterations
         steps = settled_steps(store)
-        bits = store.view(torch.int32)
-        later = torch.arange(n_it, device=store.device)[:, None] > steps[None, :]
-        rows_after_ok = bool(((bits == bits.gather(0, torch.clamp(steps + 1, max=n_it - 1)[None, :]))
-                              | ~later).all())
-        del bits, later
+        rows_after_ok = rows_after_settled(store, steps)
         settled = steps < n_it - 1
         ray_need = torch.clamp(steps + 1, max=n_it - 1)
-        warp_steps = warp_march_steps(steps, n_it, rk.SETTLE_EVERY)
-        warp_saved = float(1 - warp_steps.sum() / (warp_steps.numel() * (n_it - 1)))
-        shuffled_steps = warp_march_steps(steps[order], n_it, rk.SETTLE_EVERY)
-        shuffled_saved = float(1 - shuffled_steps.sum() / (shuffled_steps.numel() * (n_it - 1)))
         ray_saved = float(1 - ray_need.sum() / (ray_need.numel() * (n_it - 1)))
         check(rows_after_ok and int(settled.sum()) > 0,
               f"{int(settled.sum())} of {WIDTH * HEIGHT} rays reach their bitwise fixed point "
@@ -1250,9 +1329,8 @@ def main() -> int:
               f"{float(steps[settled].float().mean()):.2f} of {n_it - 1}); every row of the store "
               f"after a ray's settled step equals it, bit for bit")
         print(f"work: march steps saved by leaving at the fixed point, SphereRepeat "
-              f"{WIDTH}x{HEIGHT}x{n_it} (from the store): {ray_saved:.4f} of the ray-steps ray by "
-              f"ray, {warp_saved:.4f} of the warp-steps with a test every {rk.SETTLE_EVERY} "
-              f"step(s) in the frame's order, {shuffled_saved:.4f} with the rays shuffled")
+              f"{WIDTH}x{HEIGHT}x{n_it}, ray by ray: {ray_saved:.4f} of the ray-steps (the image "
+              f"forward's store)")
         largest = float(replay.abs().max())
         store_vs_replay = float((fed - replay).abs().max())
         same = torch.equal(fed, replay)
@@ -1330,10 +1408,7 @@ def main() -> int:
             sky_handoff[which].append(events(sky_runs[which]))
         sky_store_ms = device_events(lambda: rk.launch(lone_store_lib, lone_params, v19, cfg,
                                                        True, want_store=True))
-        lone_steps = warp_march_steps(settled_steps(lone_store), n_it, rk.SETTLE_EVERY)
-        sky_warp_saved = float(1 - lone_steps.sum() / (lone_steps.numel() * (n_it - 1)))
-        print(f"work: march steps saved by leaving at the fixed point on the mostly-sky frame: "
-              f"{sky_warp_saved:.4f} of the warp-steps")
+        lone_steps = settled_steps(lone_store)
         del lone_frame, lone_store, lone_cot, lone_fed, lone_replay
     sky_store_bwd_ms = float(np.mean(sky_handoff["bwd_store"]))
     smi = sh(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"])
@@ -1598,22 +1673,48 @@ def main() -> int:
     check(rays_bwd_loops is None or len(rays_bwd_loops) == 3,
           f"the ray-batch backward's loops that evaluate the scene are the tangent march and the "
           f"taps' two: {rays_bwd_loops}")
-    # The three forwards march in groups of rk.SETTLE_EVERY steps, unrolled in
-    # one loop that ends in the test for a warp at its fixed point (a compare
-    # and a vote), then the steps that fill no group; the build with store
-    # also has the loops that write a settled warp's remaining rows.
+    # The three forwards march in groups of steps, unrolled in one loop that
+    # ends in the test for a warp at its fixed point (a compare and a vote),
+    # then the steps that fill no group; the build with store also has the
+    # loops that write a settled warp's remaining rows. The group's size is
+    # read here, from the square roots of its loop: a whole number of steps,
+    # the same in the three.
     marches = {name: compiled[name].get("loops") for name in
                ("raymarch_fwd", "raymarch_rays_fwd", "raymarch_fwd_store")}
-    print(f"compiled: the forwards' march loops (groups of {rk.SETTLE_EVERY} steps with the "
+    groups_seen = {name: loops[0]["rsq"] / roots for name, loops in marches.items() if loops}
+    every = int(groups_seen["raymarch_fwd"]) if "raymarch_fwd" in groups_seen else None
+    print(f"compiled: the forwards' march loops (groups of {every} steps with the "
           f"fixed-point test, then the steps left over): {marches}; the build with store's "
           f"other loops {compiled['raymarch_fwd_store'].get('other_loops')} "
           f"({compiled['raymarch_fwd_store'].get('other_loop_instructions')} instructions, "
           f"{compiled['raymarch_fwd_store'].get('other_loop_stores')} stores a pass)")
-    check(all(loops is None or (loops[0]["votes"] >= 1
-                                and loops[0]["rsq"] == rk.SETTLE_EVERY * roots)
-              for loops in marches.values()),
-          f"each forward marches in a loop of {rk.SETTLE_EVERY} steps that holds the vote of its "
-          f"fixed-point test")
+    check(all(loops is None or loops[0]["votes"] >= 1 for loops in marches.values())
+          and all(g == every and every >= 1 for g in groups_seen.values()),
+          f"each forward marches in a loop of a whole number of steps ({groups_seen}) that holds "
+          f"the vote of its fixed-point test")
+    # The warps' march steps: a warp of 32 rays runs groups until one ends at
+    # or past its slowest ray's settled step (warp_march_steps), each forward
+    # on its own history: the image forward and the build with store on the
+    # store's, the ray-batch forward on its depth renders (phase 10), in the
+    # frame's order and shuffled, and the mostly-sky frame on its store.
+    warp_steps = rays_warp_steps = None
+    warp_saved = rays_warp_saved = shuffled_saved = sky_warp_saved = None
+    n_it = cfg.depth_iterations
+
+    def saved(w):
+        return float(1 - w.sum() / (w.numel() * (n_it - 1)))
+
+    if every is not None:
+        warp_steps = warp_march_steps(steps, n_it, every)
+        rays_warp_steps = warp_march_steps(rays_steps, n_it, every)
+        warp_saved, rays_warp_saved = saved(warp_steps), saved(rays_warp_steps)
+        shuffled_saved = saved(warp_march_steps(rays_shuffled_steps, n_it, every))
+        sky_warp_saved = saved(warp_march_steps(lone_steps, n_it, every))
+    print(f"work: march steps saved by leaving at the fixed point in groups of {every}, "
+          f"SphereRepeat {WIDTH}x{HEIGHT}x{n_it}: {warp_saved} of the image forward's warp-steps "
+          f"(its store), {rays_warp_saved} of the ray-batch forward's (its own depth renders), "
+          f"{shuffled_saved} of the ray-batch forward's on the shuffled rays (their own depth "
+          f"renders); {sky_warp_saved} of the image forward's on the mostly-sky frame")
 
     # -- bounds: the least time the card could take for the same work ---------
     from sdfkit_tpu_torch.sdf.compile import operation_counts
@@ -1629,14 +1730,23 @@ def main() -> int:
     # once and taps 6 times.
     fwd_fixed_ops = npix * ((n - 1 + 6) * (ops_n["dist"] + step_ops) + ops_n["eval"] + shade_ops)
     # Forward, as the work this frame needs: a ray marches until a step shows
-    # its bitwise fixed point (phase 12's store: settled step + 1, at most
-    # n-1), then evaluates colour; a ray that hits taps 6 times and is shaded,
-    # one that misses takes the sky's constant (its ray and the select, about
-    # ray_ops). The ray-batch forward takes the image's settled steps: its
-    # rays are the frame's to an ulp.
+    # its bitwise fixed point (settled step + 1, at most n-1), then evaluates
+    # colour; a ray that hits taps 6 times and is shaded, one that misses
+    # takes the sky's constant (its ray and the select, about ray_ops). The
+    # image forward's settled steps are its store's (phase 12), the
+    # ray-batch forward's its own depth renders' (phase 10), its hits its
+    # flags; it makes no rays (about ray_ops a ray fewer).
     ray_ops, ray_vjp_ops = 30, 60
-    fwd_ops = (int(ray_need.sum()) * (ops_n["dist"] + step_ops) + npix * ops_n["eval"]
-               + hits * (6 * (ops_n["dist"] + step_ops) + shade_ops) + (npix - hits) * ray_ops)
+    ray_hits = int(rays_hit.sum())
+
+    def forward_ops(march_steps, hit_count):
+        return (march_steps * (ops_n["dist"] + step_ops) + npix * ops_n["eval"]
+                + hit_count * (6 * (ops_n["dist"] + step_ops) + shade_ops)
+                + (npix - hit_count) * ray_ops)
+
+    fwd_ops = forward_ops(int(ray_need.sum()), hits)
+    rays_fwd_ops = forward_ops(int(torch.clamp(rays_steps + 1, max=n - 1).sum()),
+                               ray_hits) - npix * ray_ops
     fwd_bytes = npix * 12 + 4 * (prog.n_params + 19)
     # Backward: every pixel replays the march and the colour step; only a hit
     # pixel taps, takes the unit gradient at the six taps and at the n-1 kept
@@ -1666,7 +1776,6 @@ def main() -> int:
     # and the derivatives' multiply-adds: 2 per parameter slot and 12 for the
     # ray), the colour step, the taps and the final shade's pullback; a ray
     # the forward missed costs nothing but its flag.
-    ray_hits = int(rays_hit.sum())
     tangent_ops = ops_n["dist_unit"] + 28 + 2 * ops_n["dist_slots"]
     rays_bwd_ops = ray_hits * ((n - 1) * tangent_ops + ops_n["eval"]
                                + 6 * (ops_n["dist"] + step_ops) + 6 * unit_ops
@@ -1692,28 +1801,26 @@ def main() -> int:
                          f"once a pixel")
             return text
 
-        # The three forwards: a warp runs the march's groups of SETTLE_EVERY
-        # steps (the first loop, its vote after each group) until a group
-        # ends at or past its slowest lane's settled step, and otherwise all
-        # whole groups and the steps left over (the second loop), as
-        # warp_march_steps gives from phase 12's store, 32 lanes a pass; the
-        # build with store then writes the warp's remaining rows (n minus
-        # its steps) in loops of stores alone, counted at their fewest
-        # instructions a row.
-        warp_passes = int(warp_steps.sum())
-        every = rk.SETTLE_EVERY
-        full = (n - 1) // every
-        groups = torch.clamp(warp_steps, max=every * full) // every
-        group_passes = int(groups.sum())
-        rest_passes = int((warp_steps - every * groups).sum())
-        n_warps = warp_steps.numel()
-        forwards = (("raymarch_fwd", "the image forward", handoff_ms["fwd"]),
-                    ("raymarch_rays_fwd", "the ray-batch forward", rays_ms),
-                    ("raymarch_fwd_store", "the forward with store", handoff_ms["fwd_store"]))
-        for name, what, ms in forwards:
+        # The three forwards: a warp runs the march's groups (the first loop,
+        # its vote after each group) until a group ends at or past its
+        # slowest lane's settled step, and otherwise all whole groups and the
+        # steps left over (the second loop), as warp_march_steps gives from
+        # each forward's own history, 32 lanes a pass; the build with store
+        # then writes the warp's remaining rows (n minus its steps) in loops
+        # of stores alone, counted at their fewest instructions a row.
+        forwards = (("raymarch_fwd", "the image forward", handoff_ms["fwd"], warp_steps),
+                    ("raymarch_rays_fwd", "the ray-batch forward", rays_ms, rays_warp_steps),
+                    ("raymarch_fwd_store", "the forward with store", handoff_ms["fwd_store"],
+                     warp_steps))
+        for name, what, ms, w_steps in forwards:
             loops = compiled[name].get("loops", [])
-            if not loops or loops[0]["rsq"] != every * roots:
+            if every is None or not loops or loops[0]["rsq"] != every * roots:
                 continue
+            full = (n - 1) // every
+            groups = torch.clamp(w_steps, max=every * full) // every
+            group_passes = int(groups.sum())
+            rest_passes = int((w_steps - every * groups).sum())
+            warp_passes, n_warps = int(w_steps.sum()), w_steps.numel()
             group = loops[0]
             per = group["own"] / every
             rest_per = loops[1]["own"] * roots / loops[1]["rsq"] if len(loops) > 1 else per
@@ -1732,7 +1839,8 @@ def main() -> int:
             issue_share[name] = in_loops / (ms * 1e-3) / instruction_rate
             print(f"work: {what} executes {text}, for {ops_n['dist']} counted operations a step "
                   f"({per / ops_n['dist']:.2f} per operation); its warps run "
-                  f"{warp_passes} march steps of {n_warps * (n - 1)} ({warp_saved:.4f} saved): "
+                  f"{warp_passes} march steps of {n_warps * (n - 1)} "
+                  f"({1 - warp_passes / (n_warps * (n - 1)):.4f} saved): "
                   f"{in_loops:.4g} thread instructions in its loops (fixed work {fixed:.4g}) in "
                   f"{ms:.4f} ms; {sms} SMs start {instruction_rate:.4g} per second at "
                   f"{clock.strip()} MHz: {rate_shares(name, in_loops, ms)}")
@@ -1792,7 +1900,7 @@ def main() -> int:
     # (ray_ops, about 30 operations: two NDC coordinates, four 3-term rows,
     # three divides, a normalisation) and its pullback (about 60), and move the
     # rays: 24 bytes read per ray, and 24 written by the pullback.
-    rays_bound, rays_by = bound(fwd_ops - npix * ray_ops, fwd_bytes + npix * 24)
+    rays_bound, rays_by = bound(rays_fwd_ops, fwd_bytes + npix * 24)
     rays_fixed_bound, _ = bound(fwd_fixed_ops - npix * ray_ops, fwd_bytes + npix * 24)
     rays_bwd_bound, rays_bwd_by = bound(rays_bwd_ops, rays_bwd_bytes)
     # The same function's work as the replay and the sweep did it (the bound
@@ -1806,12 +1914,12 @@ def main() -> int:
     store_fixed_bound, _ = bound(fwd_fixed_ops, fwd_bytes + store_bytes)
     print(f"work: the forwards' bounds as the work this frame needs (fixed work beside it): "
           f"image {fwd_ops:.4g} operations, {fwd_bound:.4f} ms ({fwd_fixed_ops:.4g}, "
-          f"{fwd_fixed_bound:.4f} ms); ray-batch {fwd_ops - npix * ray_ops:.4g}, "
+          f"{fwd_fixed_bound:.4f} ms); ray-batch {rays_fwd_ops:.4g}, "
           f"{rays_bound:.4f} ms ({fwd_fixed_ops - npix * ray_ops:.4g}, {rays_fixed_bound:.4f} ms); "
           f"with store {store_bound:.4f} ms by {store_by} ({store_fixed_bound:.4f} ms)")
     store_bwd_bound, store_bwd_by = bound(
         bwd_ops - npix * (n - 1) * (ops_n["dist"] + step_ops), bwd_bytes + store_bytes)
-    print(f"work: ray-batch forward {fwd_ops - npix * ray_ops:.4g} operations / "
+    print(f"work: ray-batch forward {rays_fwd_ops:.4g} operations / "
           f"{fwd_bytes + npix * 24} bytes, ray-batch backward {rays_bwd_ops:.4g} / "
           f"{rays_bwd_bytes} (as a replay and a sweep "
           f"{bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g}, bound {replay_form_bound:.4f} ms); "
@@ -1843,7 +1951,8 @@ def main() -> int:
          "replaces": RAYS_REPLACES, "launches": rays_launches, "max_abs_err": rays_stats["max"],
          "ms": rays_ms, "plain_ms": rays_plain_ms, "bound_ms": rays_bound, "bound_by": rays_by,
          "library_ms": None, "bound_ms_fixed_work": rays_fixed_bound,
-         "issue_share": issue_share.get("raymarch_rays_fwd"), "warp_steps_saved": warp_saved,
+         "issue_share": issue_share.get("raymarch_rays_fwd"),
+         "warp_steps_saved": rays_warp_saved,
          "mostly_sky_ms": sky_rays_ms, "shuffled_ms": rays_shuffled_ms,
          "shuffled_warp_steps_saved": shuffled_saved, **compiled["raymarch_rays_fwd"]},
         {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,

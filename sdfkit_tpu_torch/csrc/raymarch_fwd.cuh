@@ -123,14 +123,34 @@ __host__ __device__ __forceinline__ bool settled(float next, float depth) {
   return float_bits(next) == float_bits(depth) && next == next;
 }
 
+// The lanes that march together, and whether all of them settled. On the
+// card these are the lanes of the warp that were active when the march began
+// (a thread past the launch's pixels has returned, and a vote must not wait
+// for it); on the host a ray is a warp of one lane.
+__host__ __device__ __forceinline__ unsigned march_lanes() {
+#ifdef __CUDA_ARCH__
+  return __activemask();
+#else
+  return 1u;
+#endif
+}
+
+__host__ __device__ __forceinline__ bool all_settled(unsigned lanes, bool mine) {
+#ifdef __CUDA_ARCH__
+  return __all_sync(lanes, mine);
+#else
+  (void)lanes;
+  return mine;
+#endif
+}
+
 // The march from depth0: n-1 distance-only steps. Misses keep accumulating
 // depth (to ~1e12 at 40 steps): no hit threshold. The march ends early only
-// where that changes no bit. On the card the steps go in groups of
-// kSettleEvery, unrolled, and after each group a warp leaves the loop when
-// the group's last step left every lane's depth where it was (a vote over the
-// lanes that were active when the march began: a thread past the launch's
-// pixels has returned); the steps that do not fill a group follow without a
-// test. On the host each ray leaves on its own, after any step.
+// where that changes no bit: the steps go in groups of kSettleEvery,
+// unrolled, and after each group the lanes leave the loop together when the
+// group's last step left every lane's depth where it was; the steps that do
+// not fill a group follow without a test. The card and the host run the same
+// loop (all_settled is the vote).
 //
 // WANT_STORE also writes the depth history the backward can take in place of
 // its replay (the TPU kernel's want_store output, _march_and_shade): row i of
@@ -145,10 +165,9 @@ __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float*
                                                       long long stride = 0) {
   float depth = a.depth0;
   const int steps = a.iters - 1;
+  const unsigned lanes = march_lanes();
   int i = 0;
   bool done = false;
-#ifdef __CUDA_ARCH__
-  const unsigned lanes = __activemask();
   while (i + kSettleEvery <= steps) {
     float before = depth;
 #pragma unroll
@@ -161,23 +180,17 @@ __host__ __device__ __forceinline__ float march_depth(const Ray& r, const float*
       depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
     }
     i += kSettleEvery;
-    if (__all_sync(lanes, settled(depth, before))) {
+    if (all_settled(lanes, settled(depth, before))) {
       done = true;
       break;
     }
   }
-#endif
   for (; !done && i < steps; ++i) {
     if (WANT_STORE) {
       *store = depth;
       store += stride;
     }
-    const float next =
-        depth + sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
-#ifndef __CUDA_ARCH__
-    done = settled(next, depth);
-#endif
-    depth = next;
+    depth += sdf_dist(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P);
   }
   // Rows i..n-1: after a settled step every later depth is this one; after
   // the last step, row n-1 alone.
@@ -229,12 +242,9 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
     o[2] = 1.0f;
     return;
   }
-  // Misses shade at a benign depth (the JAX package's backward needs this;
-  // the forward keeps the same surface point so both agree).
-  const float sd = bg ? a.near_ : depth;
-  const float sx = r.ox + r.dx * sd;
-  const float sy = r.oy + r.dy * sd;
-  const float sz = r.oz + r.dz * sd;
+  const float sx = r.ox + r.dx * depth;
+  const float sy = r.oy + r.dy * depth;
+  const float sz = r.oz + r.dz * depth;
   const float e = 1e-5f;
   float nx = sdf_dist(sx + e, sy, sz, P) - sdf_dist(sx + -e, sy, sz, P);
   float ny = sdf_dist(sx, sy + e, sz, P) - sdf_dist(sx, sy + -e, sz, P);
@@ -245,15 +255,9 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
   float lz = 10.0f - sz;
   safe_normalize(lx, ly, lz);
   const float lambert = fmaxf(nx * lx + ny * ly + nz * lz, 0.0f);
-  if (bg) {
-    o[0] = 0.5f;
-    o[1] = 0.75f;
-    o[2] = 1.0f;
-  } else {
-    o[0] = cr * lambert + 0.1f;
-    o[1] = cg * lambert + 0.1f;
-    o[2] = cb * lambert + 0.1f;
-  }
+  o[0] = cr * lambert + 0.1f;
+  o[1] = cg * lambert + 0.1f;
+  o[2] = cb * lambert + 0.1f;
 }
 
 // Pixel `idx` of the image: its ray from the index, then shade_ray. `out`

@@ -1,5 +1,5 @@
-// The uniforms of a launch, in constant memory: the flat scene parameters and,
-// for the image kernels, the 19 view scalars behind them.
+// The uniforms of a launch: the flat scene parameters and, for the image
+// kernels, the 19 view scalars behind them.
 //
 // Every thread of every kernel here reads the same few dozen scalars. Read
 // through a pointer into device memory they are loaded into registers and
@@ -10,28 +10,39 @@
 // march loop 93 -> 88 instructions and no load, 40 -> 32 registers), the image
 // backward 1.4476 -> 1.3841 ms, the copies included.
 //
-// Constant memory is one buffer per library, that is per scene structure and
-// kernel family, of at most 64 KB (render/cuda/build.py refuses a scene with
-// more parameters than fit). Each launch copies its parameters and view into
-// it on its stream (device to device, no synchronisation, no host copy: the
-// parameters live on the card) ahead of its kernel, so launches on one
-// stream, PyTorch's default, are ordered. Two streams that launch through one
-// library would overwrite each other's uniforms between copy and kernel, so
-// the wrappers (render/cuda/raymarch_kernel.py) make a launch on another
-// stream than the library's last wait for that one with an event; a caller of
-// the C entry points must do the same.
+// The constant bank holds 64 KB, 16,384 floats. A scene whose parameters and
+// view do not fit there (more than 16,365 slots, such as a palette of
+// thousands of rows) keeps the same array in device memory instead, where
+// the kernels load what they read: the same code, without the bank's limit.
+// The build needs to know nothing of it, and no scene is refused.
+//
+// The array is one buffer per library, that is per scene structure and kernel
+// family. Each launch copies its parameters and view into it on its stream
+// (device to device, no synchronisation, no host copy: the parameters live on
+// the card) ahead of its kernel, so launches on one stream, PyTorch's
+// default, are ordered. Two streams that launch through one library would
+// overwrite each other's uniforms between copy and kernel, so the wrappers
+// (render/cuda/raymarch_kernel.py) make a launch on another stream than the
+// library's last wait for that one with an event; a caller of the C entry
+// points must do the same.
 //
 // The including translation unit defines SDF_N_PARAMS first.
 #pragma once
 
 #include <cuda_runtime.h>
 
-constexpr int kViewScalars = 19;
+#define SDF_VIEW_SCALARS 19
+#define SDF_CONSTANT_FLOATS (64 * 1024 / 4)
+constexpr int kViewScalars = SDF_VIEW_SCALARS;
 // The scene parameters, then the view scalars.
+#if SDF_N_PARAMS + SDF_VIEW_SCALARS <= SDF_CONSTANT_FLOATS
 __constant__ float c_uniform[SDF_N_PARAMS + kViewScalars];
+#else
+__device__ float c_uniform[SDF_N_PARAMS + kViewScalars];
+#endif
 
-// Copies the launch's uniforms into constant memory on `stream`, ahead of its
-// kernel; `view19` is null for a kernel that takes its rays as arrays.
+// Copies the launch's uniforms into the library's array on `stream`, ahead of
+// its kernel; `view19` is null for a kernel that takes its rays as arrays.
 static cudaError_t copy_uniforms(const float* params, const float* view19, cudaStream_t stream) {
   cudaError_t err = cudaSuccess;
   if (SDF_N_PARAMS > 0) {

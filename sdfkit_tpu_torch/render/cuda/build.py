@@ -21,6 +21,10 @@ interface under ``sdfkit_tpu_torch/_build/``.
   keyed ``rgb`` / ``depth`` / ``reduce`` (``rgb_hit``) whatever the family
   (``kernel_key``). Each library also says how many of its blocks an SM
   holds at once (``resident``).
+* A library reads its parameters and view from constant memory, or from
+  device memory where they do not fit in the 64 KB bank
+  (``csrc/raymarch_uniforms.cuh`` decides from ``SDF_N_PARAMS``): a scene of
+  any size builds.
 * ``BUILDS`` counts nvcc runs in this process. Importing the package never
   runs nvcc.
 * No ``--use_fast_math``: the kernels rely on IEEE ``/``, ``sqrtf`` and ``fmaf``.
@@ -51,10 +55,6 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILDS = 0  # nvcc runs in this process
-# A library's uniforms (csrc/raymarch_uniforms.cuh) are one __constant__ array
-# of the parameter slots and the view scalars; the constant bank is 64 KB.
-VIEW_SCALARS = 19
-CONSTANT_FLOATS = 64 * 1024 // 4
 
 
 @dataclasses.dataclass
@@ -75,7 +75,7 @@ class KernelLib:
     def order_uniforms(self, stream) -> None:
         """Make ``stream``, about to launch through this library, wait for the
         library's last launch where that was on another stream: both write
-        the library's constant memory. Call it with ``lock`` held."""
+        the library's uniforms. Call it with ``lock`` held."""
         last = self.last_stream
         if last is not None and last != stream:
             stream.wait_event(last.record_event())
@@ -223,21 +223,6 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     return so, seconds, log
 
 
-def fits_constant_memory(program: Program) -> bool:
-    """Whether the kernels can take ``program``: its parameter slots and the
-    view scalars fit in the one ``__constant__`` array of a library."""
-    return program.n_params + VIEW_SCALARS <= CONSTANT_FLOATS
-
-
-def check_constant_memory(program: Program) -> None:
-    """Refuse, by name, a program whose uniforms do not fit in constant memory."""
-    if not fits_constant_memory(program):
-        raise ValueError(
-            f"the scene has {program.n_params} parameter slots; the kernels read them and the "
-            f"{VIEW_SCALARS} view scalars from constant memory, which holds {CONSTANT_FLOATS} floats"
-        )
-
-
 def load_family(program: Program, family: str) -> KernelLib:
     """The library of ``family`` for ``program``, built on first use."""
     fam = FAMILIES[family]
@@ -245,7 +230,6 @@ def load_family(program: Program, family: str) -> KernelLib:
     lib = _LIBS.get((family, name))
     if lib is not None:
         return lib
-    check_constant_memory(program)
     unit = translation_unit(program, family)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))

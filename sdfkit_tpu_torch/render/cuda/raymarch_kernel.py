@@ -32,8 +32,9 @@ start an instruction nearly every cycle (about 46 scene evaluations per ray,
 12 bytes written), so only a shorter instruction stream makes them faster:
 the scene compiler writes a division by a uniform as a reciprocal taken
 once and two multiply-adds, and the parameters and the view come through
-constant memory (``csrc/raymarch_uniforms.cuh``; one buffer per library, so a
-launch on another stream than the library's last waits for that one). The
+constant memory (``csrc/raymarch_uniforms.cuh``; device memory for a scene too
+large for the 64 KB bank; one buffer per library, so a launch on another
+stream than the library's last waits for that one). The
 image backward runs those evaluations again (it replays the march) plus
 about 46 gradients of the scene; it is written so that many warps are in
 flight (uniforms in constant memory, a register budget set for five blocks an
@@ -70,10 +71,6 @@ from sdfkit_tpu_torch.sdf.expr import SdfExpr
 from sdfkit_tpu_torch.utils.camera import inv_view_proj
 from sdfkit_tpu_torch.utils.v3 import V3
 
-# How many march steps a group of the forward kernels holds, with the test
-# for a warp at its bitwise fixed point after each group
-# (csrc/raymarch_fwd.cuh kSettleEvery), for reckoning the work a launch does.
-SETTLE_EVERY = 4
 LAUNCHES = 0  # image forward launches
 BWD_LAUNCHES = 0  # image backward launches (the pullback kernel and its reduction)
 STORE_LAUNCHES = 0  # image forward launches that also wrote the depth history
@@ -132,8 +129,7 @@ def _check_store_build(lib: build.KernelLib, store: bool) -> None:
 def _run(lib: build.KernelLib, what: str, *args) -> None:
     """``lib.launch(*args, stream)`` on the current stream of the current
     device, after the library's last launch where that was on another stream
-    (a library's uniforms are one buffer in constant memory). Raises on a
-    CUDA error."""
+    (a library's uniforms are one buffer). Raises on a CUDA error."""
     stream = torch.cuda.current_stream()
     with lib.lock:
         lib.order_uniforms(stream)

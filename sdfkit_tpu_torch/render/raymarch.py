@@ -14,8 +14,7 @@ RayMarcher semantics:
 The functions here are the plain version of the CUDA kernel in
 ``render/cuda/raymarch_kernel.py``: the same math in torch ops, differentiable
 by autograd. ``RayMarcher(backend="auto")`` takes the kernel when the scene's
-parameters are on CUDA and fit in the kernels' constant memory, and this path
-otherwise.
+parameters are on CUDA and this path when they are on the CPU.
 """
 
 from __future__ import annotations
@@ -25,8 +24,6 @@ import dataclasses
 import torch
 
 from sdfkit_tpu_torch import ops
-from sdfkit_tpu_torch.render.cuda import build
-from sdfkit_tpu_torch.sdf.compile import compile_scene
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, scene_device
 from sdfkit_tpu_torch.utils.camera import camera_rays, default_view, look_at
 from sdfkit_tpu_torch.utils.v3 import V3
@@ -167,28 +164,21 @@ def _on_cuda(sdf: SdfExpr) -> bool:
 
 def resolve_backend(backend: str, sdf: SdfExpr) -> str:
     """'kernel' or 'torch' for a scene: 'auto' takes the CUDA kernels when the
-    scene's parameters are on CUDA and its parameter slots fit in the
-    kernels' constant memory, and the plain path otherwise (the JAX package's
-    ``auto`` likewise takes the jnp path above ``MAX_FUSED_PARAM_SCALARS``).
-    'kernel' on a CPU scene or on a scene too large for the kernels raises.
-    The size is the scene's compiled program's, decided before any build.
-    One rule for ``RayMarcher`` (and so for ``render`` and ``fit``, which
-    render through it) and the tile renderer (the JAX package's
-    ``resolve_shard_backend``)."""
+    scene's parameters are on CUDA and the plain path on the CPU, and 'kernel'
+    on a CPU scene raises. The kernels take a scene of any size (a library
+    whose parameters do not fit in constant memory reads them from device
+    memory, ``csrc/raymarch_uniforms.cuh``). One rule for ``RayMarcher`` (and
+    so for ``render`` and ``fit``, which render through it) and the tile
+    renderer (the JAX package's ``resolve_shard_backend``)."""
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}; expected one of {BACKENDS}")
-    if backend == "torch":
-        return backend
-    if not _on_cuda(sdf):
-        if backend == "kernel":
-            raise ValueError(
-                f"backend='kernel' needs the scene on a CUDA device, not {scene_device(sdf)}")
-        return "torch"
-    program = compile_scene(sdf)
-    if backend == "auto" and not build.fits_constant_memory(program):
-        return "torch"
-    build.check_constant_memory(program)
-    return "kernel"
+    on_cuda = _on_cuda(sdf)
+    if backend == "auto":
+        return "kernel" if on_cuda else "torch"
+    if backend == "kernel" and not on_cuda:
+        raise ValueError(
+            f"backend='kernel' needs the scene on a CUDA device, not {scene_device(sdf)}")
+    return backend
 
 
 class RayMarcher:
@@ -200,8 +190,7 @@ class RayMarcher:
 
     backend: 'kernel' = the hand-written CUDA kernel (CUDA scenes only),
     'torch' = the plain path (any device, differentiable by autograd),
-    'auto' = the kernel for a scene on CUDA whose parameters fit in the
-    kernels' constant memory, the plain path otherwise.
+    'auto' = the kernel for a scene on CUDA, the plain path on the CPU.
     The kernel rounds differently from the plain path (FMA contraction
     compounds over the 40 steps), so pixel comparisons against goldens
     should use the plain path or the distributional contract of

@@ -1,9 +1,10 @@
 """The forwards' exact exit: a march that has reached its bitwise fixed point
 stops, and a sky pixel is not shaded, with every output bit unchanged.
 
-``csrc/raymarch_fwd.cuh`` ``march_depth`` leaves the march once a step left
-the depth bit for bit where it was (on the card a warp leaves when all its
-lanes have; on the host each ray leaves on its own), and ``shade_ray`` writes
+``csrc/raymarch_fwd.cuh`` ``march_depth`` runs the march in groups of steps
+and leaves it after a group whose last step left the depth bit for bit where
+it was (on the card when all the warp's lanes say so; the host runs the same
+loop with a ray as a warp of one lane), and ``shade_ray`` writes
 the sky's constant for a ray that missed without running the taps. The step
 is a function of the depth's bits alone, so neither changes a result. Here
 the header's forwards, built with g++ through ``tests/torch_host.py``, are
@@ -16,15 +17,16 @@ told apart):
 * on every parity scene and on SphereRepeat at 64x36, at 40, 80 and 130
   iterations, through the image forward (with and without store) and the
   ray-batch forward (the frame's camera rays and rays that are no camera's);
+* on SphereRepeat at iteration counts that leave no whole group, exactly
+  one, or whole groups and no steps over;
 * on rays that start at depth -0.0 and at +0.0, through a scene whose
-  distance tells the two signs of zero apart, so that an exit on ``==``
-  (which takes -0.0 for +0.0) would be caught;
+  distance tells the two signs of zero apart: the first step from -0.0
+  lands on +0.0, equal under ``==``, and the march must go on from there;
 * on rays whose distance is NaN (a NaN never settles).
 """
 
 import concurrent.futures
 import ctypes
-import pathlib
 import shutil
 
 import numpy as np
@@ -34,7 +36,6 @@ import torch
 import sdfkit_tpu_torch as st
 import torch_parity as tp
 from sdfkit_tpu_torch import ops, scenes
-from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
 from sdfkit_tpu_torch.render.cuda.raymarch_kernel import view19
 from sdfkit_tpu_torch.render.raymarch import RenderConfig, settled_steps, warp_march_steps
 from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params
@@ -274,6 +275,16 @@ def test_the_exit_is_exact_on_sphere_repeat(built, iters):
     assert (rgb[sky] == torch.tensor(SKY)).all()
 
 
+@pytest.mark.parametrize("iters", [1, 2, 4, 5, 41])
+def test_the_exit_is_exact_at_the_groups_edges(built, iters):
+    """March steps in no whole group (1, 2 and 4 iterations: 0, 1 and 3
+    steps), in one group and nothing over (5), and in ten groups and nothing
+    over (41): the group loop, the steps left over and the rows written
+    after an exit meet at every edge."""
+    expr, lib = built["hero"]
+    assert_forwards_exact(lib, expr, RenderConfig(32, 18, depth_iterations=iters))
+
+
 @pytest.mark.parametrize("depth0", [-0.0, 0.0], ids=["minus_zero", "plus_zero"])
 def test_rays_that_start_at_a_signed_zero(built, depth0):
     expr, lib = built["zero_sign"]
@@ -334,7 +345,7 @@ def test_settled_steps_and_the_warps_march_steps():
     """``settled_steps`` finds the first step that left a depth's bits where
     they were (a NaN never settles, -0.0 to +0.0 is a move);
     ``warp_march_steps`` gives a warp its slowest ray's steps, rounded up to
-    a group and at most iterations - 1; the group size is the kernels'."""
+    a group and at most iterations - 1."""
     nan, inf = float("nan"), float("inf")
     history = torch.tensor([[0.9, 0.9, 0.9, -0.0, 0.9],
                             [1.0, 2.0, nan, 0.0, inf],
@@ -346,5 +357,3 @@ def test_settled_steps_and_the_warps_march_steps():
     assert warp_march_steps(steps, 5, 1, warp=2).tolist() == [3, 4, 2]
     assert warp_march_steps(steps, 5, 2, warp=2).tolist() == [4, 4, 2]
     assert warp_march_steps(steps, 5, 4, warp=5).tolist() == [4]
-    header = (pathlib.Path(st.__file__).parent / "csrc" / "raymarch_fwd.cuh").read_text()
-    assert f"constexpr int kSettleEvery = {rk.SETTLE_EVERY};" in header

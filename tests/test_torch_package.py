@@ -2,11 +2,13 @@
 the backend choice on a machine without CUDA."""
 
 import dataclasses
+import shutil
 import subprocess
 import sys
 import textwrap
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -100,26 +102,55 @@ def test_kernel_backward_is_not_a_silent_fallback():
     assert (build.BUILDS, rk.BWD_LAUNCHES) == (builds, launches)
 
 
+# The constant bank holds 16,384 floats: the parameter slots and the 19 view
+# scalars of a library fit there up to 16,365 slots.
+CONSTANT_BANK_SLOTS = 64 * 1024 // 4 - 19
+
+
+def _uniform_space(unit: str, tmp_path) -> str:
+    """Where the generated translation unit ``unit`` keeps its uniforms:
+    the qualifier of ``c_uniform`` once g++ has preprocessed it (a stand-in
+    ``cuda_runtime.h``; nothing is compiled)."""
+    if shutil.which("g++") is None:
+        pytest.skip("no host C++ compiler (g++) to preprocess the generated unit")
+    (tmp_path / "stub").mkdir(exist_ok=True)
+    (tmp_path / "stub" / "cuda_runtime.h").write_text("")
+    src = tmp_path / "unit.cu"
+    src.write_text(unit)
+    proc = subprocess.run(["g++", "-E", "-P", "-x", "c++", "-I", str(build.CSRC),
+                           "-I", str(tmp_path / "stub"), str(src)],
+                          capture_output=True, text=True, timeout=60, check=True)
+    (line,) = [ln for ln in proc.stdout.splitlines() if "float c_uniform[" in ln]
+    return line.split()[0]
+
+
 def test_a_scene_too_large_for_constant_memory_raises_before_any_build(monkeypatch, tmp_path):
     """The kernels read the parameters and the 19 view scalars from one
-    ``__constant__`` array; a scene that does not fit in the 64 KB bank is
-    refused by name, not by nvcc."""
+    array: in the 64 KB constant bank where they fit, in device memory where
+    they do not (``csrc/raymarch_uniforms.cuh``). No family refuses a scene
+    for its size: a program one slot past the bank goes to the compiler as
+    one that fits does (here the compiler raises before any build), and the
+    generated unit keeps its uniforms in device memory."""
     program = compile_scene(st.sphere(1.0))
-    fits = dataclasses.replace(program, n_params=build.CONSTANT_FLOATS - 19, hash="fits")
-    large = dataclasses.replace(program, n_params=build.CONSTANT_FLOATS - 18, hash="large")
+    fits = dataclasses.replace(program, n_params=CONSTANT_BANK_SLOTS, hash="fits")
+    large = dataclasses.replace(program, n_params=CONSTANT_BANK_SLOTS + 1, hash="large")
     builds = build.BUILDS
+    units = []
 
-    def no_compiler():
+    def no_compiler(stem, unit):
+        units.append(unit)
         raise RuntimeError("no nvcc in this test")
 
-    monkeypatch.setattr(build, "nvcc_path", no_compiler)
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
-    for family in build.FAMILIES:
-        with pytest.raises(ValueError, match="constant memory"):
-            build.load_family(large, family)
-    with pytest.raises(RuntimeError, match="no nvcc in this test"):  # passes the check
-        build.load_family(fits, "fwd")
-    assert build.BUILDS == builds
+    monkeypatch.setattr(build, "_compile", no_compiler)
+    for prog in (fits, large):
+        for family in build.FAMILIES:
+            with pytest.raises(RuntimeError, match="no nvcc in this test"):
+                build.load_family(prog, family)
+    assert build.BUILDS == builds and len(units) == 2 * len(build.FAMILIES)
+    spaces = {(prog.hash, family): _uniform_space(build.translation_unit(prog, family), tmp_path)
+              for prog in (fits, large) for family in ("fwd", "rays_fwd")}
+    assert spaces == {("fits", "fwd"): "__constant__", ("fits", "rays_fwd"): "__constant__",
+                      ("large", "fwd"): "__device__", ("large", "rays_fwd"): "__device__"}
 
 
 def _render_through_raymarcher(sdf, backend, tmp_path):
@@ -141,52 +172,64 @@ def _render_through_tiles(sdf, backend, tmp_path):
     return torch.from_numpy(image)
 
 
+def palette_scene(rows: int):
+    """Spheres in cells coloured from a palette of ``rows`` seeded rows: a
+    scene of ``3 * rows + 6`` parameter slots whose program stays small."""
+    table = np.random.default_rng(5).uniform(0.2, 1.0, (rows, 3)).astype(np.float32)
+    return st.sphere(0.4).repeat_indexed("xy", (1.125, 1.125), table,
+                                         index_fn=lambda x, y, z: x * 37.0 + y)
+
+
 @pytest.mark.parametrize("entry", [_render_through_raymarcher, _render_through_render,
                                    _render_through_fit, _render_through_tiles],
                          ids=["RayMarcher", "render", "fit", "render_tiles_resumable"])
-def test_auto_sends_a_scene_too_large_for_constant_memory_to_the_plain_path(monkeypatch, tmp_path,
-                                                                           entry):
+def test_a_scene_too_large_for_constant_memory_takes_the_kernels(monkeypatch, tmp_path, entry):
     """A scene on CUDA whose parameter slots and view scalars do not fit in
-    the kernels' constant memory renders on the plain path under 'auto',
-    decided from its compiled program before any build, as the JAX package's
-    ``auto`` takes the jnp path above ``MAX_FUSED_PARAM_SCALARS``; 'kernel'
-    raises by name. The device check says CUDA and the program has
-    ``CONSTANT_FLOATS - 18`` slots; the frame itself renders on the CPU."""
+    the constant bank takes the kernels under 'auto' and 'kernel' through
+    every entry point, as any scene on CUDA does: it reaches the build of
+    its first kernel (the compiler raises here), whose unit keeps the
+    uniforms in device memory. The device check says CUDA; nothing runs on
+    the plain path and nothing launches."""
     from sdfkit_tpu_torch.parallel import elastic
     from sdfkit_tpu_torch.render import raymarch
 
     fit_module = sys.modules["sdfkit_tpu_torch.fit"]  # the package exports the function
 
-    sdf = st.sphere(1.0)
+    sdf = palette_scene(5500)
     program = compile_scene(sdf)
-    large = dataclasses.replace(program, n_params=build.CONSTANT_FLOATS - 18, hash="large")
-    resolved = []
+    assert program.n_params == 16506 > CONSTANT_BANK_SLOTS
+    resolved, units = [], []
 
     def spy(backend, expr):
         resolved.append(resolve(backend, expr))
         return resolved[-1]
 
-    def no_compiler():
+    def no_compiler(stem, unit):
+        units.append(unit)
         raise RuntimeError("no nvcc in this test")
+
+    def no_plain_path(*args, **kwargs):
+        raise AssertionError("the plain path rendered a scene on CUDA")
 
     resolve = raymarch.resolve_backend
     monkeypatch.setattr(raymarch, "_on_cuda", lambda expr: True)
-    monkeypatch.setattr(raymarch, "compile_scene", lambda expr: large)
     for module in (raymarch, fit_module, elastic):
         monkeypatch.setattr(module, "resolve_backend", spy)
-    monkeypatch.setattr(build, "nvcc_path", no_compiler)
-    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    for module in (raymarch, elastic):
+        monkeypatch.setattr(module, "render_rays", no_plain_path)
+    # The scene's tensors are on the CPU: let the wrappers hand them on.
+    monkeypatch.setattr(rk, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(rk, "_check_cuda_float32", lambda *a, **k: None)
+    monkeypatch.setattr(build, "_compile", no_compiler)
     builds, launches = build.BUILDS, rk.LAUNCHES
 
-    out = entry(sdf, "auto", tmp_path)
-    assert resolved and set(resolved) == {"torch"}
-    assert bool(torch.isfinite(out).all()) and out.numel() > 0
-    with pytest.raises(ValueError, match="constant memory"):
-        entry(sdf, "kernel", tmp_path / "kernel")
+    for backend in ("auto", "kernel"):
+        with pytest.raises(RuntimeError, match="no nvcc in this test"):
+            entry(sdf, backend, tmp_path / backend)
+        assert resolved and set(resolved) == {"kernel"}, (backend, resolved)
+    assert len(units) == 2 and f"#define SDF_N_PARAMS {program.n_params}" in units[0]
+    assert _uniform_space(units[0], tmp_path) == "__device__"
     assert (build.BUILDS, rk.LAUNCHES) == (builds, launches)
-    # The same scene whose program fits still takes the kernels.
-    monkeypatch.setattr(raymarch, "compile_scene", lambda expr: program)
-    assert resolve("auto", sdf) == "kernel"
 
 
 class _Stream:
