@@ -13,7 +13,8 @@ iterations:
      parameter edit that rebuilds nothing, a frame through
      ``RayMarcher(backend="auto")``, and its time;
 6    the backward kernel against autograd of the plain path on the card,
-     every leaf and the view, RGB and depth, on small scenes;
+     every leaf and the view, RGB and depth, on small scenes; the scene of
+     16,506 slots differentiated and fitted through the kernels;
 7    two backward launches at full size: bit-identical, finite gradients;
 8    ``fit`` for 5 steps at full size through the two kernels, and the
      gradient against the plain path's at the largest frame whose autograd
@@ -285,7 +286,7 @@ def main() -> int:
         ok, stats = rgb_close(got.cpu().numpy(), ref.cpu().numpy())
         check(ok, f"the {big_prog.n_params}-slot scene, rgb {bw}x{bh} through {what}: kernel vs "
                   f"plain {stats}")
-    del big, big_marcher, big_plain, big_rgb, big_depth, big_render, big_tiles, big_rays
+    del big_marcher, big_plain, big_rgb, big_depth, big_render, big_tiles, big_rays
     del plain_rgb, plain_depth, plain_rays, ro, rd
 
     # -- 3. a parameter edit rebuilds nothing (checked at full size, where
@@ -430,6 +431,27 @@ def main() -> int:
                       f"autograd of the plain path, every leaf and the view {stats}")
             if name == "union":
                 bwd_err = max(bwd_err, stats["max_abs_err"])
+    # The 16,506-slot scene of phase 2b differentiates and fits through the
+    # kernels too: its adjoint adds a large palette's cotangent to a run-time
+    # row (sdf/compile.py PALETTE_UNROLLED_ROWS).
+    builds = build.BUILDS
+    t0 = time.perf_counter()
+    big_ref = grads(big, bw, bh, view(), "torch", False)
+    ok, stats = grads_close(grads(big, bw, bh, view(), "kernel", False), big_ref, False)
+    big_bwd_s = time.perf_counter() - t0
+    check(ok and build.BUILDS == builds + 1,
+          f"the {big_prog.n_params}-slot scene, rgb {bw}x{bh}: backward kernel vs autograd of "
+          f"the plain path, every leaf and the view {stats}; its backward library built in "
+          f"{big_bwd_s:.1f} s with the two gradients")
+    torch.cuda.synchronize()
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    big_fit = st.fit(big, torch.full((bh, bw, 3), 0.5), steps=2, view=view())
+    torch.cuda.synchronize()
+    big_fit_launches = (rk.LAUNCHES, rk.BWD_LAUNCHES)
+    check(big_fit_launches == (2, 2) and all(np.isfinite(big_fit.losses)),
+          f"fit of the {big_prog.n_params}-slot scene under backend='auto': 2 steps through the "
+          f"kernels (LAUNCHES, BWD_LAUNCHES = {big_fit_launches}), losses {big_fit.losses}")
+    del big, big_fit, big_ref
 
     # -- 8. the slice at full size: fit on SphereRepeat 1920x1080x40. It runs
     #       before phase 7 so that it is the first to differentiate this

@@ -684,10 +684,21 @@ def emit_cpp(program: Program) -> str:
     return "\n".join(out)
 
 
-def _emit_reverse(program: Program, live, seeds, param_leaf) -> list[str]:
+# Palettes of at most this many rows take their cotangent as one
+# compare-and-add per row and channel, so that every index into the sums is a
+# constant and a small scene's sums can stay in registers. A larger palette
+# (three slots a row) makes more sums than registers hold anyway, and the
+# unrolled form would be a line of C++ per row and channel: its cotangent
+# goes to a run-time row instead.
+PALETTE_UNROLLED_ROWS = 32
+
+
+def _emit_reverse(program: Program, live, seeds, param_leaf, indexed_rows=False) -> list[str]:
     """The body of one adjoint function: forward recompute, then the reverse
     sweep. Cotangents are ``a<id>``; the point's go to ``*gpx, *gpy, *gpz``
-    and ``param_leaf(lines, slot, expression)`` writes a parameter's."""
+    and ``param_leaf(lines, slot, expression)`` writes a parameter's. With
+    ``indexed_rows`` (the form that adds to ``gP``) a palette of more than
+    ``PALETTE_UNROLLED_ROWS`` rows adds to its run-time row."""
     lines, names = _emit_body(program, live, keep_rows=True)
     lines.append("float gx = 0.0f, gy = 0.0f, gz = 0.0f;")
     declared = set()
@@ -706,10 +717,12 @@ def _emit_reverse(program: Program, live, seeds, param_leaf) -> list[str]:
         elif node[0] == "param":
             param_leaf(lines, node[1], total)
         else:
-            # A run-time slot index would force the whole of gP out of
-            # registers, so a palette of T rows costs T compare-and-adds per
-            # channel here (the one-hot blend's VJP in the JAX package).
+            # The one-hot blend's VJP in the JAX package; k<id> is -1 where
+            # the gather read no row.
             _, base, rows, channel, _ = node
+            if indexed_rows and rows > PALETTE_UNROLLED_ROWS:
+                lines.append(f"if (k{i} >= 0) gP[{base} + 3 * k{i} + {channel}] += {total};")
+                return
             for t in range(rows):
                 param_leaf(lines, base + 3 * t + channel, f"((k{i} == {t}) ? {total} : 0.0f)")
 
@@ -745,7 +758,8 @@ def emit_vjp_cpp(program: Program) -> str:
     unit = _emit_reverse(program, program.dist_live, [(program.dist, 1.0)], unit_leaf)
     seeds = [*zip(program.color, ("gr", "gg", "gb")), (program.dist, "gd")]
     both = _emit_reverse(program, program.eval_live, seeds,
-                         lambda lines, slot, total: lines.append(f"gP[{slot}] += {total};"))
+                         lambda lines, slot, total: lines.append(f"gP[{slot}] += {total};"),
+                         indexed_rows=True)
     out = [
         "// Scene adjoint emitted by sdfkit_tpu_torch.sdf.compile.",
         f"#define SDF_N_PARAMS {program.n_params}",

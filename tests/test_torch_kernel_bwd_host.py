@@ -53,7 +53,7 @@ from sdfkit_tpu_torch.render.raymarch import (
     render_image_torch,
     render_rays,
 )
-from sdfkit_tpu_torch.sdf.compile import compile_scene
+from sdfkit_tpu_torch.sdf.compile import PALETTE_UNROLLED_ROWS, compile_scene
 from sdfkit_tpu_torch.utils.camera import camera_rays
 from torch_host import host_libraries, patch_kernels
 
@@ -194,6 +194,25 @@ def test_palette_gradient_reaches_the_table(host_kernels):
     leaves, _ = port_grads(texpr, st.look_at(*VIEW), RenderConfig(40, 24), True, "kernel")
     table = leaves[-1]
     assert table.shape == (3, 3) and (np.abs(table) > 0).all()
+
+
+@pytest.mark.parametrize("rows", [PALETTE_UNROLLED_ROWS, PALETTE_UNROLLED_ROWS + 1, 5500])
+def test_a_palette_of_any_size_takes_its_cotangent(host_kernels, rows):
+    """A palette's cotangent through the kernel against autograd of the
+    plain path: at the last size whose adjoint adds row by row, at the first
+    that adds to a run-time row, and at 5,500 rows (16,506 slots, more than
+    the constant bank holds)."""
+    table = np.random.default_rng(rows).uniform(0.2, 1.0, (rows, 3)).astype(np.float32)
+    texpr = st.sphere(0.4).repeat_indexed("xy", (1.125, 1.125), table,
+                                          index_fn=lambda x, y, z: x * 37.0 + y)
+    view = st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = RenderConfig(24, 16)
+    got = port_grads(texpr, view, cfg, True, "kernel")
+    assert host_kernels["bwd"] == 1
+    assert_grads_close(got, port_grads(texpr, view, cfg, True, "torch"))
+    assert int((np.abs(got[0][-1]).sum(-1) > 0).sum()) >= 10  # rows the frame reads
+    # The adjoint's length does not grow with the rows past the unrolled size.
+    assert len(compile_scene(texpr).adjoint_source) < 10_000
 
 
 @pytest.mark.parametrize("want_color", [True, False], ids=["rgb", "depth"])
