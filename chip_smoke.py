@@ -44,19 +44,34 @@ iterations:
      the store-fed backward and ``fit`` against autograd of the plain path;
 16   what the compiler made of the six libraries: registers, resident blocks
      per SM, and the instructions of the march, sweep and tangent loops from
-     SASS.
+     SASS;
+17   meshing: SphereRepeat voxelized on the card over [-2, 2]^3 at 256^3 and
+     512^3 and meshed through ``SdfExpr.to_mesh`` and ``Voxels.to_mesh`` (the
+     dense phase and the colour blends on the card, the C++ sparse phase on
+     the host); at 256^3 the mesh against the numpy oracle on the grid fetched
+     to the host and its OBJ's line counts; at both sizes the vertex count
+     against the sequential C++ baseline, which is timed; ``step=2`` and an
+     iso of 0.5 on a 96^3 grid, the card's mesh against the CPU's; times
+     (min of 3 after a warm-up) with the phase split;
+18   registration: ICP on bench.py's cloud at 10,000 and 100,000 points, the
+     device loop with brute-force and grid search against the host parity
+     loop and the static cloud (1e-4), the grid index against brute force on
+     100,000 queries, a gradient through ``register_points_torch``; times on
+     the host clock and with CUDA events, iteration counts, the 3x3 SVD on the
+     card and on the host, and the card's idle share in a registration.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
-result line, when there is no CUDA device or any check fails; on success the
-last line is
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``,
-after one line of JSON that lists the kernels.
+result line, when there is no CUDA device or any check fails; on success it
+prints one JSON line each for ``mesh`` and ``icp``, the card's name and power
+limit, one line of JSON that lists the six kernels, and last
+``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import shutil
 import subprocess
@@ -88,6 +103,11 @@ TILE_ROWS = 128
 SAMPLE_POINTS = 1_000_003
 SAMPLE_BATCH = 1 << 18  # an explicit cap: three full batches and a remainder of 213,571
 GRID = 256
+MESH_GRIDS = (256, 512)
+# The JAX package's vertex counts of the same meshes (BENCH_r05.json, on a TPU):
+# a cross-check only, since the card's voxelize may move a value near 0 by an ulp.
+JAX_MESH_VERTICES = {256: 300_152, 512: 1_215_992}
+ICP_POINTS = (10_000, 100_000)
 SLEEP_CYCLES = 40_000_000  # about 20 ms at 1980 MHz, ahead of launches timed on the card
 # Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
 PEAK_FP32_OPS = 67e12
@@ -148,6 +168,250 @@ def rgb_close(a: np.ndarray, b: np.ndarray) -> tuple[bool, dict]:
     d = np.abs(a - b)
     stats = {"max": float(d.max()), "median": float(np.median(d)), "pixels": int(d.size // 3)}
     return stats["max"] < 2e-2 and stats["median"] <= 1e-4, stats
+
+
+def host_ms(fn):
+    """(fn(), milliseconds) on the host clock, the card idle at both ends."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def event_ms(fn) -> float:
+    """One call of ``fn`` between two CUDA events, in milliseconds."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def meshes_equal(a, b, normals_atol=0.0, colors_atol=0.0) -> tuple[bool, dict]:
+    """Vertices and triangles identical, normals and colours within the bounds."""
+    stats = {"vertices": [len(a.vertices), len(b.vertices)],
+             "triangles": [len(a.triangles), len(b.triangles)]}
+    if stats["vertices"][0] != stats["vertices"][1] or stats["triangles"][0] != stats["triangles"][1]:
+        return False, stats
+    stats["normals_max_abs_err"] = float(np.abs(a.normals - b.normals).max(initial=0.0))
+    stats["colors_max_abs_err"] = float(np.abs(a.colors - b.colors).max(initial=0.0))
+    ok = (np.array_equal(a.vertices, b.vertices) and np.array_equal(a.triangles, b.triangles)
+          and stats["normals_max_abs_err"] <= normals_atol
+          and stats["colors_max_abs_err"] <= colors_atol)
+    return ok, stats
+
+
+def phase_mesh(st, smi: str) -> dict:
+    """Phase 17: SphereRepeat meshed on the card at 256^3 and 512^3."""
+    from sdfkit_tpu_torch import native, scenes
+    from sdfkit_tpu_torch.mesh import marching_cubes as mc
+
+    hero = scenes.sphere_repeat_scene()
+    lo, hi = (-2.0,) * 3, (2.0,) * 3
+    # The C++ geometry starts a worker per 16,384 active cells, up to the
+    # hardware threads the host reports.
+    out = {"scene": "SphereRepeat over [-2, 2]^3", "gpu": smi, "host_cpus": os.cpu_count(),
+           "host_cpus_usable": len(os.sched_getaffinity(0))}
+    for n in MESH_GRIDS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        m_expr, expr_ms = host_ms(lambda: hero.to_mesh(lo, hi, n, n, n))
+        expr_peak = torch.cuda.max_memory_allocated()
+        with torch.no_grad():
+            vox, vox_ms = host_ms(lambda: st.voxelize(hero, lo, hi, n, n, n))
+        check(vox.values.is_cuda and vox.colors.is_cuda, f"the {n}^3 volume is on the card")
+        vox.to_mesh()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        runs = []
+        for _ in range(3):
+            m, ms = host_ms(vox.to_mesh)
+            runs.append((ms, dict(mc.LAST_TIMINGS)))
+        mesh_peak = torch.cuda.max_memory_allocated()
+        best_ms, split = min(runs, key=lambda r: r[0])
+        ok, _ = meshes_equal(m, m_expr)
+        check(ok, f"SdfExpr.to_mesh and Voxels.to_mesh give one mesh at {n}^3")
+        values_h, colors_h = vox.values.cpu().numpy(), vox.colors.cpu().numpy()
+        t0 = time.perf_counter()
+        seq_verts, seq_stream = native.mc_sequential_baseline(values_h, colors_h, 1, 0.0)
+        seq_ms = (time.perf_counter() - t0) * 1e3
+        check(seq_verts == len(m.vertices) and seq_stream == len(m.triangles),
+              f"{n}^3: {len(m.vertices)} vertices and {len(m.triangles) // 3} triangles, the "
+              f"sequential C++ baseline's {seq_verts} and {seq_stream // 3}")
+        entry = {
+            "vertices": len(m.vertices), "triangles": len(m.triangles) // 3,
+            "jax_package_vertices_info": JAX_MESH_VERTICES[n],
+            "to_mesh_ms_min_of_3": best_ms, "to_mesh_ms_runs": [r[0] for r in runs],
+            "split_ms": split, "voxelize_ms": vox_ms,
+            "sdf_expr_to_mesh_ms_first_call": expr_ms,
+            "sequential_cpp_baseline_ms": seq_ms,
+            "peak_device_bytes_expr_to_mesh": expr_peak, "peak_device_bytes_to_mesh": mesh_peak,
+        }
+        print(f"mesh {n}^3: {len(m.vertices)} vertices (the JAX package's run: "
+              f"{JAX_MESH_VERTICES[n]}), to_mesh {best_ms:.3f} ms (min of 3 after a warm-up; "
+              f"runs {[round(r[0], 3) for r in runs]}), split {split}; voxelize {vox_ms:.3f} ms; "
+              f"SdfExpr.to_mesh (voxelize and mesh, first call) {expr_ms:.3f} ms; sequential C++ "
+              f"baseline {seq_ms:.3f} ms on the host; peak device memory {expr_peak / 2**30:.2f} "
+              f"GiB through SdfExpr.to_mesh, {mesh_peak / 2**30:.2f} GiB meshing; on {smi}")
+        if n == 256:
+            t0 = time.perf_counter()
+            ref = mc.create_mesh_numpy(values_h, colors_h, vox.vmin, vox.vmax)
+            entry["numpy_oracle_ms"] = (time.perf_counter() - t0) * 1e3
+            ok, stats = meshes_equal(m, ref, normals_atol=2e-5, colors_atol=1e-6)
+            entry["against_numpy_oracle"] = stats
+            check(ok, f"256^3 mesh equals the numpy oracle's on the grid fetched to the host "
+                      f"(normals within 2e-5, colours within 1e-6): {stats}")
+            with tempfile.TemporaryDirectory() as d:
+                path = pathlib.Path(d) / "sphere_repeat.obj"
+                t0 = time.perf_counter()
+                m.write_obj(path)
+                entry["write_obj_ms"] = (time.perf_counter() - t0) * 1e3
+                counts = {"v": 0, "vn": 0, "f": 0}
+                with open(path) as f:
+                    for line in f:
+                        key = line.split(" ", 1)[0]
+                        if key in counts:
+                            counts[key] += 1
+            entry["obj_lines"] = counts
+            check(counts == {"v": len(m.vertices), "vn": len(m.vertices),
+                             "f": len(m.triangles) // 3},
+                  f"the OBJ holds v / vn / f lines {counts} for the mesh's "
+                  f"{len(m.vertices)} vertices and {len(m.triangles) // 3} triangles")
+        out[f"{n}^3"] = entry
+        del vox, values_h, colors_h, m, m_expr
+    # step=2 and an iso offset on a small grid: the card's mesh is the CPU's.
+    with torch.no_grad():
+        small = st.voxelize(hero, lo, hi, 96, 96, 96, clip_to_bounds=False)
+    cpu = st.Voxels(*(t.cpu() for t in (small.values, small.colors, small.vmin, small.vmax)))
+    for kw in ({"step": 2}, {"iso_value": 0.5}, {"step": 2, "iso_value": 0.5}):
+        ok, stats = meshes_equal(small.to_mesh(**kw), cpu.to_mesh(**kw), colors_atol=1e-6)
+        check(ok and stats["vertices"][0] > 0,
+              f"96^3 {kw}: the card's mesh is the CPU's (colours within 1e-6): {stats}")
+    return out
+
+
+def icp_cloud(n: int):
+    """bench.py's cloud: seed 7, uniform in [-1, 1]^3, rotated 0.02 rad about
+    z and moved by (0.03, -0.02, 0.01)."""
+    rng = np.random.default_rng(7)
+    static = rng.uniform(-1.0, 1.0, (n, 3)).astype(np.float32)
+    ang = 0.02
+    rot = np.array([[np.cos(ang), np.sin(ang), 0], [-np.sin(ang), np.cos(ang), 0], [0, 0, 1]],
+                   np.float32)
+    return static, static @ rot + np.float32([0.03, -0.02, 0.01])
+
+
+def phase_icp(st, smi: str) -> dict:
+    """Phase 18: ICP on the card at 10,000 and 100,000 points."""
+    from sdfkit_tpu_torch.registration import icp
+
+    dev = st.default_device()
+    out = {"cloud": "seed 7, uniform in [-1, 1]^3, 0.02 rad about z, moved (0.03, -0.02, 0.01)",
+           "gpu": smi}
+    for n in ICP_POINTS:
+        static_h, moved_h = icp_cloud(n)
+        static = torch.from_numpy(static_h).to(dev)
+        moved = torch.from_numpy(moved_h).to(dev)
+        entry = {}
+
+        # The host parity loop (float64 numpy, the search on the card).
+        reg = st.IterativeClosestPoint(static_h)
+        check(reg._nn.device.type == "cuda", f"ICP {n}: the static points are on the card")
+        reg.register_points(moved_h, parity=True)  # warm-up
+        calls = []
+        step = reg._iter_transform
+        reg._iter_transform = lambda pts: calls.append(1) or step(pts)
+        (a_host, t_host), ms = host_ms(lambda: reg.register_points(moved_h, parity=True))
+        entry["host_loop"] = {"ms": ms, "iterations": len(calls)}
+        del reg._iter_transform
+
+        for mode in ("brute", "grid"):
+            grid = icp.GridNN(static) if mode == "grid" else None
+            searches = []  # one search an iteration (and the grid's repairs)
+
+            def run():
+                searches.clear()
+                with torch.no_grad():
+                    return icp.register_points_torch(static, moved, nn=mode, grid=grid)
+
+            if grid is not None:
+                grid_pass = grid._grid_pass
+                grid._grid_pass = lambda q: searches.append(1) or grid_pass(q)
+            else:
+                brute = icp.nearest_neighbors
+                icp.nearest_neighbors = lambda *a, **k: searches.append(1) or brute(*a, **k)
+
+            rounds = 1 if (mode == "brute" and n > 10_000) else 3
+            if rounds > 1:
+                run()  # warm-up
+            timings = []
+            for _ in range(rounds):
+                (aligned, total), wall = host_ms(run)
+                timings.append((wall, event_ms(run)))
+            iterations = len(searches)
+            if grid is None:
+                icp.nearest_neighbors = brute
+            aligned_h, total_h = aligned.cpu().numpy(), total.cpu().numpy()
+            err_t = float(np.abs(total_h - t_host).max())
+            err_a = float(np.abs(aligned_h - a_host).max())
+            err = float(np.abs(aligned_h - static_h).max())
+            check(err_t <= 1e-4 and err_a <= 1e-4,
+                  f"ICP {n} nn={mode}: the device loop is the host loop's within 1e-4 "
+                  f"(transform {err_t:.3g}, points {err_a:.3g})")
+            check(err <= 1e-4, f"ICP {n} nn={mode}: aligned points within 1e-4 of the static "
+                               f"cloud (max error {err:.3g})")
+            entry[mode] = {"ms_host_clock": min(t[0] for t in timings),
+                           "ms_cuda_events": min(t[1] for t in timings),
+                           "rounds": [list(t) for t in timings],
+                           "iterations": iterations, "max_err_vs_static": err,
+                           "vs_host_loop": [err_t, err_a]}
+            if grid is not None:
+                entry[mode]["doubtful_queries_first_iteration"] = int(
+                    (~grid_pass(moved)[1]).sum())
+        # The user's entry point: register_points picks the device loop here.
+        _, ms = host_ms(lambda: st.IterativeClosestPoint(static_h).register_points(moved_h))
+        entry["register_points_ms"] = ms
+
+        if n == max(ICP_POINTS):
+            grid = icp.GridNN(static)
+            (gi, gd), g_ms = host_ms(lambda: grid.query(moved))
+            (bi, bd), b_ms = host_ms(lambda: icp.nearest_neighbors(static, moved))
+            same = bool(torch.equal(gi, bi))
+            rel = float(((gd - bd).abs() / bd.clamp(min=1e-30)).max())
+            check(same and rel <= 2e-7, f"GridNN against brute force, {n} queries on the card: "
+                                        f"indices identical {same}, distances rtol {rel:.3g}")
+            entry["grid_query_ms"], entry["brute_query_ms"] = g_ms, b_ms
+        else:
+            mv = moved.clone().requires_grad_()
+            aligned, _ = icp.register_points_torch(static, mv, max_iterations=10)
+            ((aligned - static) ** 2).sum().backward()
+            check(bool(torch.isfinite(mv.grad).all()) and float(mv.grad.abs().sum()) > 0,
+                  f"ICP {n}: a finite gradient through register_points_torch")
+            # What the 3x3 Kabsch costs on the card and on the host.
+            c = torch.randn(3, 3, device=dev)
+            svd_ms = min(event_ms(lambda: [torch.linalg.svd(c) for _ in range(100)])
+                         for _ in range(3)) / 100
+            c_h = c.double().cpu().numpy()
+            t0 = time.perf_counter()
+            for _ in range(1000):
+                np.linalg.svd(c_h)
+            entry["svd3x3_ms_card"] = svd_ms
+            entry["svd3x3_ms_host_float64"] = (time.perf_counter() - t0) / 1000 * 1e3
+            # How long the card idles in a registration (one host read a step).
+            from torch.profiler import ProfilerActivity, profile
+
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall = host_ms(lambda: icp.register_points_torch(static, moved, nn="brute"))
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if getattr(e, "self_device_time_total", 0) > 0
+                       and "cuda" in str(e.device_type).lower()) / 1e3
+            entry["profile_brute"] = {"wall_ms": wall, "device_busy_ms": busy,
+                                      "idle_share": 1.0 - busy / wall if busy > 0 else None}
+        print(f"icp {n}: {json.dumps(entry)} on {smi}")
+        out[str(n)] = entry
+    return out
 
 
 def main() -> int:
@@ -1949,11 +2213,17 @@ def main() -> int:
           f"{bwd_ops - npix * (n - 1) * (ops_n['dist'] + step_ops):.4g} / "
           f"{bwd_bytes + store_bytes}")
 
+    # -- 17. meshing; 18. registration -----------------------------------------
+    mesh_line = phase_mesh(st, smi)
+    icp_line = phase_icp(st, smi)
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
             print("  " + f, file=sys.stderr)
         return 1
+    print(json.dumps({"mesh": mesh_line}))
+    print(json.dumps({"icp": icp_line}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,

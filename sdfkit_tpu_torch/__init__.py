@@ -5,7 +5,12 @@ scene compiler and its adjoint, the plain PyTorch sphere tracer, the
 hand-written CUDA kernels for Hopper (image and ray-batch render, forward
 and backward), image-loss fitting (``fit``), resumable tile rendering
 (``parallel``), batched sampling (``sample``) and voxelization (``voxelize``,
-``Voxels``). The package imports torch and numpy, never JAX.
+``Voxels``), MC33 marching cubes (``create_mesh``, ``Voxels.to_mesh``,
+``SdfExpr.to_mesh``; the dense phase on the volume's device, the sparse
+phase in C++ built with g++ at first use) with OBJ export (``Mesh``), and
+exact nearest-neighbour search and ICP registration
+(``IterativeClosestPoint``, ``register_points_torch``,
+``global_register_points``). The package imports torch and numpy, never JAX.
 
 Scenes and views are made on the card by default; ask for the CPU with
 ``set_default_device("cpu")``, ``use_device("cpu")`` or ``device="cpu"`` on a
@@ -17,6 +22,15 @@ from sdfkit_tpu_torch.device import default_device, set_default_device, use_devi
 from sdfkit_tpu_torch.fit import FitResult, fit
 from sdfkit_tpu_torch.grid import voxelize
 from sdfkit_tpu_torch.mesh import Mesh, Voxels
+from sdfkit_tpu_torch.mesh.marching_cubes import create_mesh
+from sdfkit_tpu_torch.registration.icp import (
+    GridNN,
+    IterativeClosestPoint,
+    NearestNeighbors,
+    global_register_points,
+    nearest_neighbors,
+    register_points_torch,
+)
 from sdfkit_tpu_torch.render.raymarch import RayMarcher, RenderConfig, render, render_depth
 from sdfkit_tpu_torch.sdf import expr as sdf
 from sdfkit_tpu_torch.sdf.sample import sample
@@ -51,7 +65,10 @@ __all__ = [
     "Capsule",
     "Cylinder",
     "FitResult",
+    "GridNN",
+    "IterativeClosestPoint",
     "Mesh",
+    "NearestNeighbors",
     "Plane",
     "RayMarcher",
     "RenderConfig",
@@ -62,18 +79,22 @@ __all__ = [
     "Voxels",
     "box",
     "capsule",
+    "create_mesh",
     "cylinder",
     "default_device",
     "fit",
+    "global_register_points",
     "leaves",
     "load_leaves",
     "look_at",
+    "nearest_neighbors",
     "ops",
     "parallel",
     "perspective_fov",
     "plane",
     "plane_xy",
     "plane_xz",
+    "register_points_torch",
     "render",
     "render_depth",
     "sample",

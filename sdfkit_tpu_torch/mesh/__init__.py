@@ -1,4 +1,4 @@
-"""Volumes and meshes (``sdfkit_tpu/mesh``). Marching cubes is not ported yet."""
+"""Volumes, meshes and marching cubes (``sdfkit_tpu/mesh``)."""
 
 from sdfkit_tpu_torch.mesh.mesh import Mesh
 from sdfkit_tpu_torch.mesh.voxels import Voxels

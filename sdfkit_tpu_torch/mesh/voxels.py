@@ -73,10 +73,11 @@ class Voxels:
         return float(self.values[idx[0], idx[1], idx[2]])
 
     def to_mesh(self, iso_value: float = 0.0, step: int = 1, progress=None):
-        raise NotImplementedError(
-            "Voxels.to_mesh needs marching cubes (sdfkit_tpu/mesh/marching_cubes.py), "
-            "which is not ported yet"
-        )
+        """The iso-surface mesh: marching cubes with its dense phase on the
+        volume's device (``mesh/marching_cubes.py``)."""
+        from sdfkit_tpu_torch.mesh.marching_cubes import create_mesh
+
+        return create_mesh(self, iso_value=iso_value, step=step, progress=progress)
 
     def save(self, path) -> None:
         """Persist the volume as a compressed .npz archive."""

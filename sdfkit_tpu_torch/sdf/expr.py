@@ -236,10 +236,10 @@ class SdfExpr(nn.Module):
 
     def to_mesh(self, vmin, vmax, nx, ny, nz, clip_to_bounds=True, iso_value=0.0, step=1,
                 progress=None):
-        raise NotImplementedError(
-            "SdfExpr.to_mesh needs marching cubes (sdfkit_tpu/mesh/marching_cubes.py), "
-            "which is not ported yet"
-        )
+        """Voxelize on the scene's device, then mesh (no autograd tape)."""
+        with torch.no_grad():
+            v = self.to_voxels(vmin, vmax, nx, ny, nz, clip_to_bounds=clip_to_bounds)
+        return v.to_mesh(iso_value=iso_value, step=step, progress=progress)
 
     def to_image(self, width, height, camera=None, **kwargs) -> torch.Tensor:
         from sdfkit_tpu_torch.render.raymarch import RayMarcher

@@ -39,7 +39,8 @@ NO_JAX = textwrap.dedent("""
     import importlib, pkgutil, tempfile
     names = [m.name for m in pkgutil.walk_packages(st.__path__, "sdfkit_tpu_torch.")]
     for required in ("parallel.elastic", "grid", "mesh.voxels", "mesh.mesh", "sdf.sample",
-                     "io.tga", "render.cuda.raymarch_kernel"):
+                     "io.tga", "render.cuda.raymarch_kernel", "mesh.marching_cubes",
+                     "mesh.luts", "native", "registration.icp"):
         assert "sdfkit_tpu_torch." + required in names, (required, names)
     for name in names:
         importlib.import_module(name)
@@ -407,3 +408,14 @@ def test_fit_is_exported():
     from sdfkit_tpu_torch.fit import FitResult, fit
 
     assert st.fit is fit and st.FitResult is FitResult and "fit" in st.__all__
+
+
+def test_meshing_and_registration_are_exported():
+    from sdfkit_tpu_torch.mesh.marching_cubes import create_mesh
+    from sdfkit_tpu_torch.registration import icp
+
+    assert st.create_mesh is create_mesh
+    names = ("IterativeClosestPoint", "register_points_torch", "global_register_points",
+             "NearestNeighbors", "GridNN", "nearest_neighbors")
+    assert all(getattr(st, n) is getattr(icp, n) for n in names)
+    assert {"create_mesh", *names} <= set(st.__all__)

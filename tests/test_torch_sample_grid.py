@@ -111,12 +111,16 @@ class TestSdfTestsGoldens:
         assert abs(float(v.values[63, 63, 63]) + r) < 2e-2
 
     def test_to_mesh_waits_for_marching_cubes(self):
-        with pytest.raises(NotImplementedError, match="marching cubes"):
-            st.sphere(0.5).to_mesh((-1, -1, -1), (1, 1, 1), 8, 8, 8)
+        # Marching cubes has landed: both entry points mesh, and agree with
+        # the JAX package (SdfTests.cs CreateMeshSphere: 1248 vertices at 32^3).
+        m = st.sphere(0.5).to_mesh((-1, -1, -1), (1, 1, 1), 32, 32, 32)
+        jm = sk.sphere(0.5).to_mesh((-1, -1, -1), (1, 1, 1), 32, 32, 32)
+        assert len(m.vertices) == len(jm.vertices) == 1248
+        np.testing.assert_array_equal(m.triangles, jm.triangles)
         with torch.no_grad():
             v = st.sphere(0.5).to_voxels((-1, -1, -1), (1, 1, 1), 4, 4, 4)
-        with pytest.raises(NotImplementedError, match="marching cubes"):
-            v.to_mesh()
+        assert len(v.to_mesh().vertices) == len(
+            sk.sphere(0.5).to_voxels((-1, -1, -1), (1, 1, 1), 4, 4, 4).to_mesh().vertices)
 
 
 class TestCellCenters:
