@@ -337,8 +337,8 @@ def phase_icp(st, smi: str) -> dict:
                     return icp.register_points_torch(static, moved, nn=mode, grid=grid)
 
             if grid is not None:
-                grid_pass = grid._grid_pass
-                grid._grid_pass = lambda q: searches.append(1) or grid_pass(q)
+                query = grid.query
+                grid.query = lambda q: searches.append(1) or query(q)
             else:
                 brute = icp.nearest_neighbors
                 icp.nearest_neighbors = lambda *a, **k: searches.append(1) or brute(*a, **k)
@@ -368,8 +368,9 @@ def phase_icp(st, smi: str) -> dict:
                            "iterations": iterations, "max_err_vs_static": err,
                            "vs_host_loop": [err_t, err_a]}
             if grid is not None:
-                entry[mode]["doubtful_queries_first_iteration"] = int(
-                    (~grid_pass(moved)[1]).sum())
+                per = icp.GRID_QUERY_CANDIDATES // (27 * grid.K)  # query's own chunks
+                entry[mode]["doubtful_queries_first_iteration"] = sum(
+                    int((~grid._grid_pass(moved[s:s + per])[1]).sum()) for s in range(0, n, per))
         # The user's entry point: register_points picks the device loop here.
         _, ms = host_ms(lambda: st.IterativeClosestPoint(static_h).register_points(moved_h))
         entry["register_points_ms"] = ms
@@ -399,7 +400,9 @@ def phase_icp(st, smi: str) -> dict:
                 np.linalg.svd(c_h)
             entry["svd3x3_ms_card"] = svd_ms
             entry["svd3x3_ms_host_float64"] = (time.perf_counter() - t0) / 1000 * 1e3
-            # How long the card idles in a registration (one host read a step).
+            # How long the card idles in a registration (one host read a step):
+            # the profiler's busy time over the registration's time without the
+            # profiler, which slows the host's side of a run.
             from torch.profiler import ProfilerActivity, profile
 
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -407,8 +410,10 @@ def phase_icp(st, smi: str) -> dict:
             busy = sum(e.self_device_time_total for e in prof.key_averages()
                        if getattr(e, "self_device_time_total", 0) > 0
                        and "cuda" in str(e.device_type).lower()) / 1e3
-            entry["profile_brute"] = {"wall_ms": wall, "device_busy_ms": busy,
-                                      "idle_share": 1.0 - busy / wall if busy > 0 else None}
+            plain_wall = entry["brute"]["ms_host_clock"]
+            entry["profile_brute"] = {"wall_ms_profiled": wall, "wall_ms": plain_wall,
+                                      "device_busy_ms": busy,
+                                      "idle_share": 1.0 - busy / plain_wall if busy > 0 else None}
         print(f"icp {n}: {json.dumps(entry)} on {smi}")
         out[str(n)] = entry
     return out
@@ -424,6 +429,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     import sdfkit_tpu_torch as st
     from sdfkit_tpu_torch import scenes
     from sdfkit_tpu_torch.io.png import read_png, write_png
@@ -592,22 +598,23 @@ def main() -> int:
     write_png(ARTIFACTS / "sphere_repeat_1920x1080.png", frame)
 
     # -- 5. time both paths with CUDA events (plain, kernel, kernel, plain) -
-    def time_frames(m) -> float:
+    def time_frames(m, warmup=WARMUP, timed=TIMED) -> float:
         with torch.no_grad():
-            for _ in range(WARMUP):
+            for _ in range(warmup):
                 m.render()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             start.record()
-            for _ in range(TIMED):
+            for _ in range(timed):
                 m.render()
             stop.record()
         torch.cuda.synchronize()
-        return start.elapsed_time(stop) / TIMED
+        return start.elapsed_time(stop) / timed
 
+    # The plain path's frames take ~80 ms each: fewer of them keep the run short.
     rounds = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
-        rounds[which].append(time_frames(plain if which == "plain" else marcher))
+        rounds[which].append(time_frames(plain, 1, 3) if which == "plain" else time_frames(marcher))
     kernel_ms = float(np.mean(rounds["kernel"]))
     plain_ms = float(np.mean(rounds["plain"]))
     # The launch alone, without the per-frame host work of the wrapper
@@ -918,11 +925,11 @@ def main() -> int:
             torch.mean((m.render() - tgt) ** 2).backward()
         return run
 
-    def backward_only(w, h, backend, tgt) -> float:
+    def backward_only(w, h, backend, tgt, warmup=WARMUP, timed=TIMED) -> float:
         """The backward pass alone: the loss is built outside the events."""
         m = st.RayMarcher(w, h, hero, view=hero_view, backend=backend)
         total = 0.0
-        for i in range(WARMUP + TIMED):
+        for i in range(warmup + timed):
             loss = torch.mean((m.render() - tgt) ** 2)
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
@@ -930,17 +937,20 @@ def main() -> int:
             loss.backward()
             stop.record()
             torch.cuda.synchronize()
-            if i >= WARMUP:
+            if i >= warmup:
                 total += start.elapsed_time(stop)
-        return total / TIMED
+        return total / timed
 
     pw, ph = plain_size if plain_size is not None else (480, 270)
     grad_rounds = {"plain": [], "kernel": [], "kernel_full": []}
     bwd_rounds = {"plain": [], "kernel": []}
     for which in ("plain", "kernel", "kernel", "plain"):
         backend = "torch" if which == "plain" else "kernel"
-        grad_rounds[which].append(events(grad_step(pw, ph, backend, small_target), 2, 5))
-        bwd_rounds[which].append(backward_only(pw, ph, backend, small_target))
+        # A plain step at full size takes ~0.3 s: one warm-up and three timed.
+        turns = (1, 3) if which == "plain" else (2, 5)
+        grad_rounds[which].append(events(grad_step(pw, ph, backend, small_target), *turns))
+        bwd_rounds[which].append(backward_only(pw, ph, backend, small_target,
+                                               *((1, 3) if which == "plain" else (WARMUP, TIMED))))
     grad_rounds["kernel_full"].append(events(grad_step(WIDTH, HEIGHT, "kernel", target)))
     grad_ms = float(np.mean(grad_rounds["kernel_full"]))
     plain_bwd_ms = float(np.mean(bwd_rounds["plain"]))
@@ -2214,8 +2224,12 @@ def main() -> int:
           f"{bwd_bytes + store_bytes}")
 
     # -- 17. meshing; 18. registration -----------------------------------------
+    t_mesh = time.perf_counter()
     mesh_line = phase_mesh(st, smi)
+    t_icp = time.perf_counter()
     icp_line = phase_icp(st, smi)
+    print(f"clock: phases 1-16 took {t_mesh - t_start:.1f} s (the kernels' builds included), "
+          f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {time.perf_counter() - t_icp:.1f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -18,6 +18,7 @@ iteration, the search on the device) and :func:`register_points_torch`
 from __future__ import annotations
 
 import contextlib
+import functools
 
 import numpy as np
 import torch
@@ -30,7 +31,6 @@ CONVERGED_MAX_TRANSLATION = 1.0e-4  # IterativeClosestPoint.cs:23
 CONVERGED_MAX_ROTATION = 1.0e-5  # IterativeClosestPoint.cs:25
 
 GRID_NN_MIN_POINTS = 50_000  # brute force keeps smaller clouds
-ICP_GRID_REPAIR_CAP = 4096  # register_points_torch's default ``repair_cap``
 # Candidates (queries x 27 buckets x the largest bucket) a grid pass holds at
 # once: about 0.7 GB of temporaries.
 GRID_QUERY_CANDIDATES = 1 << 24
@@ -398,32 +398,8 @@ def _host(x):
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else x
 
 
-def _brute_nn(static_points, chunk):
-    def nn(pts):
-        return nearest_neighbors(static_points, pts, chunk)[0]
-    return nn
-
-
-def _grid_nn(grid: GridNN, static_points, chunk: int, repair_cap: int):
-    """The grid index's answers; its doubtful queries go to brute force, all
-    of the queries at once when there are more than ``repair_cap``."""
-    def nn(pts):
-        q = pts.detach()
-        with torch.no_grad():
-            idx, ok = grid._grid_pass(q)
-            bad = torch.nonzero(~ok).squeeze(1)
-            n_bad = bad.numel()
-            if n_bad > repair_cap:
-                return nearest_neighbors(static_points, q, chunk)[0]
-            if n_bad:
-                idx[bad] = nearest_neighbors(static_points, q[bad], chunk)[0]
-            return idx
-    return nn
-
-
 def register_points_torch(static_points, points, max_iterations: int = MAX_ITERATIONS,
-                          nn: str = "auto", grid: GridNN | None = None,
-                          repair_cap: int = ICP_GRID_REPAIR_CAP):
+                          nn: str = "auto", grid: GridNN | None = None):
     """ICP on the static points' device in float32, differentiable by
     autograd with respect to both point sets. Returns (aligned points, total
     transform) tensors. The counterpart of the JAX package's
@@ -437,21 +413,17 @@ def register_points_torch(static_points, points, max_iterations: int = MAX_ITERA
     ``nn``: 'brute' scans every static point each iteration; 'grid' uses the
     exact :class:`GridNN` (``grid`` if given, a new one otherwise) and raises
     when it declines; 'auto' takes the grid past ``GRID_NN_MIN_POINTS`` when
-    it builds. Every choice gives the same correspondences. ``repair_cap``:
-    above this many doubtful queries an iteration runs brute force over all
-    queries instead of over those."""
+    it builds. Every choice gives the same correspondences."""
     static_points = _as_points(static_points)
     points = _as_points(points, static_points.device)
-    n_static = static_points.shape[0]
-    chunk = int(min(2048, max(n_static, 1)))
     if nn not in ("auto", "brute", "grid"):
         raise ValueError(f"unknown nn mode {nn!r}")
-    nn_fn = _brute_nn(static_points, chunk)
-    if nn == "grid" or (nn == "auto" and n_static >= GRID_NN_MIN_POINTS):
+    search = functools.partial(nearest_neighbors, static_points)
+    if nn == "grid" or (nn == "auto" and static_points.shape[0] >= GRID_NN_MIN_POINTS):
         if grid is None:
             grid = GridNN(static_points)
         if grid.ok:
-            nn_fn = _grid_nn(grid, static_points, chunk, int(repair_cap))
+            search = grid.query
         elif nn == "grid":
             raise ValueError(
                 "grid NN index declined (a bucket exceeds max_bucket — degenerate "
@@ -463,7 +435,7 @@ def register_points_torch(static_points, points, max_iterations: int = MAX_ITERA
     pts, total = points, eye4
     with _full_float32_matmul():
         for _ in range(int(max_iterations)):
-            cor = static_points[nn_fn(pts)]
+            cor = static_points[search(pts)[0]]
             with torch.no_grad():
                 diff = pts - cor
                 dist = torch.sqrt(torch.sum(diff * diff, dim=1))

@@ -473,7 +473,7 @@ class TestGridNN:
 
 class TestGridScanIcp:
     """The grid index inside the device loop: the brute loop's trajectory,
-    gradients, the repair cap."""
+    gradients, chunked queries."""
 
     def _fixture(self, n=4000, m=2000, seed=1):
         rng = np.random.default_rng(seed)
@@ -507,15 +507,18 @@ class TestGridScanIcp:
         torch.sum((a - torch.from_numpy(static[:2000])) ** 2).backward()
         assert bool(torch.isfinite(mv.grad).all())
 
-    def test_repair_cap_fallback_matches(self):
+    def test_doubtful_queries_in_chunks_match_brute(self, monkeypatch):
         static, moved = self._fixture(seed=3)
         moved = moved + np.float32(0.5)  # misaligned: many doubtful queries
-        assert int((~GridNN(static)._grid_pass(torch.from_numpy(moved))[1]).sum()) > 8
+        grid = GridNN(static)
+        assert int((~grid._grid_pass(torch.from_numpy(moved))[1]).sum()) > 8
         _, t1 = register_points_torch(static, moved, nn="brute")
-        _, t2 = register_points_torch(static, moved, nn="grid", repair_cap=8)
-        _, t3 = register_points_torch(static, moved, nn="grid")
+        _, t2 = register_points_torch(static, moved, nn="grid", grid=grid)
+        # Query chunks of 37 points: every iteration's search runs in 55 pieces.
+        monkeypatch.setattr(icp, "GRID_QUERY_CANDIDATES", 27 * grid.K * 37)
+        _, t3 = register_points_torch(static, moved, nn="grid", grid=grid)
         np.testing.assert_allclose(t2.numpy(), t1.numpy(), atol=2e-5)
-        np.testing.assert_allclose(t3.numpy(), t1.numpy(), atol=2e-5)
+        np.testing.assert_array_equal(t3.numpy(), t2.numpy())
 
     def test_auto_takes_the_grid_past_the_threshold(self, monkeypatch):
         static, moved = self._fixture()
