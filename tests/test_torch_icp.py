@@ -516,7 +516,11 @@ class TestGridScanIcp:
         _, t2 = register_points_torch(static, moved, nn="grid", grid=grid)
         # Query chunks of 37 points: every iteration's search runs in 55 pieces.
         monkeypatch.setattr(icp, "GRID_QUERY_CANDIDATES", 27 * grid.K * 37)
+        passes = []
+        grid_pass = grid._grid_pass
+        monkeypatch.setattr(grid, "_grid_pass", lambda q: passes.append(len(q)) or grid_pass(q))
         _, t3 = register_points_torch(static, moved, nn="grid", grid=grid)
+        assert passes and len(passes) % 55 == 0 and max(passes) == 37
         np.testing.assert_allclose(t2.numpy(), t1.numpy(), atol=2e-5)
         np.testing.assert_array_equal(t3.numpy(), t2.numpy())
 
