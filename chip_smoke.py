@@ -58,13 +58,23 @@ iterations:
      loop and the static cloud (1e-4), the grid index against brute force on
      100,000 queries, a gradient through ``register_points_torch``; times on
      the host clock and with CUDA events, iteration counts, the 3x3 SVD on the
-     card and on the host, and the card's idle share in a registration.
+     card and on the host, and the card's idle share in a registration;
+19   the sharded paths (``sdfkit_tpu_torch.parallel``) over 4 ranks on this
+     card in one ``gloo`` group, through ``tools/torch_distributed_demo.py``
+     (the SphereRepeat libraries built here first, so no rank runs nvcc):
+     ``render_sharded`` RGB and depth at 1920x1080 and a small odd frame, 4K
+     depth, nine tiles over the mesh (and resumed on one rank) bit for bit,
+     ``train_step_sharded`` and ``fit(mesh=)`` against one rank,
+     ``voxelize_sharded`` at 256^3 and 512x128x128 and ``create_mesh_sharded``
+     on the 256^3 bricks array-equal to one device's, the image kernels
+     launched once per rank's band, with times beside one rank's; then an
+     NCCL group of one rank in this process.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
 result line, when there is no CUDA device or any check fails; on success it
-prints one JSON line each for ``mesh`` and ``icp``, the card's name and power
-limit, one line of JSON that lists the six kernels, and last
+prints one JSON line each for ``mesh``, ``icp`` and ``sharded``, the card's
+name and power limit, one line of JSON that lists the six kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -416,6 +426,127 @@ def phase_icp(st, smi: str) -> dict:
                                       "idle_share": 1.0 - busy / plain_wall if busy > 0 else None}
         print(f"icp {n}: {json.dumps(entry)} on {smi}")
         out[str(n)] = entry
+    return out
+
+
+SHARDED_RANKS = 4
+SHARDED_TIMEOUT = 600.0
+
+
+def sharded_launches(line: dict, which: int) -> dict:
+    """Phase 19's launches of the image forward (``which`` 0) or backward (1),
+    summed over the ranks, of the sharded frame, train step and fit steps."""
+    per_rank = line.get("launches_per_rank", {})
+    keys = [k for k in per_rank if k.startswith(("k_render_sharded_1920", "k_train_step",
+                                                 "k_fit_mesh"))]
+    return {"ranks": line["ranks"], "backend": line["backend"],
+            **{k: sum(r[which] for r in per_rank[k]) for k in keys}}
+
+
+def phase_sharded(st, smi: str) -> dict:
+    """Phase 19: the sharded paths over 4 ranks on this one card (a gloo
+    group), through tools/torch_distributed_demo.py, and an NCCL group of
+    one rank in this process."""
+    import torch.distributed as dist
+
+    from sdfkit_tpu_torch import parallel as par
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.parallel import distributed
+    from sdfkit_tpu_torch.render.cuda import build
+    from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
+    from sdfkit_tpu_torch.sdf.compile import compile_scene
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_distributed_demo as demo
+
+    hero = scenes.sphere_repeat_scene()
+    prog = compile_scene(hero)
+    # The SphereRepeat libraries the ranks load: built here (phases 1-8 did),
+    # so that no rank runs nvcc.
+    build.load(prog)
+    build.load_bwd(prog)
+    out = {"ranks": SHARDED_RANKS, "backend": "gloo", "device": "cuda:0 (shared)", "gpu": smi}
+    t0 = time.perf_counter()
+    try:
+        reports = demo.launch(SHARDED_RANKS, device="cuda", size="full", backend="gloo",
+                              timeout=SHARDED_TIMEOUT, echo=True)
+    except RuntimeError as e:
+        print(str(e)[-8000:], file=sys.stderr)
+        check(False, f"{SHARDED_RANKS} ranks on one card ran every sharded check")
+        return out
+    out["seconds"] = time.perf_counter() - t0
+    failed = [what for r in reports for ok, what in r["checks"] if not ok]
+    n_checks = sum(len(r["checks"]) for r in reports)
+    check(not failed and n_checks > 0,
+          f"{SHARDED_RANKS} ranks in one gloo group on {reports[0]['device']}: {n_checks} checks "
+          f"passed on the ranks in {out['seconds']:.1f} s (CUDA start of every rank included)")
+    check(all(r["backend"] == "gloo" and r["ranks"] == SHARDED_RANKS for r in reports)
+          and all(r["nvcc_builds"] == 0 for r in reports),
+          f"every rank joined the gloo group of {SHARDED_RANKS} and built nothing "
+          f"(nvcc runs {[r['nvcc_builds'] for r in reports]})")
+    launches = {k: [r["launches"][k] for r in reports] for k in reports[0]["launches"]}
+    out["launches_per_rank"] = launches
+    # One image forward per rank and frame; in a gradient step one forward
+    # and one backward per rank, each over the rank's band.
+    frame = f"k_render_sharded_{demo.SIZES['full']['width']}x{demo.SIZES['full']['height']}"
+    steps = demo.SIZES["full"]["fit_steps"]
+    check(launches[frame] == [[1, 0]] * SHARDED_RANKS
+          and launches["k_train_step_sharded"] == [[1, 1]] * SHARDED_RANKS
+          and launches["k_fit_mesh"] == [[steps, steps]] * SHARDED_RANKS
+          and all(f == 1 for f, _ in launches["render_sharded_depth_4k"]),
+          f"the sharded frame, train step and fit(mesh=) went through the kernels once per rank's "
+          f"band: {launches}")
+    out["mesh_vertices"] = reports[0]["mesh_vertices"]
+    check(reports[0]["mesh_vertices"] == JAX_MESH_VERTICES[256],
+          f"create_mesh_sharded at 256^3: {reports[0]['mesh_vertices']} vertices "
+          f"({JAX_MESH_VERTICES[256]} expected)")
+    out["errors"] = reports[0]["errors"]
+    out["times"] = reports[0]["times"]
+    for name, t in reports[0]["times"].items():
+        one = (f"one rank min {min(t['one_rank_ms']):.3f} ms "
+               f"{[round(x, 3) for x in t['one_rank_ms']]}" if t["one_rank_ms"] else "")
+        print(f"sharded {name}: {SHARDED_RANKS} ranks (gloo, one card) min "
+              f"{min(t['ranks_ms']):.3f} ms {[round(x, 3) for x in t['ranks_ms']]}; {one}; "
+              f"on {smi}")
+
+    # -- an NCCL group of one rank, in this process: the collectives run (a
+    #    group of one still calls them) and the results are one device's.
+    with tempfile.TemporaryDirectory() as d:
+        par.initialize(f"file://{d}/nccl", backend="nccl", world_size=1, rank=0)
+        try:
+            mesh = par.make_mesh()
+            one = distributed.single(mesh.device)
+            eye = st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+            with torch.no_grad():
+                target = st.RayMarcher(WIDTH, HEIGHT, hero, view=eye).render().clone()
+                start = scenes.sphere_repeat_scene()
+                st.leaves(start)[0].fill_(START_RADIUS)
+            torch.cuda.synchronize()
+            rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+            frame_img = par.render_sharded(mesh, hero, WIDTH, HEIGHT, view=eye)
+            new, loss = par.train_step_sharded(mesh, start, target, view=eye)
+            torch.cuda.synchronize()
+            nccl_launches = (rk.LAUNCHES, rk.BWD_LAUNCHES)
+            ref, ref_loss = par.train_step_sharded(one, start, target, view=eye)
+            bricks = par.voxelize_sharded(mesh, hero, (-2.0,) * 3, (2.0,) * 3, 64, 64, 64)
+            whole = bricks.gather()
+            with torch.no_grad():
+                vox = st.voxelize(hero, (-2.0,) * 3, (2.0,) * 3, 64, 64, 64)
+            same_leaves = all(torch.equal(a, b) for a, b in zip(st.leaves(new), st.leaves(ref)))
+            check(mesh.backend == "nccl" and mesh.size == 1 and mesh.device.type == "cuda"
+                  and torch.equal(frame_img, target) and loss.item() == ref_loss.item()
+                  and same_leaves and torch.equal(whole.values, vox.values)
+                  and nccl_launches == (2, 1),
+                  f"an NCCL group of one rank on {mesh.device}: the 1920x1080 frame, the train step "
+                  f"(loss {loss.item():.7g}) and the 64^3 bricks gathered through NCCL equal one "
+                  f"device's bit for bit; launches {nccl_launches}")
+            ms = []
+            for _ in range(5):
+                _, t = host_ms(lambda: par.render_sharded(mesh, hero, WIDTH, HEIGHT, view=eye))
+                ms.append(t)
+            out["nccl_one_rank_frame_ms"] = ms
+        finally:
+            dist.destroy_process_group()
     return out
 
 
@@ -2228,8 +2359,12 @@ def main() -> int:
     mesh_line = phase_mesh(st, smi)
     t_icp = time.perf_counter()
     icp_line = phase_icp(st, smi)
+    # -- 19. the sharded paths over 4 ranks on this card ---------------------------
+    t_sharded = time.perf_counter()
+    sharded_line = phase_sharded(st, smi)
     print(f"clock: phases 1-16 took {t_mesh - t_start:.1f} s (the kernels' builds included), "
-          f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {time.perf_counter() - t_icp:.1f} s")
+          f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {t_sharded - t_icp:.1f} s, phase 19 "
+          f"{time.perf_counter() - t_sharded:.1f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -2238,17 +2373,20 @@ def main() -> int:
         return 1
     print(json.dumps({"mesh": mesh_line}))
     print(json.dumps({"icp": icp_line}))
+    print(json.dumps({"sharded": sharded_line}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
+         "launches_sharded": sharded_launches(sharded_line, 0),
          "max_abs_err": full_stats["max"], "ms": launch_ms, "frame_ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
          "bound_ms_fixed_work": fwd_fixed_bound, "issue_share": issue_share.get("raymarch_fwd"),
          "warp_steps_saved": warp_saved, "mostly_sky_ms": sky_fwd_ms,
          **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
-         "replaces": BWD_REPLACES, "launches": bwd_launches, "max_abs_err": bwd_err,
+         "replaces": BWD_REPLACES, "launches": bwd_launches,
+         "launches_sharded": sharded_launches(sharded_line, 1), "max_abs_err": bwd_err,
          "ms": bwd_launch_ms, "plain_ms": plain_bwd_ms, "plain_shape": [pw, ph],
          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
          "mostly_sky_ms": sky_bwd_ms,

@@ -10,8 +10,13 @@ the kernels for a scene on CUDA.
 
 Checkpoint and resume: the step, the leaves and the optimizer state are saved
 with ``torch.save`` every ``checkpoint_every`` steps, and ``fit`` resumes
-from the latest step found in ``checkpoint_dir``. The JAX package's ``mesh``
-argument (the multi-device loop) is not ported yet.
+from the latest step found in ``checkpoint_dir``.
+
+``fit(..., mesh=mesh)`` runs every step over the ranks of a
+``parallel.Mesh``: each rank renders its row band, one all-reduce sums the
+gradients and the loss, and the clipping and Adam run on the summed
+gradient, so every rank takes the same step (the JAX package's
+``_fit_step_sharded`` and ``_fit_step_sharded_fused``).
 """
 
 from __future__ import annotations
@@ -112,6 +117,7 @@ def fit(
     checkpoint_every: int = 50,
     progress: Callable[[int, float], None] | None = None,
     backend: str = "auto",
+    mesh=None,
     **cfg_kwargs,
 ) -> FitResult:
     """Fit ``sdf``'s parameters so its render matches ``target`` (H, W, 3).
@@ -132,8 +138,17 @@ def fit(
     that grazes a silhouette accumulates depth and its parameter gradient
     explodes), so unclipped Adam overshoots. A caller's optimizer runs
     unclipped.
+
+    ``mesh``: a ``parallel.Mesh`` to split every step's frame in row bands
+    over its ranks; every rank calls ``fit`` with the same arguments and gets
+    the same result. Rank 0 alone writes checkpoints; a resume restores on
+    every rank from ``checkpoint_dir``, which every rank sees.
     """
-    resolve_backend(backend, sdf)  # refuse a bad backend before the scene is copied
+    from sdfkit_tpu_torch.parallel.distributed import Mesh
+
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a sdfkit_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
+    backend = resolve_backend(backend, sdf)  # refuse a bad backend before the scene is copied
     sdf = copy.deepcopy(sdf)
     device = scene_device(sdf)
     if not isinstance(target, torch.Tensor):
@@ -145,6 +160,10 @@ def fit(
     if view is not None:
         view = torch.as_tensor(view, dtype=torch.float32, device=device)
     marcher = RayMarcher(width, height, sdf, view=view, backend=backend, **cfg_kwargs)
+    if mesh is not None:
+        from sdfkit_tpu_torch.parallel.train import band_loss_and_grads, row_renderer
+
+        render = row_renderer(sdf, marcher.view, marcher.config, backend)
 
     params = leaves(sdf)
     clip = optimizer is None
@@ -161,10 +180,13 @@ def fit(
 
     losses: list[float] = []
     for step in range(start_step, steps):
-        for p in params:  # every leaf, also those a caller's optimizer leaves out
-            p.grad = None
-        loss = image_loss_fn(marcher, target)
-        loss.backward()
+        if mesh is not None:
+            loss = band_loss_and_grads(mesh, render, params, target)
+        else:
+            for p in params:  # every leaf, also those a caller's optimizer leaves out
+                p.grad = None
+            loss = image_loss_fn(marcher, target)
+            loss.backward()
         if clip:
             clip_by_global_norm_(params, 1.0)
         opt.step()
@@ -173,7 +195,10 @@ def fit(
         if progress is not None:
             progress(step, loss)
         if directory is not None and ((step + 1) % checkpoint_every == 0 or step + 1 == steps):
-            _save(directory, step + 1, params, opt)
+            if mesh is None or mesh.rank == 0:
+                _save(directory, step + 1, params, opt)
+            if mesh is not None:
+                mesh.barrier()
     return FitResult(sdf=sdf, losses=losses, steps_run=steps - start_step,
                      resumed_from=resumed_from)
 

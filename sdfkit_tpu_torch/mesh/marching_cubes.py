@@ -118,26 +118,23 @@ def _edge_offsets(ny: int, nz: int, step: int):
             flat(luts.CORNER_DX, luts.CORNER_DY, luts.CORNER_DZ))
 
 
-def _edge_vertex_colors(values_flat, colors_flat, base, vi, off1, off2, iso: float):
-    """Edge-vertex colours from the resident grids: the endpoints' flat ids
-    are the cell's base plus the edge's offsets, and the inverse-|value|
-    weights (Cell.cs:298-311) are recomputed in float32 (at most an ulp from
-    the host's float64 weights)."""
-    i1 = base + off1[vi]
-    i2 = base + off2[vi]
-    t1 = 1.0 / (FLT_EPSILON + (values_flat[i1] - iso).abs())
-    t2 = 1.0 / (FLT_EPSILON + (values_flat[i2] - iso).abs())
+def _edge_vertex_colors(v1, v2, c1, c2, iso: float):
+    """Edge-vertex colours from the values (v1, v2) and colours (c1, c2) at
+    the edges' two endpoints: the inverse-|value| weights (Cell.cs:298-311)
+    recomputed in float32 (at most an ulp from the host's float64 weights)."""
+    t1 = 1.0 / (FLT_EPSILON + (v1 - iso).abs())
+    t2 = 1.0 / (FLT_EPSILON + (v2 - iso).abs())
     w = (t1 / (t1 + t2))[:, None]
-    return colors_flat[i1] * w + colors_flat[i2] * (1.0 - w)
+    return c1 * w + c2 * (1.0 - w)
 
 
-def _center_vertex_colors(values_flat, colors_flat, base, deltas, iso: float):
-    """Centre-vertex (v12) colours: the eight corners' inverse-|value|
-    weighted blend (Cell.CalculateCenterVertex, Cell.cs:501-549)."""
-    ids = base[:, None] + deltas[None, :]
-    s = 1.0 / (FLT_EPSILON + (values_flat[ids] - iso).abs())
+def _center_vertex_colors(v8, c8, iso: float):
+    """Centre-vertex (v12) colours from the values (n, 8) and colours
+    (n, 8, 3) at the cells' eight corners: their inverse-|value| weighted
+    blend (Cell.CalculateCenterVertex, Cell.cs:501-549)."""
+    s = 1.0 / (FLT_EPSILON + (v8 - iso).abs())
     w = s / s.sum(dim=1, keepdim=True)
-    return (colors_flat[ids] * w[:, :, None]).sum(dim=1)
+    return (c8 * w[:, :, None]).sum(dim=1)
 
 
 def create_mesh(voxels, iso_value: float = 0.0, step: int = 1, progress=None) -> Mesh:
@@ -184,15 +181,26 @@ def _create_mesh(voxels, iso_value: float, step: int, progress) -> Mesh:
     del parts
     active = torch.nonzero(mask.reshape(-1)).squeeze(1)  # synchronises
     LAST_TIMINGS["dense_classify_ms"] = (time.perf_counter() - t0) * 1e3
-    n_active = active.numel()
-    if n_active == 0:
+    if active.numel() == 0:
         return _empty_mesh()
 
-    t0 = time.perf_counter()
     points = values[0:lx * step + 1:step, 0:ly * step + 1:step, 0:lz * step + 1:step]
     pvals = points.permute(2, 1, 0)[_point_mask(mask)]
     del mask
-    n_points = pvals.numel()
+    return sparse_phase(active, pvals, values.shape, step, iso, size_center,
+                        grid_reader(values, colors), values.device)
+
+
+def sparse_phase(active, pvals, shape, step: int, iso: float, size_center, read,
+                 device) -> Mesh:
+    """The mesh from the active cells' flat (z, y, x) ids and the values of
+    their unique corner points in ascending point id (device tensors): one
+    copy to the host, the C++ sparse phase, and the colour blends on
+    ``device`` through ``read`` (see ``_blend_colors``)."""
+    nx, ny, nz = shape
+    lx, ly, lz = _visited(nx, step), _visited(ny, step), _visited(nz, step)
+    t0 = time.perf_counter()
+    n_active, n_points = active.numel(), pvals.numel()
     # One copy to the host: the int64 ids and the float32 values as int32 words.
     wire = torch.cat([active.view(torch.int32), pvals.view(torch.int32)]).cpu().numpy()
     active_h = wire[:2 * n_active].view(np.int64)
@@ -211,7 +219,7 @@ def _create_mesh(voxels, iso_value: float, step: int, progress) -> Mesh:
         LAST_TIMINGS["native_geometry_ms"] = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()
-        vcols = _blend_colors(values, colors, mc.color_inputs(), mc.n_verts, step, iso)
+        vcols = _blend_colors(read, shape, device, mc.color_inputs(), mc.n_verts, step, iso)
         LAST_TIMINGS["color_ms"] = (time.perf_counter() - t0) * 1e3
 
         t0 = time.perf_counter()
@@ -224,25 +232,45 @@ def _create_mesh(voxels, iso_value: float, step: int, progress) -> Mesh:
     return Mesh(verts, vcols_h, normals, stream)
 
 
-def _blend_colors(values, colors, ci: dict, n_verts: int, step: int, iso: float):
-    """Queue the vertex colour blends on the grids' device; returns the
-    (n_verts, 3) float32 colours there, not yet synchronised."""
-    _, ny, nz = values.shape
-    dev = values.device
-    off1, off2, deltas = (torch.from_numpy(a).to(dev) for a in _edge_offsets(ny, nz, step))
+def grid_reader(values, colors):
+    """``read(ids) -> (values, colours)`` at flat ids of the resident grids."""
     values_flat = values.reshape(-1)
     colors_flat = colors.reshape(-1, 3)
+    return lambda ids: (values_flat[ids], colors_flat[ids])
+
+
+def _blend_colors(read, shape, device, ci: dict, n_verts: int, step: int, iso: float):
+    """Queue the vertex colour blends on ``device``; returns the (n_verts, 3)
+    float32 colours there, not yet synchronised. ``read(ids)`` gives the
+    values and colours at flat ids of the (nx, ny, nz) grid ``shape``: the
+    edge vertices' two endpoints, then the centre vertices' eight corners, in
+    one call (``grid_reader`` on one device; the sharded mesh reads the
+    ranks' bricks)."""
+    _, ny, nz = shape
+    off1, off2, deltas = (torch.from_numpy(a).to(device) for a in _edge_offsets(ny, nz, step))
 
     def up(name):
-        return torch.from_numpy(ci[name].astype(np.int64)).to(dev)
+        return torch.from_numpy(ci[name].astype(np.int64)).to(device)
 
-    vcols = torch.zeros((n_verts, 3), dtype=torch.float32, device=dev)
-    if ci["edge_vid"].size:
-        vcols[up("edge_vid")] = _edge_vertex_colors(
-            values_flat, colors_flat, up("edge_base"), up("edge_vi"), off1, off2, iso)
-    if ci["center_vid"].size:
+    n_edge, n_center = ci["edge_vid"].size, ci["center_vid"].size
+    parts = []
+    if n_edge:
+        base, vi = up("edge_base"), up("edge_vi")
+        parts += [base + off1[vi], base + off2[vi]]
+    if n_center:
+        parts.append((up("center_base")[:, None] + deltas[None, :]).reshape(-1))
+    vcols = torch.zeros((n_verts, 3), dtype=torch.float32, device=device)
+    if not parts:
+        return vcols
+    vals, cols = read(torch.cat(parts))
+    if n_edge:
+        e = slice(0, n_edge), slice(n_edge, 2 * n_edge)
+        vcols[up("edge_vid")] = _edge_vertex_colors(vals[e[0]], vals[e[1]], cols[e[0]],
+                                                    cols[e[1]], iso)
+    if n_center:
+        c = slice(2 * n_edge, None)
         vcols[up("center_vid")] = _center_vertex_colors(
-            values_flat, colors_flat, up("center_base"), deltas, iso)
+            vals[c].view(n_center, 8), cols[c].view(n_center, 8, 3), iso)
     return vcols
 
 

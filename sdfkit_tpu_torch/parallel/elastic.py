@@ -1,13 +1,13 @@
 """Restartable rendering: a frame in row tiles, each persisted as it finishes.
 
-Counterpart of ``sdfkit_tpu/parallel/elastic.py`` for one device. The frame
-renders in row tiles, every finished tile is written atomically (temporary
-file, then rename: one ``.npy`` per tile plus a manifest), and a re-run of
-the same job resumes from the surviving tiles, bit-identical to an
-uninterrupted run because each tile is rendered by the same per-tile program
-either way. The JAX package can also shard a tile's rows over a device mesh;
-that waits for the port's multi-device path, and ``mesh=`` is refused until
-then.
+Counterpart of ``sdfkit_tpu/parallel/elastic.py``. The frame renders in row
+tiles, every finished tile is written atomically (temporary file, then
+rename: one ``.npy`` per tile plus a manifest), and a re-run of the same job
+resumes from the surviving tiles, bit-identical to an uninterrupted run
+because each tile is rendered by the same per-row program either way. With a
+``mesh`` each tile's rows are split in bands over the ranks
+(``train.render_rows_sharded``); rank 0 alone writes, and the mesh is not
+part of the manifest, so a frame started on four ranks resumes on one.
 """
 
 from __future__ import annotations
@@ -21,11 +21,12 @@ import os
 import numpy as np
 import torch
 
-from sdfkit_tpu_torch.render.raymarch import RenderConfig, render_rays, resolve_backend
+from sdfkit_tpu_torch.parallel.distributed import Mesh, single
+from sdfkit_tpu_torch.parallel.train import render_rows_sharded, row_renderer
+from sdfkit_tpu_torch.render.raymarch import RenderConfig, resolve_backend
 from sdfkit_tpu_torch.sdf.compile import compile_scene
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
-from sdfkit_tpu_torch.utils.camera import camera_rays, default_view, inv_view_proj
-from sdfkit_tpu_torch.utils.v3 import V3
+from sdfkit_tpu_torch.utils.camera import default_view
 
 
 def _scene_fingerprint(sdf: SdfExpr) -> str:
@@ -70,12 +71,16 @@ def render_tiles_resumable(
     the existing tiles. So are the scene (``_scene_fingerprint``), the view
     and the render settings: a directory that holds another job's tiles is
     refused.
+
+    ``mesh``: a ``parallel.Mesh`` to split each tile's rows over its ranks
+    (every rank calls this with the same arguments and gets the image). The
+    checkpoint directory is one that every rank sees; rank 0 alone writes
+    the manifest and the tiles, and the ranks wait for it after each tile.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "render_tiles_resumable(mesh=...) shards a tile over devices; the port's "
-            "multi-device path is not there yet"
-        )
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a sdfkit_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
+    mesh = single(scene_device(sdf)) if mesh is None else mesh
+    writer = mesh.rank == 0
     cfg = RenderConfig(width=int(width), height=int(height), **cfg_kwargs)
     tile_rows = int(tile_rows)
     if tile_rows < 1:
@@ -86,7 +91,9 @@ def render_tiles_resumable(
     else:
         view = torch.as_tensor(view, dtype=torch.float32, device=device)
     backend = resolve_backend(backend, sdf)
-    os.makedirs(checkpoint_dir, exist_ok=True)
+    if writer:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+    mesh.barrier()
 
     manifest_path = os.path.join(checkpoint_dir, "manifest.json")
     manifest = {
@@ -106,35 +113,42 @@ def render_tiles_resumable(
                 f"checkpoint_dir {checkpoint_dir} holds tiles of a different "
                 f"job (manifest mismatch); use a fresh directory"
             )
-    else:
+    elif writer:
         tmp = manifest_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(manifest, f)
         os.replace(tmp, manifest_path)
 
-    # A crash between np.save(tmp) and os.replace leaves an orphan: sweep
-    # them at the start so they never pile up across crashes.
-    for leftover in glob.glob(os.path.join(checkpoint_dir, "*.tmp.npy")):
-        with contextlib.suppress(OSError):
-            os.unlink(leftover)
-
-    render_tile = _make_tile_renderer(sdf, view, cfg, backend)
-
     n_tiles = -(-cfg.height // tile_rows)
+    paths = [os.path.join(checkpoint_dir, f"tile_{t:05d}.npy") for t in range(n_tiles)]
+    if writer:
+        # A crash between np.save(tmp) and os.replace leaves an orphan: sweep
+        # them at the start so they never pile up across crashes.
+        for leftover in glob.glob(os.path.join(checkpoint_dir, "*.tmp.npy")):
+            with contextlib.suppress(OSError):
+                os.unlink(leftover)
+    # Rank 0 says which tiles exist, so that every rank renders the same ones.
+    done = torch.tensor([writer and os.path.exists(p) for p in paths], dtype=torch.int32,
+                        device=mesh.device)
+    done = mesh.all_reduce_sum(done).tolist()
+
+    render = row_renderer(sdf, view, cfg, backend)
     tiles = []
     resumed = rendered = 0
-    for t in range(n_tiles):
-        path = os.path.join(checkpoint_dir, f"tile_{t:05d}.npy")
-        if os.path.exists(path):
+    for t, path in enumerate(paths):
+        if done[t]:
             tiles.append(np.load(path))
             resumed += 1
         else:
             r0 = t * tile_rows
-            r1 = min(cfg.height, r0 + tile_rows)
-            tile = render_tile(r0, r1 - r0).cpu().numpy()
-            tmp = path + ".tmp.npy"
-            np.save(tmp, tile)
-            os.replace(tmp, path)  # atomic: a crash never leaves half a tile
+            with torch.no_grad():
+                tile = render_rows_sharded(mesh, render, r0, min(cfg.height, r0 + tile_rows) - r0)
+            tile = tile.cpu().numpy()
+            if writer:
+                tmp = path + ".tmp.npy"
+                np.save(tmp, tile)
+                os.replace(tmp, path)  # atomic: a crash never leaves half a tile
+            mesh.barrier()
             tiles.append(tile)
             rendered += 1
         if progress is not None:
@@ -142,36 +156,3 @@ def render_tiles_resumable(
 
     image = np.concatenate(tiles, axis=0)
     return image, {"resumed": resumed, "rendered": rendered, "tiles": n_tiles}
-
-
-def _make_tile_renderer(sdf: SdfExpr, view: torch.Tensor, cfg: RenderConfig, backend: str):
-    """The per-tile render ``render_tile(row0, n_rows) -> (n_rows, W, 3)``.
-
-    The kernel path needs no ray arrays: the kernel makes a tile's rays from
-    its flat pixel offset, with the view scalars prepared once. The plain
-    path makes the full frame's rays once and slices each tile's rows, so
-    tile boundaries never change the ray math."""
-    if backend == "kernel":
-        from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_rows_kernel
-
-        with torch.no_grad():
-            ivp, cam = inv_view_proj(view, cfg.width, cfg.height, cfg.vfov_degrees,
-                                     cfg.near, cfg.far)
-
-        def render_tile(r0, n_rows):
-            with torch.no_grad():
-                return render_rows_kernel(sdf, ivp, cam, r0 * cfg.width, cfg, n_rows)
-
-        return render_tile
-
-    with torch.no_grad():
-        ro, rd = camera_rays(cfg.width, cfg.height, view, cfg.vfov_degrees, cfg.near, cfg.far)
-
-    def render_tile(r0, n_rows):
-        def rows(v: V3) -> V3:
-            return V3(*(c[r0:r0 + n_rows] for c in (v.x, v.y, v.z)))
-
-        with torch.no_grad():
-            return render_rays(sdf, rows(ro), rows(rd), cfg)
-
-    return render_tile

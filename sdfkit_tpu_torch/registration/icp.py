@@ -337,25 +337,19 @@ class IterativeClosestPoint:
         ``parity``: True runs the host loop that mirrors the reference step
         for step (float64 numpy, early exit), with the search on the device.
         False runs :func:`register_points_torch` on the device. None takes the
-        host loop when the static points are on the CPU or the thresholds or
-        ``max_iterations`` were changed, and the device loop otherwise."""
-        non_default_thresholds = (
-            self.good_correspondence_distance != GOOD_CORRESPONDENCE_DISTANCE
-            or self.converged_maximum_translation != CONVERGED_MAX_TRANSLATION
-            or self.converged_maximum_rotation != CONVERGED_MAX_ROTATION
-        )
+        host loop when the static points are on the CPU and the device loop
+        otherwise. Both loops read ``max_iterations`` and the three thresholds
+        at run time."""
         if parity is None:
-            parity = (self._nn.device.type == "cpu" or self.max_iterations != MAX_ITERATIONS
-                      or non_default_thresholds)
-        if not parity and non_default_thresholds:
-            raise ValueError(
-                "parity=False (the device loop) supports only the default ICP thresholds; "
-                "leave parity unset or use parity=True for customized thresholds")
+            parity = self._nn.device.type == "cpu"
         if not parity:
             with torch.no_grad():
                 aligned, total = register_points_torch(
                     self._nn.points_device, _as_points(points, self._nn.device),
-                    self.max_iterations, grid=self._nn.grid())
+                    self.max_iterations, grid=self._nn.grid(),
+                    good_correspondence_distance=self.good_correspondence_distance,
+                    converged_maximum_translation=self.converged_maximum_translation,
+                    converged_maximum_rotation=self.converged_maximum_rotation)
             return aligned.cpu().numpy(), total.cpu().numpy()
 
         pts = np.asarray(_host(points), np.float32).reshape(-1, 3).copy()
@@ -399,7 +393,10 @@ def _host(x):
 
 
 def register_points_torch(static_points, points, max_iterations: int = MAX_ITERATIONS,
-                          nn: str = "auto", grid: GridNN | None = None):
+                          nn: str = "auto", grid: GridNN | None = None,
+                          good_correspondence_distance: float = GOOD_CORRESPONDENCE_DISTANCE,
+                          converged_maximum_translation: float = CONVERGED_MAX_TRANSLATION,
+                          converged_maximum_rotation: float = CONVERGED_MAX_ROTATION):
     """ICP on the static points' device in float32, differentiable by
     autograd with respect to both point sets. Returns (aligned points, total
     transform) tensors. The counterpart of the JAX package's
@@ -413,7 +410,11 @@ def register_points_torch(static_points, points, max_iterations: int = MAX_ITERA
     ``nn``: 'brute' scans every static point each iteration; 'grid' uses the
     exact :class:`GridNN` (``grid`` if given, a new one otherwise) and raises
     when it declines; 'auto' takes the grid past ``GRID_NN_MIN_POINTS`` when
-    it builds. Every choice gives the same correspondences."""
+    it builds. Every choice gives the same correspondences.
+
+    The correspondence cutoff's ``good_correspondence_distance`` and the
+    convergence thresholds are read at run time, as the host loop of
+    :meth:`IterativeClosestPoint.register_points` reads them."""
     static_points = _as_points(static_points)
     points = _as_points(points, static_points.device)
     if nn not in ("auto", "brute", "grid"):
@@ -431,7 +432,7 @@ def register_points_torch(static_points, points, max_iterations: int = MAX_ITERA
                 "use nn='brute' or 'auto'")
 
     eye4 = torch.eye(4, dtype=torch.float32, device=static_points.device)
-    good = GOOD_CORRESPONDENCE_DISTANCE
+    good = float(good_correspondence_distance)
     pts, total = points, eye4
     with _full_float32_matmul():
         for _ in range(int(max_iterations)):
@@ -467,8 +468,9 @@ def register_points_torch(static_points, points, max_iterations: int = MAX_ITERA
             with torch.no_grad():
                 drot = (transform[0, 0] - 1.0).abs() + (transform[1, 1] - 1.0).abs() \
                     + (transform[2, 2] - 1.0).abs()
-                done = ((torch.linalg.vector_norm(transform[3, :3]) <= CONVERGED_MAX_TRANSLATION)
-                        & (drot <= CONVERGED_MAX_ROTATION))
+                done = ((torch.linalg.vector_norm(transform[3, :3])
+                         <= converged_maximum_translation)
+                        & (drot <= converged_maximum_rotation))
             if bool(done):
                 break
     return pts, total

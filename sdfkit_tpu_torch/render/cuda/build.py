@@ -202,13 +202,18 @@ def _source_digest(unit: str, sources: tuple[str, ...]) -> str:
 
 def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     """``_build/<stem>.so`` from ``unit``: (path, nvcc seconds or None when
-    the library was already there, the compiler's output)."""
+    the library was already there, the compiler's output).
+
+    Processes that build one stem at once (the ranks of a process group)
+    each write their own source and library under a per-process name and
+    rename them into place: nvcc never reads a source another process is
+    writing, and the last rename leaves a whole library."""
     global BUILDS
     so = BUILD_DIR / f"{stem}.so"
     if so.exists():
         return so, None, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src = BUILD_DIR / f"{stem}.cu"
+    src = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.cu"
     src.write_text(unit)
     tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
@@ -218,6 +223,7 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n{log}")
+    os.replace(src, BUILD_DIR / f"{stem}.cu")
     os.replace(tmp, so)
     BUILDS += 1
     return so, seconds, log

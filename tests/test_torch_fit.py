@@ -1,8 +1,8 @@
 """Differentiable fitting in the port: it tracks the JAX package's ``fit``
 step for step, converges to a known target, and resumes from a checkpoint.
 
-Counterpart of ``tests/test_fit.py`` without the mesh class (the multi-device
-loop is not ported yet). On the CPU ``backend="auto"`` is the plain path, so
+Counterpart of ``tests/test_fit.py``; ``fit(mesh=)`` over 2 and 4 ranks is
+held to the JAX package's in ``tests/test_torch_distributed.py``. On the CPU ``backend="auto"`` is the plain path, so
 the comparison is with the JAX package's ``backend="jnp"``: both run
 global-norm clipping at 1.0 and Adam on the mean squared error of a 24x16
 frame. Two programs' losses drift apart by float32 rounding through the 40
@@ -149,6 +149,11 @@ def test_backend_choice_on_the_cpu():
         fit(start_sdf(), tgt, steps=1, backend="fused")
     with pytest.raises(TypeError, match="mesh"):
         fit(start_sdf(), tgt, steps=1, mesh=object())
+    # A parallel.Mesh is taken: on a mesh of one the steps are the plain ones.
+    from sdfkit_tpu_torch.parallel.distributed import single
+
+    on_mesh = fit(start_sdf(), tgt, steps=2, mesh=single("cpu"))
+    np.testing.assert_allclose(on_mesh.losses, fit(start_sdf(), tgt, steps=2).losses, rtol=1e-5)
     with pytest.raises(ValueError, match=r"\(H, W, 3\)"):
         fit(start_sdf(), tgt[..., 0], steps=1)
     assert fit(start_sdf(), tgt, steps=1, backend="torch").steps_run == 1

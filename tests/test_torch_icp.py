@@ -323,8 +323,9 @@ class TestOutlierBranches:
 
 
 class TestLoopChoice:
-    """register_points: the host loop when the static points are on the CPU or
-    the settings were changed, the device loop otherwise."""
+    """register_points: the host loop when the static points are on the CPU,
+    the device loop otherwise, whatever the settings; both loops read
+    ``max_iterations`` and the thresholds at run time."""
 
     def test_device_loop_matches_parity(self):
         rng = np.random.default_rng(3)
@@ -356,29 +357,79 @@ class TestLoopChoice:
         assert len(calls) >= 1
 
     def test_the_card_takes_the_device_loop_unless_settings_changed(self, monkeypatch):
+        """Changed settings no longer send the card to the host loop: they go
+        to the device loop as run-time arguments."""
         static = np.random.default_rng(4).uniform(-1, 1, (100, 3)).astype(np.float32)
         icp_ = IterativeClosestPoint(static)
         calls = self._spy(icp_)
         monkeypatch.setattr(icp_._nn, "device", torch.device("meta"))  # not the CPU
         ran = []
         monkeypatch.setattr(icp, "register_points_torch",
-                            lambda *a, **k: ran.append(1) or (torch.zeros(1), torch.eye(4)))
+                            lambda *a, **k: ran.append((a[2], k)) or (torch.zeros(1), torch.eye(4)))
         icp_.register_points(static + 0.01)
-        assert ran == [1] and calls == []
-        icp_.max_iterations = 5  # a changed setting takes the host loop
-        monkeypatch.setattr(icp_._nn, "device", torch.device("cpu"))  # where it searches
+        icp_.max_iterations = 5
+        icp_.good_correspondence_distance = 0.02
+        icp_.converged_maximum_translation = 2e-4
+        icp_.converged_maximum_rotation = 3e-5
         icp_.register_points(static + 0.01)
-        assert ran == [1] and 1 <= len(calls) <= 5
+        assert calls == [] and len(ran) == 2
+        (it0, kw0), (it1, kw1) = ran
+        assert it0 == icp.MAX_ITERATIONS and it1 == 5
+        assert kw0["good_correspondence_distance"] == icp.GOOD_CORRESPONDENCE_DISTANCE
+        assert (kw1["good_correspondence_distance"], kw1["converged_maximum_translation"],
+                kw1["converged_maximum_rotation"]) == (0.02, 2e-4, 3e-5)
 
     def test_modified_thresholds_refuse_the_device_loop(self):
+        """parity=False with changed thresholds runs the device loop (it
+        raised before) and lands where the host loop does, within 1e-4."""
         static = np.random.default_rng(4).uniform(-1, 1, (100, 3)).astype(np.float32)
         icp_ = IterativeClosestPoint(static)
         icp_.good_correspondence_distance = 0.02
-        with pytest.raises(ValueError, match="default ICP thresholds"):
-            icp_.register_points(static + 0.01, parity=False)
         calls = self._spy(icp_)
-        icp_.register_points(static + 0.01)
+        a_dev, tf_dev = icp_.register_points(static + 0.01, parity=False)
+        assert calls == []
+        a_par, tf_par = icp_.register_points(static + 0.01, parity=True)
         assert len(calls) >= 1
+        np.testing.assert_allclose(a_dev, a_par, atol=1e-4)
+        np.testing.assert_allclose(tf_dev, tf_par, atol=1e-4)
+
+    @pytest.mark.parametrize("settings", [
+        {"good_correspondence_distance": 0.002},
+        {"good_correspondence_distance": 0.1},
+        {"converged_maximum_translation": 1e-2, "converged_maximum_rotation": 1e-3},
+        {"converged_maximum_translation": 0.0, "converged_maximum_rotation": 0.0},
+        {"max_iterations": 2},
+    ], ids=["good_0.002", "good_0.1", "loose_convergence", "never_converged", "two_iterations"])
+    def test_device_loop_with_changed_settings_matches_the_host_loop(self, settings,
+                                                                      monkeypatch):
+        """The device loop reads the thresholds and ``max_iterations`` at run
+        time: with each changed it stops where the host loop stops and lands
+        within PERF.md's 1e-4 of it (a cloud moved by a rotation and a
+        translation, so that several iterations run)."""
+        rng = np.random.default_rng(11)
+        static = rng.uniform(-1, 1, (400, 3)).astype(np.float32)
+        moved = apply(static, rot_x(0.03) @ rot_y(-0.02) @ translation(0.02, -0.015, 0.01))
+        icp_ = IterativeClosestPoint(static)
+        for name, value in settings.items():
+            setattr(icp_, name, value)
+        host_iters = self._spy(icp_)
+        a_par, tf_par = icp_.register_points(moved, parity=True)
+        searches = []
+        search = icp.nearest_neighbors
+        monkeypatch.setattr(icp, "nearest_neighbors",
+                            lambda *a, **k: searches.append(1) or search(*a, **k))
+        with torch.no_grad():
+            aligned, total = register_points_torch(
+                torch.from_numpy(static), torch.from_numpy(moved), icp_.max_iterations,
+                good_correspondence_distance=icp_.good_correspondence_distance,
+                converged_maximum_translation=icp_.converged_maximum_translation,
+                converged_maximum_rotation=icp_.converged_maximum_rotation)
+        # One search an iteration: the device loop stops where the host loop does.
+        assert len(searches) == len(host_iters) <= icp_.max_iterations
+        a_dev, tf_dev = icp_.register_points(moved, parity=False)
+        np.testing.assert_array_equal(a_dev, aligned.numpy())
+        np.testing.assert_allclose(a_dev, a_par, atol=1e-4)
+        np.testing.assert_allclose(tf_dev, tf_par, atol=1e-4)
 
 
 class TestGridNN:

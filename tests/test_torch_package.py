@@ -2,10 +2,13 @@
 the backend choice on a machine without CUDA."""
 
 import dataclasses
+import os
+import pathlib
 import shutil
 import subprocess
 import sys
 import textwrap
+import time
 import types
 
 import numpy as np
@@ -38,7 +41,8 @@ NO_JAX = textwrap.dedent("""
     from sdfkit_tpu_torch.io import png
     import importlib, pkgutil, tempfile
     names = [m.name for m in pkgutil.walk_packages(st.__path__, "sdfkit_tpu_torch.")]
-    for required in ("parallel.elastic", "grid", "mesh.voxels", "mesh.mesh", "sdf.sample",
+    for required in ("parallel.elastic", "parallel.distributed", "parallel.train",
+                     "parallel.marching", "grid", "mesh.voxels", "mesh.mesh", "sdf.sample",
                      "io.tga", "render.cuda.raymarch_kernel", "mesh.marching_cubes",
                      "mesh.luts", "native", "registration.icp"):
         assert "sdfkit_tpu_torch." + required in names, (required, names)
@@ -191,7 +195,7 @@ def test_a_scene_too_large_for_constant_memory_takes_the_kernels(monkeypatch, tm
     its first kernel (the compiler raises here), whose unit keeps the
     uniforms in device memory. The device check says CUDA; nothing runs on
     the plain path and nothing launches."""
-    from sdfkit_tpu_torch.parallel import elastic
+    from sdfkit_tpu_torch.parallel import elastic, train
     from sdfkit_tpu_torch.render import raymarch
 
     fit_module = sys.modules["sdfkit_tpu_torch.fit"]  # the package exports the function
@@ -216,7 +220,7 @@ def test_a_scene_too_large_for_constant_memory_takes_the_kernels(monkeypatch, tm
     monkeypatch.setattr(raymarch, "_on_cuda", lambda expr: True)
     for module in (raymarch, fit_module, elastic):
         monkeypatch.setattr(module, "resolve_backend", spy)
-    for module in (raymarch, elastic):
+    for module in (raymarch, train):  # the tiles' rows render through train.row_renderer
         monkeypatch.setattr(module, "render_rays", no_plain_path)
     # The scene's tensors are on the CPU: let the wrappers hand them on.
     monkeypatch.setattr(rk, "_check", lambda *a, **k: None)
@@ -419,3 +423,61 @@ def test_meshing_and_registration_are_exported():
              "NearestNeighbors", "GridNN", "nearest_neighbors")
     assert all(getattr(st, n) is getattr(icp, n) for n in names)
     assert {"create_mesh", *names} <= set(st.__all__)
+
+
+FAKE_NVCC = """\
+import os, sys, time
+args = sys.argv[1:]
+out, src = args[args.index("-o") + 1], args[-1]
+time.sleep(1.0)  # both processes have written their source by now
+with open(src) as f:
+    seen = f.read()
+with open(os.environ["FAKE_NVCC_UNIT"]) as f:
+    if seen != f.read():
+        sys.exit("the source is not the unit this process wrote")
+with open(out, "w") as f:
+    f.write(seen)
+"""
+
+COMPILE = """\
+import os, pathlib, sys, time
+from sdfkit_tpu_torch.render.cuda import build
+build.BUILD_DIR = pathlib.Path(sys.argv[1])
+build.nvcc_path = lambda: sys.argv[2]
+unit = pathlib.Path(os.environ["FAKE_NVCC_UNIT"]).read_text()
+while not pathlib.Path(sys.argv[3]).exists():
+    time.sleep(0.005)
+so, seconds, log = build._compile("raymarch_fwd_race", unit)
+print(so, seconds is not None)
+"""
+
+
+def test_two_processes_building_one_stem_each_compile_their_own_source(tmp_path):
+    """Two ranks that build the same scene structure at once: each nvcc
+    reads the source its own process wrote (the fake compiler fails on any
+    other), and the library left in place is whole."""
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(f"#!{sys.executable}\n" + FAKE_NVCC)
+    nvcc.chmod(0o755)
+    build_dir, go = tmp_path / "_build", tmp_path / "go"
+    procs = []
+    for who in ("a", "b"):
+        unit = tmp_path / f"unit_{who}.cu"
+        unit.write_text(f"// the unit of process {who}\n")
+        env = dict(os.environ, FAKE_NVCC_UNIT=str(unit))
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", COMPILE, str(build_dir), str(nvcc), str(go)],
+            env=env, cwd=str(pathlib.Path(st.__file__).parents[1]),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    time.sleep(3.0)  # both have imported the package and wait for the go
+    go.touch()
+    outs = [p.communicate(timeout=120) for p in procs]
+    assert [p.returncode for p in procs] == [0, 0], [err for _, err in outs]
+    built = [line.split() for line, _ in outs]
+    assert all(b[1] == "True" for b in built), built  # both ran the compiler
+    library = (build_dir / "raymarch_fwd_race.so").read_text()
+    assert library in ("// the unit of process a\n", "// the unit of process b\n")
+    assert (build_dir / "raymarch_fwd_race.cu").read_text() in (
+        "// the unit of process a\n", "// the unit of process b\n")
+    assert sorted(p.name for p in build_dir.iterdir()) == ["raymarch_fwd_race.cu",
+                                                           "raymarch_fwd_race.so"]

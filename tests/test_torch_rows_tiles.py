@@ -32,6 +32,7 @@ import torch_parity as tp
 from sdfkit_tpu.render import raymarch as jrm
 from sdfkit_tpu.render.pallas import raymarch_kernel as jrk
 from sdfkit_tpu_torch.parallel import render_tiles_resumable
+from sdfkit_tpu_torch.parallel.distributed import single
 from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
 from sdfkit_tpu_torch.render.raymarch import RenderConfig, resolve_backend
 from sdfkit_tpu_torch.utils.camera import inv_view_proj
@@ -257,10 +258,27 @@ def test_tiles_match_the_jax_package(tmp_path):
         render_tiles_resumable(scene(), 40, 24, tmp_path / "jax", tile_rows=10)
 
 
-def test_mesh_is_refused_until_the_multi_device_path(tmp_path):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+def test_mesh_is_refused_until_the_multi_device_path(tile_backend, tmp_path):
+    """An object that is not a ``parallel.Mesh`` is refused before the
+    directory is made. A mesh splits each tile's rows over its ranks: on a
+    mesh of one the tiles are the frame's bit for bit, and a frame started
+    on the mesh resumes without one (the mesh is not in the manifest).
+    ``tests/test_torch_distributed.py`` runs 2 and 4 ranks."""
+    with pytest.raises(TypeError, match="Mesh"):
         render_tiles_resumable(scene(), 16, 8, tmp_path / "m", mesh=object())
     assert not (tmp_path / "m").exists()
+    one = single("cpu")
+    img, stats = render_tiles_resumable(scene(), 16, 8, tmp_path / "one", tile_rows=3, mesh=one,
+                                        backend=tile_backend)
+    ref, _ = render_tiles_resumable(scene(), 16, 8, tmp_path / "ref", tile_rows=3,
+                                    backend=tile_backend)
+    assert stats == {"resumed": 0, "rendered": 3, "tiles": 3}
+    np.testing.assert_array_equal(img, ref)
+    (tmp_path / "one" / "tile_00001.npy").unlink()
+    again, stats = render_tiles_resumable(scene(), 16, 8, tmp_path / "one", tile_rows=3,
+                                          backend=tile_backend)
+    assert stats == {"resumed": 2, "rendered": 1, "tiles": 3}
+    np.testing.assert_array_equal(again, ref)
 
 
 def test_resolve_backend_is_the_one_rule():

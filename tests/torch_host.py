@@ -155,11 +155,19 @@ _SIGNATURES = {
 
 def host_library(build_dir, program, extra=""):
     """The g++ build of every kernel family's per-ray code for ``program``,
-    with ``extra`` (a test's own host code) appended to the unit."""
+    with ``extra`` (a test's own host code) appended to the unit. A library
+    that an earlier call built in ``build_dir`` from the same unit is loaded
+    as it is (the ranks of ``tools/torch_distributed_demo.py`` load what the
+    test built)."""
     src = build_dir / f"scene_{program.adjoint_hash}.cc"
-    src.write_text(SHIM + program.source + program.adjoint_source + LOOP + LOOP_BWD
-                   + LOOP_STORE + LOOP_RAYS + extra)
-    lib = _gxx(src, src.with_suffix(".so"))
+    unit = (SHIM + program.source + program.adjoint_source + LOOP + LOOP_BWD + LOOP_STORE
+            + LOOP_RAYS + extra)
+    so = src.with_suffix(".so")
+    if so.exists() and src.exists() and src.read_text() == unit:
+        lib = ctypes.CDLL(str(so))
+    else:
+        src.write_text(unit)
+        lib = _gxx(src, so)
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = None
