@@ -12,10 +12,10 @@ Checkpoint and resume: the step, the leaves and the optimizer state are saved
 with ``torch.save`` every ``checkpoint_every`` steps, and ``fit`` resumes
 from the latest step found in ``checkpoint_dir``.
 
-``fit(..., mesh=mesh)`` runs every step over the ranks of a
-``parallel.Mesh``: each rank renders its row band, one all-reduce sums the
-gradients and the loss, and the clipping and Adam run on the summed
-gradient, so every rank takes the same step (the JAX package's
+Every step runs over the ranks of a ``parallel.Mesh`` (``mesh=``; without
+one, the mesh of this process alone): each rank renders its row band, one
+all-reduce sums the gradients and the loss, and the clipping and Adam run on
+the summed gradient, so every rank takes the same step (the JAX package's
 ``_fit_step_sharded`` and ``_fit_step_sharded_fused``).
 """
 
@@ -43,11 +43,6 @@ class FitResult:
     losses: list[float]
     steps_run: int
     resumed_from: int | None
-
-
-def image_loss_fn(marcher: RayMarcher, target: torch.Tensor) -> torch.Tensor:
-    """Mean squared error between ``marcher``'s frame and ``target``."""
-    return torch.mean((marcher.render() - target) ** 2)
 
 
 def clip_by_global_norm_(params, max_norm: float) -> None:
@@ -144,7 +139,8 @@ def fit(
     the same result. Rank 0 alone writes checkpoints; a resume restores on
     every rank from ``checkpoint_dir``, which every rank sees.
     """
-    from sdfkit_tpu_torch.parallel.distributed import Mesh
+    from sdfkit_tpu_torch.parallel.distributed import Mesh, single
+    from sdfkit_tpu_torch.parallel.train import band_loss_and_grads, row_renderer
 
     if mesh is not None and not isinstance(mesh, Mesh):
         raise TypeError(f"mesh must be a sdfkit_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
@@ -160,10 +156,8 @@ def fit(
     if view is not None:
         view = torch.as_tensor(view, dtype=torch.float32, device=device)
     marcher = RayMarcher(width, height, sdf, view=view, backend=backend, **cfg_kwargs)
-    if mesh is not None:
-        from sdfkit_tpu_torch.parallel.train import band_loss_and_grads, row_renderer
-
-        render = row_renderer(sdf, marcher.view, marcher.config, backend)
+    mesh = single(device) if mesh is None else mesh
+    render = row_renderer(sdf, marcher.view, marcher.config, backend)
 
     params = leaves(sdf)
     clip = optimizer is None
@@ -180,13 +174,8 @@ def fit(
 
     losses: list[float] = []
     for step in range(start_step, steps):
-        if mesh is not None:
-            loss = band_loss_and_grads(mesh, render, params, target)
-        else:
-            for p in params:  # every leaf, also those a caller's optimizer leaves out
-                p.grad = None
-            loss = image_loss_fn(marcher, target)
-            loss.backward()
+        # Every leaf's gradient, also of those a caller's optimizer leaves out.
+        loss = band_loss_and_grads(mesh, render, params, target)
         if clip:
             clip_by_global_norm_(params, 1.0)
         opt.step()
@@ -195,12 +184,11 @@ def fit(
         if progress is not None:
             progress(step, loss)
         if directory is not None and ((step + 1) % checkpoint_every == 0 or step + 1 == steps):
-            if mesh is None or mesh.rank == 0:
+            if mesh.rank == 0:
                 _save(directory, step + 1, params, opt)
-            if mesh is not None:
-                mesh.barrier()
+            mesh.barrier()
     return FitResult(sdf=sdf, losses=losses, steps_run=steps - start_step,
                      resumed_from=resumed_from)
 
 
-__all__ = ["FitResult", "clip_by_global_norm_", "fit", "image_loss_fn"]
+__all__ = ["FitResult", "clip_by_global_norm_", "fit"]

@@ -207,24 +207,29 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
     Processes that build one stem at once (the ranks of a process group)
     each write their own source and library under a per-process name and
     rename them into place: nvcc never reads a source another process is
-    writing, and the last rename leaves a whole library."""
+    writing, and the last rename leaves a whole library. A failed build
+    leaves neither file behind."""
     global BUILDS
     so = BUILD_DIR / f"{stem}.so"
     if so.exists():
         return so, None, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     src = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.cu"
-    src.write_text(unit)
     tmp = BUILD_DIR / f"{stem}.{os.getpid()}.tmp.so"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}) on {src}:\n{log}")
-    os.replace(src, BUILD_DIR / f"{stem}.cu")
-    os.replace(tmp, so)
+    try:
+        src.write_text(unit)
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) on {stem}.cu:\n{log}")
+        os.replace(src, BUILD_DIR / f"{stem}.cu")
+        os.replace(tmp, so)
+    finally:
+        src.unlink(missing_ok=True)
+        tmp.unlink(missing_ok=True)
     BUILDS += 1
     return so, seconds, log
 

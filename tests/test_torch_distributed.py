@@ -5,10 +5,10 @@
 checks of ``__graft_entry__.dryrun_multichip`` against a mesh of one rank:
 frames, voxel bricks and meshes bit for bit, the train step within the
 dryrun's rtol 5e-5 / atol 5e-5, ``fit(mesh=)`` within rtol 1e-3, tiles over
-the mesh and resumed on one rank. The ranks run the plain route and, with
-the g++ build of the kernels' per-pixel code in place of the launches
-(``tests/torch_host.py``), the kernel route: its padded last band and its
-backward once per band. Here their outputs are held to the JAX package's
+the mesh and resumed on one rank. The ranks run the plain route and, as
+``tests/torch_distributed_worker.py`` with the g++ build of the kernels'
+per-pixel code in place of the launches, the kernel route: its padded last
+band and its backward once per band. Here their outputs are held to the JAX package's
 sharded functions on a 4-device virtual CPU mesh, with the tolerances of
 ``test_torch_parallel.py``, and to each other. Skipped where subprocesses
 are unavailable (as ``tests/test_distributed.py``).
@@ -77,7 +77,10 @@ def run(request, tmp_path_factory, host_build):
         pytest.skip("subprocesses unavailable")
     n = request.param
     out = tmp_path_factory.mktemp(f"ranks_{n}")
-    reports = demo.launch(n, out=out, host_kernels=host_build, timeout=280.0)
+    host = {} if host_build is None else dict(
+        worker=REPO / "tests" / "torch_distributed_worker.py",
+        worker_args=["--host-kernels", str(host_build)])
+    reports = demo.launch(n, device="cpu", out=out, timeout=280.0, **host)
     outputs = [dict(np.load(out / f"rank{r}.npz")) for r in range(n)]
     return n, reports, outputs, host_build is not None
 

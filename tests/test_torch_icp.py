@@ -379,9 +379,9 @@ class TestLoopChoice:
         assert (kw1["good_correspondence_distance"], kw1["converged_maximum_translation"],
                 kw1["converged_maximum_rotation"]) == (0.02, 2e-4, 3e-5)
 
-    def test_modified_thresholds_refuse_the_device_loop(self):
-        """parity=False with changed thresholds runs the device loop (it
-        raised before) and lands where the host loop does, within 1e-4."""
+    def test_modified_thresholds_run_on_the_device_loop(self):
+        """parity=False with changed thresholds runs the device loop and
+        lands where the host loop does, within 1e-4."""
         static = np.random.default_rng(4).uniform(-1, 1, (100, 3)).astype(np.float32)
         icp_ = IterativeClosestPoint(static)
         icp_.good_correspondence_distance = 0.02

@@ -429,6 +429,8 @@ FAKE_NVCC = """\
 import os, sys, time
 args = sys.argv[1:]
 out, src = args[args.index("-o") + 1], args[-1]
+with open(out, "w") as f:
+    f.write("a library half written")
 time.sleep(1.0)  # both processes have written their source by now
 with open(src) as f:
     seen = f.read()
@@ -452,10 +454,11 @@ print(so, seconds is not None)
 """
 
 
-def test_two_processes_building_one_stem_each_compile_their_own_source(tmp_path):
+def test_two_processes_building_one_stem_each_compile_their_own_source(tmp_path, monkeypatch):
     """Two ranks that build the same scene structure at once: each nvcc
     reads the source its own process wrote (the fake compiler fails on any
-    other), and the library left in place is whole."""
+    other), and the library left in place is whole. A build that fails
+    leaves no file of its own behind."""
     nvcc = tmp_path / "nvcc"
     nvcc.write_text(f"#!{sys.executable}\n" + FAKE_NVCC)
     nvcc.chmod(0o755)
@@ -479,5 +482,14 @@ def test_two_processes_building_one_stem_each_compile_their_own_source(tmp_path)
     assert library in ("// the unit of process a\n", "// the unit of process b\n")
     assert (build_dir / "raymarch_fwd_race.cu").read_text() in (
         "// the unit of process a\n", "// the unit of process b\n")
+    assert sorted(p.name for p in build_dir.iterdir()) == ["raymarch_fwd_race.cu",
+                                                           "raymarch_fwd_race.so"]
+
+    # Another stem whose compiler fails after writing part of its output.
+    monkeypatch.setattr(build, "BUILD_DIR", build_dir)
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(nvcc))
+    monkeypatch.setenv("FAKE_NVCC_UNIT", str(tmp_path / "unit_a.cu"))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build._compile("raymarch_fwd_broken", "// not the unit the compiler expects\n")
     assert sorted(p.name for p in build_dir.iterdir()) == ["raymarch_fwd_race.cu",
                                                            "raymarch_fwd_race.so"]

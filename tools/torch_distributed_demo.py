@@ -7,8 +7,8 @@ processes, one rank each, against a mesh of one rank in the same process.
 Run as the launcher, which spawns the workers on a ``file://`` rendezvous in
 a temporary directory (no port to clash) and fails unless every rank passed:
 
-    python tools/torch_distributed_demo.py --ranks 4                  # CPU, gloo
-    python tools/torch_distributed_demo.py --ranks 4 --device cuda --size full
+    python tools/torch_distributed_demo.py --ranks 4 --size full      # the card
+    python tools/torch_distributed_demo.py --ranks 4 --device cpu     # CPU, gloo
 
 ``--size small`` (the CPU tests) renders 16x9 frames and meshes 16^3 grids;
 ``--size full`` is SphereRepeat at 1920x1080x40, a 4K depth frame, 256^3
@@ -24,9 +24,11 @@ resume from rank 0's checkpoint), ``voxelize_sharded`` bit for bit against
 ``voxelize``, ``create_mesh_sharded`` array for array against ``to_mesh``,
 and resumable tiles over the mesh bit for bit, then resumed on rank 0 alone.
 ``--out DIR`` keeps each rank's outputs (``rank<r>.npz``) and report
-(``rank<r>.json``). ``--host-kernels DIR`` (the CPU tests) puts the g++
-build of the kernels' per-pixel code (``tests/torch_host.py``) in place of
-the CUDA launches and runs the kernel route too, on CPU tensors.
+(``rank<r>.json``). The ranks run on the card unless ``--device cpu`` asks
+for the CPU; a rank that finds no card raises. ``launch(worker=...)`` spawns
+another program as each rank, one that calls :func:`run_worker` with its own
+launch counts (the CPU tests' stand-ins for the kernels, which run both
+routes on CPU tensors).
 """
 
 from __future__ import annotations
@@ -403,30 +405,11 @@ def full_size_extras(w: Worker) -> None:
     w.timed("all_reduce_gradients_ms", lambda: mesh.all_reduce_sum(grads))
 
 
-def _patch_host_kernels(build_dir: str):
-    """The g++ stand-ins for the launches (``tests/torch_host.py``), and the
-    kernel backend allowed on CPU tensors. Returns their launch counts."""
-    import importlib
-
-    import pytest
-
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from torch_host import host_libraries, patch_kernels
-
-    from sdfkit_tpu_torch.parallel import elastic, train
-    from sdfkit_tpu_torch.render import raymarch
-
-    fit = importlib.import_module("sdfkit_tpu_torch.fit")  # the package exports the function
-
-    mp = pytest.MonkeyPatch()
-    calls = patch_kernels(mp, host_libraries(pathlib.Path(build_dir)))
-    for module, name in ((raymarch, "resolve_backend"), (fit, "resolve_backend"),
-                         (elastic, "resolve_backend"), (train, "resolve_shard_backend")):
-        mp.setattr(module, name, lambda backend, sdf: "torch" if backend == "auto" else backend)
-    return calls
-
-
-def _worker(a) -> int:
+def run_worker(a, host_calls=None) -> int:
+    """One rank: join the group, run every check, report. ``a`` holds the
+    parsed arguments of :func:`parser`. ``host_calls``: the launch counts of
+    stand-ins that a caller put in place of the kernel launches, which run
+    the kernel route on CPU tensors too (``Worker.launches``)."""
     sys.path.insert(0, REPO)
 
     import sdfkit_tpu_torch as st
@@ -445,12 +428,11 @@ def _worker(a) -> int:
         raise RuntimeError(f"rank {mesh.rank} of {mesh.size}, expected {a.rank} of {a.ranks}")
     if a.device == "cuda" and mesh.device.type != "cuda":
         raise RuntimeError(f"rank {mesh.rank} is on {mesh.device}, not a card")
-    host_calls = _patch_host_kernels(a.host_kernels) if a.host_kernels else None
     w = Worker(mesh, distributed.single(mesh.device), SIZES[a.size], host_calls)
     t0 = time.perf_counter()
     # One directory for every rank's checkpoints and tiles: they share a disk.
     shared = pathlib.Path(a.scratch)
-    backends = ["kernel", "torch"] if a.host_kernels else \
+    backends = ["kernel", "torch"] if host_calls is not None else \
         (["kernel"] if a.device == "cuda" else ["torch"])
     for backend in backends:
         run_checks(w, backend, "k_" if backend == "kernel" else "", shared)
@@ -472,23 +454,30 @@ def _worker(a) -> int:
     return 1 if failed else 0
 
 
-def launch(ranks: int = 2, device: str = "cpu", size: str = "small", backend: str | None = None,
-           out=None, host_kernels=None, timeout: float = 600.0, echo: bool = False) -> list[dict]:
+def launch(ranks: int = 2, device: str = "cuda", size: str = "small", backend: str | None = None,
+           out=None, timeout: float = 600.0, echo: bool = False, worker=None,
+           worker_args=()) -> list[dict]:
     """Spawn ``ranks`` workers and wait for them; returns each rank's report
     (checks, times, launches). Raises unless every worker exited 0 with
-    every check passed. ``echo`` prints rank 0's lines as they come."""
+    every check passed. ``device``: "cuda" (every rank on the card) or
+    "cpu". ``echo`` prints rank 0's output once the ranks are done.
+    ``worker``: the program each rank runs (this file by default), given
+    the arguments of :func:`parser` and then ``worker_args``."""
+    if device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("the ranks run on the card and torch.cuda.is_available() is false; "
+                           "pass device='cpu' to run them on the CPU")
     with tempfile.TemporaryDirectory() as d:
         scratch = os.path.join(d, "shared")
         os.makedirs(scratch)
-        cmd = [sys.executable, os.path.abspath(__file__), "--worker", "--init",
+        program = os.path.abspath(__file__) if worker is None else os.fspath(worker)
+        cmd = [sys.executable, program, "--worker", "--init",
                f"file://{d}/rendezvous", "--ranks", str(ranks), "--device", device, "--size",
                size, "--scratch", scratch, "--timeout", str(int(timeout))]
         if backend:
             cmd += ["--backend", backend]
         if out:
             cmd += ["--out", os.fspath(out)]
-        if host_kernels:
-            cmd += ["--host-kernels", os.fspath(host_kernels)]
+        cmd += list(worker_args)
         logs = [open(os.path.join(d, f"rank{r}.log"), "w+") for r in range(ranks)]
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], stdout=logs[r],
                                   stderr=subprocess.STDOUT, text=True, cwd=REPO)
@@ -526,24 +515,26 @@ def launch(ranks: int = 2, device: str = "cpu", size: str = "small", backend: st
     return reports
 
 
-def main() -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--worker", action="store_true")
     ap.add_argument("--init")
     ap.add_argument("--rank", type=int, default=0)
     ap.add_argument("--ranks", type=int, default=2)
-    ap.add_argument("--device", choices=("cpu", "cuda"), default="cpu")
+    ap.add_argument("--device", choices=("cpu", "cuda"), default="cuda")
     ap.add_argument("--size", choices=tuple(SIZES), default="small")
     ap.add_argument("--backend", choices=("gloo", "nccl"))
     ap.add_argument("--out")
     ap.add_argument("--scratch")
-    ap.add_argument("--host-kernels")
     ap.add_argument("--timeout", type=float, default=600.0)
-    a = ap.parse_args()
+    return ap
+
+
+def main() -> int:
+    a = parser().parse_args()
     if a.worker:
-        return _worker(a)
-    reports = launch(a.ranks, a.device, a.size, a.backend, a.out, a.host_kernels, a.timeout,
-                     echo=True)
+        return run_worker(a)
+    reports = launch(a.ranks, a.device, a.size, a.backend, a.out, a.timeout, echo=True)
     checks = sum(len(r["checks"]) for r in reports)
     print(f"torch.distributed exercise passed: {a.ranks} ranks ({reports[0]['backend']}), "
           f"{checks} checks")
