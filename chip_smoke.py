@@ -68,13 +68,25 @@ iterations:
      ``voxelize_sharded`` at 256^3 and 512x128x128 and ``create_mesh_sharded``
      on the 256^3 bricks array-equal to one device's, the image kernels
      launched once per rank's band, with times beside one rank's; then an
-     NCCL group of one rank in this process.
+     NCCL group of one rank in this process;
+20   the viewer (``tools/torch_view.py``): a ``LiveViewer`` of SphereRepeat
+     at 1920x1080 served from a thread, ten ``/frame.png`` decoded and held
+     bit for bit to the quantised ``RayMarcher.render`` of the same orbit
+     views (one image-forward launch a frame, no plain render), one
+     ``/stream`` part, ``/stats``, the shutdown, the CLI's ``--orbit 3`` and a
+     ``.tga`` frame; render, PNG encode and stream times;
+21   the scaling harness (``tools/torch_scaling.py``) at 1920x1080x40 over 1,
+     2 and 4 ranks on this card (one launch of 4 ranks in a ``gloo`` group):
+     frames bit for bit against one rank's, one launch per rank and frame,
+     no nvcc on a rank, the static work against the "work:" lines'; each
+     point's ms, Mrays/s, efficiencies and band ms per rank.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
 result line, when there is no CUDA device or any check fails; on success it
-prints one JSON line each for ``mesh``, ``icp`` and ``sharded``, the card's
-name and power limit, one line of JSON that lists the six kernels, and last
+prints one JSON line each for ``mesh``, ``icp``, ``sharded``, ``view`` and
+``scaling``, the card's name and power limit, one line of JSON that lists
+the six kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 
@@ -547,6 +559,225 @@ def phase_sharded(st, smi: str) -> dict:
             out["nccl_one_rank_frame_ms"] = ms
         finally:
             dist.destroy_process_group()
+    return out
+
+
+VIEW_FRAMES = 10
+STREAM_PARTS = 5
+SCALING_DEVICES = (1, 2, 4)
+
+
+def read_stream_part(f) -> bytes:
+    """The body of one part of the viewer's multipart stream."""
+    if f.readline() != b"--frame\r\n":
+        raise RuntimeError("the stream's part does not start with its boundary")
+    headers = {}
+    while (line := f.readline()) not in (b"\r\n", b""):
+        key, value = line.decode().split(":", 1)
+        headers[key.strip().lower()] = value.strip()
+    if headers.get("content-type") != "image/png":
+        raise RuntimeError(f"a stream part of type {headers.get('content-type')}")
+    body = f.read(int(headers["content-length"]))
+    f.read(2)
+    return body
+
+
+def phase_view(st, smi: str) -> dict:
+    """Phase 20: tools/torch_view.py on the card: a LiveViewer of SphereRepeat
+    at 1920x1080 served from a thread, its frames and stream against
+    RayMarcher.render, then the CLI's orbit and TGA output."""
+    import socket
+    import threading
+    import urllib.request
+
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.io.png import decode_png, encode_png, quantize, quantize_tensor
+    from sdfkit_tpu_torch.io.tga import read_tga
+    from sdfkit_tpu_torch.render import raymarch
+    from sdfkit_tpu_torch.render.cuda import build
+    from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_view
+
+    hero = scenes.sphere_repeat_scene()
+    builds = build.BUILDS
+    viewer = torch_view.LiveViewer(hero, WIDTH, HEIGHT)
+    server = torch_view.serve(viewer, 0)
+    base = f"http://127.0.0.1:{server.server_address[1]}"
+    threads_before = set(threading.enumerate())
+    server_thread = threading.Thread(target=server.serve_forever, daemon=True)
+    server_thread.start()
+    out = {"size": [WIDTH, HEIGHT], "gpu": smi, "png_level": viewer.PNG_LEVEL}
+    # A plain render would go through render_image_torch: count its calls.
+    plain_calls = []
+    plain = raymarch.render_image_torch
+    raymarch.render_image_torch = lambda *a, **k: plain_calls.append(1) or plain(*a, **k)
+    try:
+        torch.cuda.synchronize()
+        rk.LAUNCHES = 0
+        frames, render_ms, fetch_ms = [], [], []
+        for _ in range(VIEW_FRAMES):
+            t0 = time.perf_counter()
+            data = urllib.request.urlopen(f"{base}/frame.png", timeout=60).read()
+            fetch_ms.append((time.perf_counter() - t0) * 1e3)
+            render_ms.append(viewer.last_render_ms)
+            frames.append(decode_png(data))
+        launches = rk.LAUNCHES
+        # One part of the stream, its pace over STREAM_PARTS parts, and close.
+        sock = socket.create_connection(server.server_address, timeout=60)
+        try:
+            sock.sendall(b"GET /stream HTTP/1.1\r\nHost: localhost\r\n\r\n")
+            f = sock.makefile("rb")
+            while f.readline() not in (b"\r\n", b""):
+                pass
+            parts = [read_stream_part(f)]
+            t0 = time.perf_counter()
+            for _ in range(STREAM_PARTS - 1):
+                parts.append(read_stream_part(f))
+            stream_fps = (STREAM_PARTS - 1) / (time.perf_counter() - t0)
+            handlers = [t for t in threading.enumerate()
+                        if t not in threads_before and t is not server_thread]
+        finally:
+            sock.close()
+        stats = json.loads(urllib.request.urlopen(f"{base}/stats", timeout=60).read())
+    finally:
+        raymarch.render_image_torch = plain
+        server.shutdown()
+    for t in [server_thread, *handlers]:
+        t.join(timeout=30)
+    server.server_close()
+    check(handlers and not any(t.is_alive() for t in [server_thread, *handlers]),
+          f"the viewer's server thread and its {len(handlers)} handler thread(s) ended after "
+          f"shutdown()")
+
+    marcher = st.RayMarcher(WIDTH, HEIGHT, hero)
+    with torch.no_grad():
+        refs = [quantize_tensor(marcher.render(camera=viewer.view(i))).cpu().numpy()
+                for i in range(VIEW_FRAMES + 1)]
+        frame0 = marcher.render(camera=viewer.view(0))
+        on_host = quantize(frame0.cpu().numpy())
+    check(all(f.shape == (HEIGHT, WIDTH, 3) and np.array_equal(f, r)
+              for f, r in zip(frames, refs)),
+          f"{VIEW_FRAMES} served {WIDTH}x{HEIGHT} frames (/frame.png, decoded) equal the "
+          f"quantised RayMarcher.render(camera=view_i) of the same orbit views bit for bit")
+    check(np.array_equal(refs[0], on_host),
+          "quantize_tensor on the card equals write_png's numpy formula on the same frame")
+    check(launches == VIEW_FRAMES and not plain_calls and marcher.backend == "kernel",
+          f"the viewer launched the image forward {launches} times for {VIEW_FRAMES} frames "
+          f"and rendered {len(plain_calls)} frames on the plain path")
+    check(np.array_equal(decode_png(parts[0]), refs[VIEW_FRAMES]),
+          "the first /stream part (a PNG) equals the orbit's next frame bit for bit")
+    check(stats["frame"] >= VIEW_FRAMES + STREAM_PARTS and stats["render_ms"] > 0,
+          f"/stats after the stream: {stats}")
+    out.update(render_ms=render_ms, fetch_ms=fetch_ms, stream_fps=stream_fps, stats=stats,
+               png_bytes=len(encode_png(frames[0], viewer.PNG_LEVEL)))
+    for level in sorted({viewer.PNG_LEVEL, 6}):
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            encode_png(frames[0], level)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out[f"encode_ms_level{level}"] = ms
+    t0 = time.perf_counter()
+    decode_png(encode_png(frames[0], viewer.PNG_LEVEL))
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3
+    # The parts of a viewer frame's render_ms: the render alone, and the
+    # copy of the quantised frame to the host alone.
+    with torch.no_grad():
+        out["render_alone_ms"] = [host_ms(lambda: marcher.render(camera=viewer.view(0)))[1]
+                                  for _ in range(3)]
+        u8 = quantize_tensor(frame0)
+        out["uint8_copy_ms"] = [host_ms(lambda: u8.cpu())[1] for _ in range(3)]
+
+    # The CLI: an orbit of three PNG frames and one TGA frame.
+    with tempfile.TemporaryDirectory() as d:
+        torch.cuda.synchronize()
+        rk.LAUNCHES = 0
+        rcs = [torch_view.main(["--orbit", "3", "--size", f"{WIDTH}x{HEIGHT}",
+                                "--out", f"{d}/orbit.png"]),
+               torch_view.main(["--size", f"{WIDTH}x{HEIGHT}", "--out", f"{d}/frame.tga"])]
+        cli_launches = rk.LAUNCHES
+        names = sorted(os.listdir(d))
+        orbit = [decode_png(pathlib.Path(d, f"orbit-{i:03d}.png").read_bytes())
+                 for i in range(3) if f"orbit-{i:03d}.png" in names]
+        with torch.no_grad():
+            want_tga = quantize(st.render(hero, WIDTH, HEIGHT,
+                                          camera_position=(-2, 2, 4)).cpu().numpy())
+            want_orbit = quantize_tensor(marcher.render(camera=torch_view.orbit_view(
+                5.0, 2.0 * np.pi * 1 / 3, marcher.device))).cpu().numpy()
+        tga = np.round(read_tga(f"{d}/frame.tga") * 255).astype(np.uint8) \
+            if "frame.tga" in names else None
+    check(rcs == [0, 0] and names == ["frame.tga", "orbit-000.png", "orbit-001.png",
+                                      "orbit-002.png"]
+          and all(o.shape == (HEIGHT, WIDTH, 3) for o in orbit)
+          and np.array_equal(orbit[1], want_orbit) and np.array_equal(tga, want_tga)
+          and cli_launches == 4,
+          f"torch_view.main --orbit 3 and a .tga --out at {WIDTH}x{HEIGHT}: {names}, frames equal "
+          f"RayMarcher.render's quantised, {cli_launches} launches")
+    check(build.BUILDS == builds, f"the viewer built nothing ({build.BUILDS - builds} nvcc runs)")
+    out["launches"] = launches
+    out["cli_launches"] = cli_launches
+    print(f"view {WIDTH}x{HEIGHT}: render (+ quantise + uint8 copy) ms "
+          f"{[round(x, 3) for x in render_ms]}, a /frame.png fetched in "
+          f"{[round(x, 1) for x in fetch_ms]} ms; PNG encode ms "
+          + ", ".join(f"level {k[-1]} {[round(x, 1) for x in v]}" for k, v in out.items()
+                      if k.startswith("encode_ms_level"))
+          + f"; decode {out['decode_ms']:.1f} ms; the render alone "
+          f"{[round(x, 3) for x in out['render_alone_ms']]} ms, the 6.2 MB uint8 copy alone "
+          f"{[round(x, 3) for x in out['uint8_copy_ms']]} ms; stream {stream_fps:.2f} frames/s "
+          f"(paced to "
+          f"{torch_view.LiveViewer.MAX_STREAM_FPS:g}); on {smi}")
+    return out
+
+
+def phase_scaling(smi: str, fixed_ops: float) -> dict:
+    """Phase 21: tools/torch_scaling.py at 1920x1080x40 over 1, 2 and 4 ranks
+    on this card (one launch of 4 ranks in a gloo group). ``fixed_ops``: the
+    "work:" lines' fixed work of the image forward on the whole frame."""
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.render.cuda import build
+    from sdfkit_tpu_torch.sdf.compile import compile_scene
+
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_scaling
+
+    # The library the ranks load: built here (phases 1-8 did), so no rank runs nvcc.
+    build.load(compile_scene(scenes.sphere_repeat_scene()))
+    with tempfile.TemporaryDirectory() as d:
+        path = pathlib.Path(d, "scaling.json")
+        try:
+            rc = torch_scaling.main(["--devices", *(str(n) for n in SCALING_DEVICES),
+                                     "--width", str(WIDTH), "--height", str(HEIGHT),
+                                     "--iters", "40", "--timeout", "300", "--out", str(path)])
+        except RuntimeError as e:
+            print(str(e)[-8000:], file=sys.stderr)
+            check(False, "tools/torch_scaling.py ran its ranks on the card")
+            return {}
+        out = json.loads(path.read_text())
+    points = out["points"]
+    n_ranks = max(SCALING_DEVICES)
+    check(rc == 0 and [p["devices"] for p in points] == list(SCALING_DEVICES)
+          and all(p["frame_equal_to_one_rank"] for p in points)
+          and len({p["frame_sha256"] for p in points}) == 1,
+          f"torch_scaling: the {WIDTH}x{HEIGHT} frames at {SCALING_DEVICES} ranks equal one "
+          f"rank's bit for bit (sha256 {points[0]['frame_sha256'][:16]}...)")
+    check(all(p["launches_per_frame"] == [1.0] * p["devices"] for p in points)
+          and out["render_backend"] == "kernel" and out["nvcc_builds"] == [0] * n_ranks
+          and out["process_group"] == "gloo" and out["num_processes"] == n_ranks,
+          f"torch_scaling: {n_ranks} ranks in a {out['process_group']} group, one image-forward "
+          f"launch per rank and frame ({[p['launches_per_frame'] for p in points]}), nvcc runs "
+          f"on the ranks {out['nvcc_builds']}")
+    check(points[0]["per_device_operations"] == fixed_ops
+          and all(p["work_partition_efficiency_pct"] == 100.0 for p in points),
+          f"torch_scaling's work at one rank is the work: lines' fixed work ({fixed_ops:.6g}), "
+          f"split evenly at every rank count")
+    for p in points:
+        print(f"scaling {p['devices']} rank(s) {WIDTH}x{HEIGHT}x40: min {p['seconds'] * 1e3:.3f} "
+              f"ms {[round(x, 3) for x in p['ms']]}, {p['mrays_per_s']:.1f} Mrays/s, walltime "
+              f"efficiency {p['walltime_efficiency_pct']:.2f}%, band efficiency "
+              f"{p['band_efficiency_pct']:.2f}%, band ms per rank "
+              f"{[round(x, 4) for x in p['band_ms']]}, shared card {p['shared_device']}; on {smi}")
     return out
 
 
@@ -2362,9 +2593,15 @@ def main() -> int:
     # -- 19. the sharded paths over 4 ranks on this card ---------------------------
     t_sharded = time.perf_counter()
     sharded_line = phase_sharded(st, smi)
+    # -- 20. the viewer; 21. the scaling harness ------------------------------------
+    t_view = time.perf_counter()
+    view_line = phase_view(st, smi)
+    t_scaling = time.perf_counter()
+    scaling_line = phase_scaling(smi, fwd_fixed_ops)
     print(f"clock: phases 1-16 took {t_mesh - t_start:.1f} s (the kernels' builds included), "
           f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {t_sharded - t_icp:.1f} s, phase 19 "
-          f"{time.perf_counter() - t_sharded:.1f} s")
+          f"{t_view - t_sharded:.1f} s, phase 20 {t_scaling - t_view:.1f} s, phase 21 "
+          f"{time.perf_counter() - t_scaling:.1f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -2374,11 +2611,16 @@ def main() -> int:
     print(json.dumps({"mesh": mesh_line}))
     print(json.dumps({"icp": icp_line}))
     print(json.dumps({"sharded": sharded_line}))
+    print(json.dumps({"view": view_line}))
+    print(json.dumps({"scaling": scaling_line}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
          "launches_sharded": sharded_launches(sharded_line, 0),
+         "launches_view": {"frames": view_line["launches"], "cli": view_line["cli_launches"]},
+         "launches_scaling_per_frame": {p["devices"]: p["launches_per_frame"]
+                                        for p in scaling_line["points"]},
          "max_abs_err": full_stats["max"], "ms": launch_ms, "frame_ms": kernel_ms,
          "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
          "bound_ms_fixed_work": fwd_fixed_bound, "issue_share": issue_share.get("raymarch_fwd"),

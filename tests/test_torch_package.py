@@ -493,3 +493,13 @@ def test_two_processes_building_one_stem_each_compile_their_own_source(tmp_path,
         build._compile("raymarch_fwd_broken", "// not the unit the compiler expects\n")
     assert sorted(p.name for p in build_dir.iterdir()) == ["raymarch_fwd_race.cu",
                                                            "raymarch_fwd_race.so"]
+
+
+@pytest.mark.parametrize("table", ["mesh/_luts_data.py", "native/_mc_luts.h"])
+def test_copied_tables_equal_the_jax_packages(table):
+    """The port keeps byte-identical copies of the marching-cubes tables that
+    tools/gen_luts.py and tools/gen_luts_header.py generate for the JAX
+    package; both files are read as data."""
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    ours = (repo / "sdfkit_tpu_torch" / table).read_bytes()
+    assert ours and ours == (repo / "sdfkit_tpu" / table).read_bytes()
