@@ -5,7 +5,7 @@
 
 PYTHON ?= python
 
-.PHONY: test perf trace lint
+.PHONY: test perf trace perf-torch trace-torch lint
 
 test:
 	$(PYTHON) -m pytest tests/ -q
@@ -17,5 +17,14 @@ trace:
 	$(PYTHON) bench.py --profile /tmp/sdfkit_tpu_trace
 	@echo "trace written; view with: tensorboard --logdir /tmp/sdfkit_tpu_trace"
 
+# The PyTorch/CUDA port on a CUDA card (bench_torch.py refuses to run without
+# one): the same sections as `perf`, and a torch.profiler Chrome trace.
+perf-torch:
+	$(PYTHON) bench_torch.py
+
+trace-torch:
+	$(PYTHON) bench_torch.py --profile /tmp/sdfkit_tpu_torch_trace
+	@echo "trace written; open /tmp/sdfkit_tpu_torch_trace/trace.json.gz in Perfetto or chrome://tracing"
+
 lint:
-	$(PYTHON) -m compileall -q sdfkit_tpu tests bench.py __graft_entry__.py
+	$(PYTHON) -m compileall -q sdfkit_tpu sdfkit_tpu_torch tests bench.py bench_torch.py __graft_entry__.py

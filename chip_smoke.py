@@ -79,7 +79,10 @@ iterations:
      2 and 4 ranks on this card (one launch of 4 ranks in a ``gloo`` group):
      frames bit for bit against one rank's, one launch per rank and frame,
      no nvcc on a rank, the static work against the "work:" lines'; each
-     point's ms, Mrays/s, efficiencies and band ms per rank.
+     point's ms, Mrays/s, efficiencies and band ms per rank;
+22   the benchmark (``bench_torch.py``) in a subprocess, every kernel built
+     here first: exit code 0, its section lines in order, its headline
+     (``correct``, this card), no nvcc and no file written in the checkout.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
@@ -131,9 +134,6 @@ MESH_GRIDS = (256, 512)
 JAX_MESH_VERTICES = {256: 300_152, 512: 1_215_992}
 ICP_POINTS = (10_000, 100_000)
 SLEEP_CYCLES = 40_000_000  # about 20 ms at 1980 MHz, ahead of launches timed on the card
-# Published peaks of one H100 SXM: float32 outside the tensor cores, HBM3.
-PEAK_FP32_OPS = 67e12
-PEAK_BYTES = 3.35e12
 
 FAILURES: list[str] = []
 
@@ -779,6 +779,73 @@ def phase_scaling(smi: str, fixed_ops: float) -> dict:
               f"{p['band_efficiency_pct']:.2f}%, band ms per rank "
               f"{[round(x, 4) for x in p['band_ms']]}, shared card {p['shared_device']}; on {smi}")
     return out
+
+
+BENCH_SECTIONS = ("render", "roofline", "occupancy", "fused_drift", "4k", "voxels", "mesh",
+                  "mesh_512", "grad", "icp", "scaling")
+BENCH_TIMEOUT = 560  # bench.py's time limit
+
+
+def checkout_files() -> dict:
+    """{path: (size, mtime)} of the checkout's files, the kernels' builds,
+    Python's caches and ``chiprun_out/`` (git-ignored, where a remote run's
+    own log may be growing) aside."""
+    skip = (ROOT / "sdfkit_tpu_torch" / "_build", ROOT / "chiprun_out")
+    out = {}
+    for path in ROOT.rglob("*"):
+        if path.is_file() and "__pycache__" not in path.parts and not any(
+                path.is_relative_to(d) for d in skip):
+            stat = path.stat()
+            out[str(path.relative_to(ROOT))] = (stat.st_size, stat.st_mtime_ns)
+    return out
+
+
+def phase_bench() -> dict:
+    """Phase 22: ``python3 bench_torch.py`` in a subprocess, after every
+    kernel was built here (it runs no nvcc): its exit code, its section
+    lines, its headline (``correct``, the card), and that it wrote nothing
+    in the checkout."""
+    torch.cuda.empty_cache()
+    before = checkout_files()
+    t0 = time.perf_counter()
+    try:
+        proc = subprocess.run([sys.executable, str(ROOT / "bench_torch.py")], capture_output=True,
+                              text=True, timeout=BENCH_TIMEOUT, cwd=ROOT)
+    except subprocess.TimeoutExpired:
+        check(False, f"bench_torch.py ended within {BENCH_TIMEOUT} s")
+        return {}
+    seconds = time.perf_counter() - t0
+    lines = []
+    for text in proc.stdout.splitlines():
+        try:
+            lines.append(json.loads(text))
+        except json.JSONDecodeError:
+            pass
+    if proc.returncode != 0:
+        print(proc.stderr[-8000:], file=sys.stderr)
+    head = lines[-1] if lines else {}
+    sections = {ln["section"]: ln for ln in lines[:-1] if "section" in ln}
+    device = torch.cuda.get_device_name(0)
+    print(f"bench_torch headline: {json.dumps(head)}")
+    check(proc.returncode == 0 and seconds < BENCH_TIMEOUT,
+          f"bench_torch.py exited {proc.returncode} in {seconds:.1f} s (limit {BENCH_TIMEOUT} s)")
+    check(set(head) == {"metric", "value", "unit", "vs_baseline", "extra"}
+          and head["extra"].get("correct") is True and len(json.dumps(head)) < 2000,
+          f"bench_torch.py's headline parses, {len(json.dumps(head))} characters, correct "
+          f"{head.get('extra', {}).get('correct')}")
+    check(list(sections) == list(BENCH_SECTIONS)
+          and not any("error" in ln for ln in sections.values()),
+          f"bench_torch.py printed its sections in order: {list(sections)}")
+    check(head.get("extra", {}).get("device") == device
+          and all(ln["device"] == device for ln in sections.values()),
+          f"bench_torch.py's lines name this card ({device})")
+    render = sections.get("render", {}).get("extra", {})
+    check(render.get("build_s", {}).get("nvcc_runs") == 0,
+          f"bench_torch.py ran no nvcc for its first frame: {render.get('build_s')}")
+    after = checkout_files()
+    changed = sorted(k for k in before.keys() | after.keys() if before.get(k) != after.get(k))
+    check(not changed, f"bench_torch.py wrote nothing in the checkout (changed: {changed[:10]})")
+    return {"seconds": seconds, "headline": head}
 
 
 def main() -> int:
@@ -2292,9 +2359,7 @@ def main() -> int:
                   "instructions_per_evaluation": None}
         listing = sass.library_sass(klib.path)
         if listing is not None and "rgb" in listing:
-            # Innermost loops that evaluate the scene (a grid-stride loop holds others).
-            loops = [lp for lp in listing["rgb"]["loops"]
-                     if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
+            loops = sass.scene_loops(listing)
             per = [sass.per_evaluation(lp, roots) for lp in loops]
             # The first loop that evaluates the scene is the march (the image
             # backward's replay; the ray-batch backward's tangent march, the
@@ -2375,52 +2440,31 @@ def main() -> int:
           f"renders); {sky_warp_saved} of the image forward's on the mostly-sky frame")
 
     # -- bounds: the least time the card could take for the same work ---------
+    # render/cuda/work.py counts it: nodes of the program and the fixed work
+    # around them, a ray marched to its bitwise fixed point, a sky ray not
+    # shaded. The image forward's hits and settled steps are those of the
+    # frame its launch was timed on (phase 5, sphere radius 0.5; phase 12's
+    # store had 0.55), as bench_torch.py's roofline counts them; the
+    # ray-batch forward's are its own depth renders' (phase 10) and flags.
+    from sdfkit_tpu_torch.render.cuda import work
     from sdfkit_tpu_torch.sdf.compile import operation_counts
 
     ops_n = operation_counts(prog)
     npix = WIDTH * HEIGHT
+    n = cfg.depth_iterations
     with torch.no_grad():
         hits = int((marcher.render_depth() <= cfg.far).sum())
-    n = cfg.depth_iterations
-    shade_ops = 60  # ray, normalisations, Lambert and the sky select of one pixel
-    step_ops = 7  # ro + rd * depth, and the depth's own add
-    # Forward, as fixed work: every pixel marches n-1 steps, evaluates colour
-    # once and taps 6 times.
-    fwd_fixed_ops = npix * ((n - 1 + 6) * (ops_n["dist"] + step_ops) + ops_n["eval"] + shade_ops)
-    # Forward, as the work this frame needs: a ray marches until a step shows
-    # its bitwise fixed point (settled step + 1, at most n-1), then evaluates
-    # colour; a ray that hits taps 6 times and is shaded, one that misses
-    # takes the sky's constant (its ray and the select, about ray_ops). The
-    # image forward's settled steps are its store's (phase 12), the
-    # ray-batch forward's its own depth renders' (phase 10), its hits its
-    # flags; it makes no rays (about ray_ops a ray fewer).
-    ray_ops, ray_vjp_ops = 30, 60
+        _, frame_store = rk.launch(store_lib, flat_params(hero).contiguous(),
+                                   rk.view19(marcher.view, cfg), cfg, True, want_store=True)
+        frame_steps = work.march_steps_needed(settled_steps(frame_store), n)
+        del frame_store
     ray_hits = int(rays_hit.sum())
-
-    def forward_ops(march_steps, hit_count):
-        return (march_steps * (ops_n["dist"] + step_ops) + npix * ops_n["eval"]
-                + hit_count * (6 * (ops_n["dist"] + step_ops) + shade_ops)
-                + (npix - hit_count) * ray_ops)
-
-    fwd_ops = forward_ops(int(ray_need.sum()), hits)
-    rays_fwd_ops = forward_ops(int(torch.clamp(rays_steps + 1, max=n - 1).sum()),
-                               ray_hits) - npix * ray_ops
-    fwd_bytes = npix * 12 + 4 * (prog.n_params + 19)
-    # Backward: every pixel replays the march and the colour step; only a hit
-    # pixel taps, takes the unit gradient at the six taps and at the n-1 kept
-    # depths, pulls the colour step back and runs the recurrence. Around one
-    # unit gradient of a sweep step: the point (6), grad d . rd (5), the
-    # gradient times the depth (3), the ray's six sums (12), the recurrence (2)
-    # and the multiply of each parameter slot's scaled add (the add is in
-    # dist_unit): 28 + dist_slots; a tap's share of its pair is about as much.
-    unit_ops = ops_n["dist_unit"] + 28 + ops_n["dist_slots"]
-    bwd_ops = (npix * ((n - 1) * (ops_n["dist"] + step_ops) + ops_n["eval"] + 30)
-               + hits * (6 * (ops_n["dist"] + step_ops) + (6 + n - 1) * unit_ops
-                         + ops_n["eval_vjp"] + 3 * shade_ops))
-    bwd_bytes = npix * 12 + 4 * (prog.n_params + 19) * 2
+    costs = work.frame_work(prog, n, npix, hits, frame_steps, ray_hits,
+                            work.march_steps_needed(rays_steps, n))
     print(f"work: {ops_n} operations per call (nodes of the program, not instructions); {hits} "
-          f"of {npix} pixels hit; forward {fwd_ops:.4g} operations / {fwd_bytes} bytes, backward "
-          f"{bwd_ops:.4g} / {bwd_bytes}")
+          f"of {npix} pixels hit; forward {costs['fwd'].operations:.4g} operations / "
+          f"{costs['fwd'].bytes} bytes, backward {costs['bwd'].operations:.4g} / "
+          f"{costs['bwd'].bytes}")
     # Both image kernels against the rate at which the card starts
     # instructions: one per lane and cycle, 128 lanes an SM, at the highest SM
     # clock. Every count is read from this build's SASS: a loop's instructions
@@ -2429,22 +2473,13 @@ def main() -> int:
     # most (none of them runs more than once a pixel, the slow paths of a
     # square root or a division aside; a sky pixel skips many, so the most can
     # come out above 1).
-    # The ray-batch backward's work: on a ray the forward hit, n - 1 tangent
-    # steps (a unit gradient with its distance, the point, s = 1 + u . rd,
-    # and the derivatives' multiply-adds: 2 per parameter slot and 12 for the
-    # ray), the colour step, the taps and the final shade's pullback; a ray
-    # the forward missed costs nothing but its flag.
-    tangent_ops = ops_n["dist_unit"] + 28 + 2 * ops_n["dist_slots"]
-    rays_bwd_ops = ray_hits * ((n - 1) * tangent_ops + ops_n["eval"]
-                               + 6 * (ops_n["dist"] + step_ops) + 6 * unit_ops
-                               + ops_n["eval_vjp"] + 3 * shade_ops)
-    rays_bwd_bytes = npix * (24 + 12 + 1 + 24) + 4 * prog.n_params * 2
+    tangent_ops = ops_n["dist_unit"] + work.UNIT_OPS + 2 * ops_n["dist_slots"]
     march_per = (compiled["raymarch_fwd"]["instructions_per_evaluation"] or {}).get("march")
     clock = sh(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"])
     issue_share = {}  # the forwards' share of the instruction rate, where SASS says it
     if march_per is not None and clock.strip().isdigit():
         sms = torch.cuda.get_device_properties(0).multi_processor_count
-        instruction_rate = sms * 128 * float(clock) * 1e6
+        instruction_rate = work.instruction_rate(sms, float(clock))
 
         def rate_shares(name, in_loops, ms):
             """What kernel `name`, which executed `in_loops` instructions inside
@@ -2471,19 +2506,13 @@ def main() -> int:
                     ("raymarch_fwd_store", "the forward with store", handoff_ms["fwd_store"],
                      warp_steps))
         for name, what, ms, w_steps in forwards:
-            loops = compiled[name].get("loops", [])
-            if every is None or not loops or loops[0]["rsq"] != every * roots:
+            counted = work.forward_loop_instructions(compiled[name].get("loops", []), roots,
+                                                     every, w_steps, n)
+            if counted is None:
                 continue
-            full = (n - 1) // every
-            groups = torch.clamp(w_steps, max=every * full) // every
-            group_passes = int(groups.sum())
-            rest_passes = int((w_steps - every * groups).sum())
-            warp_passes, n_warps = int(w_steps.sum()), w_steps.numel()
-            group = loops[0]
-            per = group["own"] / every
-            rest_per = loops[1]["own"] * roots / loops[1]["rsq"] if len(loops) > 1 else per
-            in_loops = 32 * (group_passes * group["own"] + rest_passes * rest_per)
-            fixed = 32 * n_warps * (full * group["own"] + (n - 1 - every * full) * rest_per)
+            in_loops, fixed = counted["in_loops"], counted["fixed"]
+            per, rest_per = counted["per_step"], counted["rest_per_step"]
+            warp_passes, n_warps = counted["warp_steps"], counted["warps"]
             text = (f"{per:.1f} instructions per march step in groups of {every} (the vote "
                     f"included), {rest_per:.1f} per step left over")
             if name == "raymarch_fwd_store":
@@ -2502,24 +2531,20 @@ def main() -> int:
                   f"{in_loops:.4g} thread instructions in its loops (fixed work {fixed:.4g}) in "
                   f"{ms:.4f} ms; {sms} SMs start {instruction_rate:.4g} per second at "
                   f"{clock.strip()} MHz: {rate_shares(name, in_loops, ms)}")
-        # The backward's loops in address order: the replay, the taps' forward
-        # pass, the taps' unit gradients (three passes of two evaluations
-        # each), the sweep, then the pair that serves a march of more than 64
-        # steps and does not run here. Every pixel replays; a hit pixel also
-        # taps and sweeps.
-        bwd_loops = compiled["raymarch_bwd"].get("loops", [])
-        if len(bwd_loops) >= 4:
-            replay, tap_fwd, tap_unit, sweep = bwd_loops[:4]
-            in_loops = (npix * (n - 1) * replay["own"] * roots / replay["rsq"]
-                        + hits * (3 * tap_fwd["own"] + 3 * tap_unit["own"]
-                                  + (n - 1) * sweep["own"] * roots / sweep["rsq"]))
-            print(f"work: the backward executes {replay['own'] * roots / replay['rsq']:.1f} "
-                  f"instructions per replayed step, {tap_fwd['own'] / 2:.1f} / "
-                  f"{tap_unit['own'] / 2:.1f} per tap (forward / unit gradient) and "
-                  f"{sweep['own'] * roots / sweep['rsq']:.1f} per sweep step for "
-                  f"{ops_n['dist_unit']} + {28 + ops_n['dist_slots']} counted operations; its "
-                  f"loops are {in_loops:.4g} thread instructions in {bwd_launch_ms:.4f} ms: "
-                  f"{rate_shares('raymarch_bwd', in_loops, bwd_launch_ms)}")
+        # The backward's loops in address order (the replay, the taps'
+        # forward pass and unit gradients, the sweep), then the pair that
+        # serves a march of more than 64 steps and does not run here.
+        bwd_counted = work.backward_loop_instructions(compiled["raymarch_bwd"].get("loops", []),
+                                                      roots, npix, hits, n)
+        if bwd_counted is not None:
+            in_loops = bwd_counted["in_loops"]
+            print(f"work: the backward executes {bwd_counted['per_replay_step']:.1f} "
+                  f"instructions per replayed step, {bwd_counted['per_tap'][0]:.1f} / "
+                  f"{bwd_counted['per_tap'][1]:.1f} per tap (forward / unit gradient) and "
+                  f"{bwd_counted['per_sweep_step']:.1f} per sweep step for "
+                  f"{ops_n['dist_unit']} + {work.UNIT_OPS + ops_n['dist_slots']} counted "
+                  f"operations; its loops are {in_loops:.4g} thread instructions in "
+                  f"{bwd_launch_ms:.4f} ms: {rate_shares('raymarch_bwd', in_loops, bwd_launch_ms)}")
         # The ray-batch backward: the tangent march, then the taps' two
         # loops, on the rays the forward hit (the flags skip the others).
         tangent_loops = compiled["raymarch_rays_bwd"].get("loops", [])
@@ -2547,43 +2572,31 @@ def main() -> int:
                   f"{in_loops:.4g} thread instructions in {ms:.4f} ms: "
                   f"{in_loops / (ms * 1e-3) / instruction_rate:.3f} of the instruction rate")
 
-    def bound(ops_count, nbytes):
-        by_ops, by_bytes = ops_count / PEAK_FP32_OPS * 1e3, nbytes / PEAK_BYTES * 1e3
-        return max(by_ops, by_bytes), "operations" if by_ops >= by_bytes else "bytes"
-
-    fwd_bound, fwd_by = bound(fwd_ops, fwd_bytes)
-    fwd_fixed_bound, _ = bound(fwd_fixed_ops, fwd_bytes)
-    bwd_bound, bwd_by = bound(bwd_ops, bwd_bytes)
-    # The ray-batch kernels do the image kernels' work without ray generation
-    # (ray_ops, about 30 operations: two NDC coordinates, four 3-term rows,
-    # three divides, a normalisation) and its pullback (about 60), and move the
-    # rays: 24 bytes read per ray, and 24 written by the pullback.
-    rays_bound, rays_by = bound(rays_fwd_ops, fwd_bytes + npix * 24)
-    rays_fixed_bound, _ = bound(fwd_fixed_ops - npix * ray_ops, fwd_bytes + npix * 24)
-    rays_bwd_bound, rays_bwd_by = bound(rays_bwd_ops, rays_bwd_bytes)
-    # The same function's work as the replay and the sweep did it (the bound
-    # this kernel had before the tangent march), for comparison.
-    replay_form_bound, _ = bound(bwd_ops - npix * ray_ops - hits * ray_vjp_ops,
-                                 bwd_bytes + npix * 48)
-    # The handoff: the forward writes n depths per pixel; the backward reads
-    # them and does not replay the n-1 march steps.
-    store_bytes = npix * n * 4
-    store_bound, store_by = bound(fwd_ops, fwd_bytes + store_bytes)
-    store_fixed_bound, _ = bound(fwd_fixed_ops, fwd_bytes + store_bytes)
+    fwd_bound, fwd_by = costs["fwd"].bound()
+    fwd_fixed_bound, _ = costs["fwd_fixed"].bound()
+    bwd_bound, bwd_by = costs["bwd"].bound()
+    rays_bound, rays_by = costs["rays_fwd"].bound()
+    rays_fixed_bound, _ = costs["rays_fwd_fixed"].bound()
+    rays_bwd_bound, rays_bwd_by = costs["rays_bwd"].bound()
+    # The ray-batch pullback's work as the replay and the sweep did it (the
+    # bound this kernel had before the tangent march), for comparison.
+    replay_form_bound, _ = costs["rays_bwd_as_replay"].bound()
+    store_bound, store_by = costs["fwd_store"].bound()
+    store_fixed_bound, _ = costs["fwd_store_fixed"].bound()
+    store_bwd_bound, store_bwd_by = costs["bwd_store"].bound()
     print(f"work: the forwards' bounds as the work this frame needs (fixed work beside it): "
-          f"image {fwd_ops:.4g} operations, {fwd_bound:.4f} ms ({fwd_fixed_ops:.4g}, "
-          f"{fwd_fixed_bound:.4f} ms); ray-batch {rays_fwd_ops:.4g}, "
-          f"{rays_bound:.4f} ms ({fwd_fixed_ops - npix * ray_ops:.4g}, {rays_fixed_bound:.4f} ms); "
+          f"image {costs['fwd'].operations:.4g} operations, {fwd_bound:.4f} ms "
+          f"({costs['fwd_fixed'].operations:.4g}, {fwd_fixed_bound:.4f} ms); ray-batch "
+          f"{costs['rays_fwd'].operations:.4g}, {rays_bound:.4f} ms "
+          f"({costs['rays_fwd_fixed'].operations:.4g}, {rays_fixed_bound:.4f} ms); "
           f"with store {store_bound:.4f} ms by {store_by} ({store_fixed_bound:.4f} ms)")
-    store_bwd_bound, store_bwd_by = bound(
-        bwd_ops - npix * (n - 1) * (ops_n["dist"] + step_ops), bwd_bytes + store_bytes)
-    print(f"work: ray-batch forward {rays_fwd_ops:.4g} operations / "
-          f"{fwd_bytes + npix * 24} bytes, ray-batch backward {rays_bwd_ops:.4g} / "
-          f"{rays_bwd_bytes} (as a replay and a sweep "
-          f"{bwd_ops - npix * ray_ops - hits * ray_vjp_ops:.4g}, bound {replay_form_bound:.4f} ms); "
-          f"forward with store {fwd_ops:.4g} / {fwd_bytes + store_bytes}, backward fed the store "
-          f"{bwd_ops - npix * (n - 1) * (ops_n['dist'] + step_ops):.4g} / "
-          f"{bwd_bytes + store_bytes}")
+    print(f"work: ray-batch forward {costs['rays_fwd'].operations:.4g} operations / "
+          f"{costs['rays_fwd'].bytes} bytes, ray-batch backward {costs['rays_bwd'].operations:.4g} / "
+          f"{costs['rays_bwd'].bytes} (as a replay and a sweep "
+          f"{costs['rays_bwd_as_replay'].operations:.4g}, bound {replay_form_bound:.4f} ms); "
+          f"forward with store {costs['fwd_store'].operations:.4g} / {costs['fwd_store'].bytes}, "
+          f"backward fed the store {costs['bwd_store'].operations:.4g} / "
+          f"{costs['bwd_store'].bytes}")
 
     # -- 17. meshing; 18. registration -----------------------------------------
     t_mesh = time.perf_counter()
@@ -2597,11 +2610,14 @@ def main() -> int:
     t_view = time.perf_counter()
     view_line = phase_view(st, smi)
     t_scaling = time.perf_counter()
-    scaling_line = phase_scaling(smi, fwd_fixed_ops)
+    scaling_line = phase_scaling(smi, costs["fwd_fixed"].operations)
+    # -- 22. the benchmark -------------------------------------------------------------
+    t_bench = time.perf_counter()
+    phase_bench()
     print(f"clock: phases 1-16 took {t_mesh - t_start:.1f} s (the kernels' builds included), "
           f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {t_sharded - t_icp:.1f} s, phase 19 "
           f"{t_view - t_sharded:.1f} s, phase 20 {t_scaling - t_view:.1f} s, phase 21 "
-          f"{time.perf_counter() - t_scaling:.1f} s")
+          f"{t_bench - t_scaling:.1f} s, phase 22 {time.perf_counter() - t_bench:.1f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

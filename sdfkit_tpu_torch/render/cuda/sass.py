@@ -92,6 +92,13 @@ def library_sass(path) -> dict | None:
     return parse_sass(proc.stdout) if proc.returncode == 0 else None
 
 
+def scene_loops(listing: dict, key: str = "rgb") -> list:
+    """The innermost loops of kernel ``key`` of a :func:`parse_sass` listing
+    that evaluate the scene (they take a square root; a grid-stride loop
+    holds others), in address order."""
+    return [lp for lp in listing[key]["loops"] if lp["rsq"] > 0 and lp["own"] == lp["instructions"]]
+
+
 def per_evaluation(loop: dict, roots_per_evaluation: int) -> float | None:
     """Instructions one pass of ``loop`` executes per scene evaluation in it,
     the evaluations counted by their square roots; None for a loop without
@@ -101,4 +108,5 @@ def per_evaluation(loop: dict, roots_per_evaluation: int) -> float | None:
     return loop["own"] * roots_per_evaluation / loop["rsq"]
 
 
-__all__ = ["cuobjdump_path", "kernel_key", "library_sass", "parse_sass", "per_evaluation"]
+__all__ = ["cuobjdump_path", "kernel_key", "library_sass", "parse_sass", "per_evaluation",
+           "scene_loops"]

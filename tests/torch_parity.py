@@ -270,6 +270,25 @@ def assert_rgb_close(a, b):
     assert np.median(d) <= 1e-4, float(np.median(d))
 
 
+FAR = 16.0  # from here on the normal's eps (1e-5) spans under 6 ulps of the position
+
+
+def assert_rgb_close_but_far(a, b, depth):
+    """ROADMAP C.15: RGB of a frame with rays that end far away, where the
+    eps=1e-5 central-difference normal spans a few ulps of the position and
+    two programs' float32 roundings give different normals. The median as
+    ``assert_rgb_close``; the pixels at or beyond its 2e-2 are at most 1% of
+    the frame and all at ``depth`` (the port's) ``FAR`` or more."""
+    d = np.abs(np.asarray(a) - np.asarray(b))
+    depth = np.asarray(depth)
+    assert np.median(d) <= 1e-4, float(np.median(d))
+    off = d.max(axis=-1) >= 2e-2
+    print(f"{int(off.sum())} of {off.size} pixels at or beyond 2e-2 (max {float(d.max()):.4g}), "
+          f"at depths {np.sort(depth[off]).round(1).tolist()}")
+    assert off.sum() <= 0.01 * off.size, int(off.sum())
+    assert (depth[off] >= FAR).all(), depth[off]
+
+
 def assert_distributional(a, b):
     """tests/test_goldens.py:66-68: median |diff| <= 5e-3, at most 0.5% of
     pixels off by more than 1e-2 and 0.1% by more than 5e-2."""

@@ -25,10 +25,10 @@ Each point reports:
    clock, ``fn()``, a synchronise of the card and a barrier; the min. Where
    the ranks outnumber the cards (``shared_device``) the ranks take turns on
    one card and the point measures the collectives, not a speed-up.
-2. **Work per rank, static**: the operations of the compiled program
-   (``sdf.compile.operation_counts``, nodes and not instructions) for the
-   fixed work of a pixel, times the largest band's pixels; bytes of the
-   band's output and the uniforms. ``work_partition_efficiency_pct`` is
+2. **Work per rank, static**: the image forward's fixed work over the
+   largest band (``render.cuda.work.frame_work``: nodes of the compiled
+   program, not instructions, and the bytes of the band's output and the
+   uniforms). ``work_partition_efficiency_pct`` is
    ops(1) / (n ops(n)), the JAX tool's formula.
 3. **Band time alone**: each rank renders its band through the same row
    renderer once more while every other rank waits at a barrier, timed on
@@ -61,23 +61,7 @@ sys.path.insert(0, os.path.join(REPO, "tools"))
 
 import torch  # noqa: E402
 
-# The fixed work of one pixel around the program's own operations, as
-# chip_smoke.py's "work:" lines count it: a march step's ro + rd * depth and
-# the depth's add, and the ray, normalisations, Lambert and sky of a pixel.
-STEP_OPS = 7
-SHADE_OPS = 60
-TAPS = 6
 SLEEP_CYCLES = 40_000_000  # about 20 ms ahead of a timed band
-
-
-def fixed_operations_per_pixel(program, iterations: int) -> int:
-    """Operations of one pixel marched every step: ``iterations - 1`` distance
-    steps and six normal taps, one colour evaluation, the shading."""
-    from sdfkit_tpu_torch.sdf.compile import operation_counts
-
-    counts = operation_counts(program)
-    return ((iterations - 1 + TAPS) * (counts["dist"] + STEP_OPS) + counts["eval"]
-            + SHADE_OPS)
 
 
 def parser() -> argparse.ArgumentParser:
@@ -252,8 +236,10 @@ def run_rank(a) -> dict:
 
 def result(me: Rank, every: list[dict]) -> dict:
     """The JSON of every point, from every rank's records (on rank 0)."""
+    from sdfkit_tpu_torch.render.cuda import work
+
     cfg = me.cfg
-    per_pixel = fixed_operations_per_pixel(me.program, cfg.depth_iterations)
+    per_pixel = work.fixed_operations_per_pixel(me.program, cfg.depth_iterations)
     cards = torch.cuda.device_count() if me.cuda else 0
     cores = os.cpu_count() or 1
     points = []
@@ -261,13 +247,14 @@ def result(me: Rank, every: list[dict]) -> dict:
         recs = [every[r]["points"][i][1] for r in range(n)]
         secs = min(rec0["ms"]) / 1e3
         band_pixels = min(cfg.height, -(-cfg.height // n)) * cfg.width
+        band = work.frame_work(me.program, cfg.depth_iterations, band_pixels, 0, 0)["fwd_fixed"]
         points.append({
             "devices": n,
             "seconds": secs,
             "ms": rec0["ms"],
             "mrays_per_s": cfg.width * cfg.height / secs / 1e6,
-            "per_device_operations": band_pixels * per_pixel,
-            "per_device_bytes": band_pixels * 12 + 4 * (me.program.n_params + 19),
+            "per_device_operations": band.operations,
+            "per_device_bytes": band.bytes,
             "shared_device": n > (cards if me.cuda else cores),
             "band_ms": [r["band_ms"] for r in recs],
             "launches_per_frame": [r["launches_per_frame"] for r in recs],
