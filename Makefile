@@ -5,7 +5,7 @@
 
 PYTHON ?= python
 
-.PHONY: test perf trace perf-torch trace-torch lint
+.PHONY: test perf trace perf-torch trace-torch sharded-torch lint
 
 test:
 	$(PYTHON) -m pytest tests/ -q
@@ -25,6 +25,13 @@ perf-torch:
 trace-torch:
 	$(PYTHON) bench_torch.py --profile /tmp/sdfkit_tpu_torch_trace
 	@echo "trace written; open /tmp/sdfkit_tpu_torch_trace/trace.json.gz in Perfetto or chrome://tracing"
+
+# The port's sharded paths over NCCL on a machine of several cards, a card
+# for each of RANKS ranks (refused with fewer cards than ranks).
+RANKS ?= 4
+
+sharded-torch:
+	$(PYTHON) tools/torch_distributed_demo.py --ranks $(RANKS) --size cards --backend nccl
 
 lint:
 	$(PYTHON) -m compileall -q sdfkit_tpu sdfkit_tpu_torch tests bench.py bench_torch.py __graft_entry__.py

@@ -24,7 +24,8 @@ rate from SASS), ``fused_drift`` (kernel against plain per pixel), ``4k``,
 sequential C++ baseline), ``grad`` (a gradient step through the image
 kernels against autograd of the plain path, and their parity), ``icp``
 and ``scaling`` (4K row bands alone on the card, and
-``tools/torch_scaling.py`` over 1, 2 and 4 ranks).
+``tools/torch_scaling.py`` over 1, 2 and 4 ``gloo`` ranks on the card and,
+on a machine of several cards, over 1, 2 and 4 cards under NCCL).
 
 Timing: launches alone with CUDA events, each queued behind a sleep on the
 card so that the host's work to start it is not timed; entry points (a
@@ -732,13 +733,56 @@ def bench_icp(sizes=ICP_POINTS) -> dict:
     return out
 
 
-def bench_scaling(width: int = WIDTH_4K, height: int = HEIGHT_4K) -> dict:
+def scaling_audit(process_group: str, devices, width: int, height: int, iters: int) -> dict:
+    """The JSON of ``tools/torch_scaling.py`` over ``devices`` ranks of one
+    ``process_group`` group (``gloo``: every rank on this card; ``nccl``: a
+    card each), read from its standard output; raises when it fails."""
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "tools" / "torch_scaling.py"), "--process-group",
+         process_group, "--devices", *(str(n) for n in devices), "--width", str(width),
+         "--height", str(height), "--iters", str(iters), "--timeout", str(AUDIT_TIMEOUT)],
+        capture_output=True, text=True, timeout=AUDIT_TIMEOUT + 60, cwd=ROOT)
+    lines = proc.stdout.strip().splitlines()
+    if proc.returncode != 0 or not lines:
+        raise RuntimeError(f"tools/torch_scaling.py --process-group {process_group} exited "
+                           f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def audit_points(audit: dict, fixed_operations: float, what: str) -> tuple[dict, dict]:
+    """(the audit's points as the bench reports them, its checks): frames
+    equal to one rank's, one launch per rank and frame, no nvcc on a rank,
+    the work at one rank the frame's fixed work, split evenly."""
+    points = audit["points"]
+    summary = {
+        "process_group": audit["process_group"], "nvcc_builds": audit["nvcc_builds"],
+        "rank_devices": audit["rank_devices"],
+        "points": [{k: p[k] for k in ("devices", "ms", "mrays_per_s", "walltime_efficiency_pct",
+                                      "band_ms", "band_efficiency_pct", "shared_device",
+                                      "work_partition_efficiency_pct", "launches_per_frame")}
+                   for p in points]}
+    checks = {
+        f"scaling: the {what}'s frames equal one rank's": all(p["frame_equal_to_one_rank"]
+                                                            for p in points),
+        f"scaling: the {what} launched once per rank and frame and built nothing":
+            all(p["launches_per_frame"] == [1.0] * p["devices"] for p in points)
+            and audit["nvcc_builds"] == [0] * audit["num_processes"],
+        f"scaling: the {what}'s work at one rank is the frame's fixed work, split evenly":
+            points[0]["per_device_operations"] == fixed_operations
+            and all(p["work_partition_efficiency_pct"] == 100.0 for p in points),
+    }
+    return summary, checks
+
+
+def bench_scaling(width: int = WIDTH_4K, height: int = HEIGHT_4K, audit=scaling_audit) -> dict:
     """4K row bands of ``ceil(H / n)`` rows through ``render_rows_kernel``
     (the program ``build_sharded_render`` puts on each rank), each alone on
     the card (CUDA events): efficiency(n) = T(full) / (n T(band)), capped at
     100 as in bench.py (the raw ratio beside it); then the audit,
-    ``tools/torch_scaling.py`` over 1, 2 and 4 ``gloo`` ranks on the card,
-    read from its standard output."""
+    ``tools/torch_scaling.py`` over 1, 2 and 4 ``gloo`` ranks on this card,
+    and where the machine has more cards, over 1, 2 and 4 of them under
+    NCCL, a rank on each (``torch_scaling_cards``): frames that run at the
+    same time, whose walltime efficiency is ms(1) / (n ms(n))."""
     scene, view = scenes.sphere_repeat_scene(), bench_view()
     cfg = st.RenderConfig(width, height)
     ivp, cam = inv_view_proj(view, width, height, cfg.vfov_degrees, cfg.near, cfg.far)
@@ -762,39 +806,32 @@ def bench_scaling(width: int = WIDTH_4K, height: int = HEIGHT_4K) -> dict:
     checks = {"scaling: one image-forward launch per band":
               all(p["launches_per_band"] == 1.0 for p in points)}
 
-    proc = subprocess.run(
-        [sys.executable, str(ROOT / "tools" / "torch_scaling.py"), "--devices",
-         *(str(n) for n in AUDIT_RANKS), "--width", str(width), "--height", str(height),
-         "--iters", str(cfg.depth_iterations), "--timeout", str(AUDIT_TIMEOUT)],
-        capture_output=True, text=True, timeout=AUDIT_TIMEOUT + 60, cwd=ROOT)
-    lines = proc.stdout.strip().splitlines()
-    if proc.returncode != 0 or not lines:
-        print(proc.stderr[-4000:], file=sys.stderr)
-        checks["scaling: tools/torch_scaling.py ran its ranks"] = False
-        out["checks"] = checks
-        return out
-    audit = json.loads(lines[-1])
     fixed = work.frame_work(compile_scene(scene), cfg.depth_iterations, width * height, 0,
                             0)["fwd_fixed"].operations
-    apoints = audit["points"]
-    out["torch_scaling_audit"] = {
-        "process_group": audit["process_group"], "nvcc_builds": audit["nvcc_builds"],
-        "points": [{k: p[k] for k in ("devices", "ms", "mrays_per_s", "walltime_efficiency_pct",
-                                      "band_ms", "band_efficiency_pct",
-                                      "work_partition_efficiency_pct", "launches_per_frame")}
-                   for p in apoints]}
-    out[f"spmd_work_partition_n{apoints[-1]['devices']}_pct"] = \
-        apoints[-1]["work_partition_efficiency_pct"]
-    checks.update({
-        "scaling: the audit's frames equal one rank's": all(p["frame_equal_to_one_rank"]
-                                                            for p in apoints),
-        "scaling: the audit launched once per rank and frame and built nothing":
-            all(p["launches_per_frame"] == [1.0] * p["devices"] for p in apoints)
-            and audit["nvcc_builds"] == [0] * audit["num_processes"],
-        "scaling: the audit's work at one rank is the frame's fixed work, split evenly":
-            apoints[0]["per_device_operations"] == fixed
-            and all(p["work_partition_efficiency_pct"] == 100.0 for p in apoints),
-    })
+    cards = torch.cuda.device_count()
+    audits = [("torch_scaling_audit", "gloo", AUDIT_RANKS, "audit")]
+    if cards > 1:
+        audits.append(("torch_scaling_cards", "nccl", tuple(n for n in AUDIT_RANKS if n <= cards),
+                       "cards audit"))
+    for key, group, ranks, what in audits:
+        try:
+            found = audit(group, ranks, width, height, cfg.depth_iterations)
+        except RuntimeError as e:
+            print(str(e), file=sys.stderr)
+            checks[f"scaling: the {what} ran its ranks"] = False
+            continue
+        out[key], audit_checks = audit_points(found, fixed, what)
+        checks.update(audit_checks)
+        if group == "nccl":
+            checks["scaling: the cards audit put each rank on a card of its own"] = (
+                len(set(found["rank_devices"])) == found["num_processes"]
+                and not any(p["shared_device"] for p in found["points"]))
+            out.update({f"cards_walltime_efficiency_n{p['devices']}_pct":
+                        p["walltime_efficiency_pct"] for p in found["points"] if p["devices"] > 1})
+    apoints = out.get("torch_scaling_audit", {}).get("points")
+    if apoints:
+        out[f"spmd_work_partition_n{apoints[-1]['devices']}_pct"] = \
+            apoints[-1]["work_partition_efficiency_pct"]
     out["checks"] = checks
     return out
 
@@ -832,7 +869,8 @@ HEADLINE_KEYS = (
     "grad_parity_ok", "grad_parity_max_rel_err_40iter", "icp_10000_ms", "icp_10000_max_err",
     "icp_10000_iterations", "icp_100000_ms", "icp_100000_max_err", "icp_100000_iterations",
     "scaling_efficiency_n2_pct", "scaling_efficiency_n4_pct", "scaling_efficiency_n8_pct",
-    "spmd_work_partition_n4_pct", "fused_drift_1920x1080_px_gt_1e-2",
+    "spmd_work_partition_n4_pct", "cards_walltime_efficiency_n2_pct",
+    "cards_walltime_efficiency_n4_pct", "fused_drift_1920x1080_px_gt_1e-2",
     "fused_drift_1920x1080_px_gt_5e-2",
 )
 

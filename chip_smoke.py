@@ -82,13 +82,26 @@ iterations:
      point's ms, Mrays/s, efficiencies and band ms per rank;
 22   the benchmark (``bench_torch.py``) in a subprocess, every kernel built
      here first: exit code 0, its section lines in order, its headline
-     (``correct``, this card), no nvcc and no file written in the checkout.
+     (``correct``, this card), no nvcc and no file written in the checkout;
+23   on a machine of two or more cards, the sharded paths over NCCL with a
+     card for each rank (up to four): first, in this process, a 1080p frame
+     (RGB and depth) and a gradient step through ``RayMarcher`` on every card
+     (0, the last, 0, 1, the rest), bit-identical to card 0's; then
+     ``tools/torch_distributed_demo.py --size cards`` (phase 19's checks and
+     bounds, plus a 4K RGB frame and the bricks and the mesh at 512^3 against
+     one device, 1,215,992 vertices), every rank on its own card (by PCI
+     address) in one NCCL group, no nvcc on a rank; then
+     ``tools/torch_scaling.py --process-group nccl`` over 1, 2 and 4 cards at
+     1920x1080 and 3840x2160. Its ``sharded_cards`` line has each path's host
+     ms beside one rank's, the collectives alone, the bands and the walltime
+     efficiencies. On one card it prints that it did not run, and why.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
 result line, when there is no CUDA device or any check fails; on success it
-prints one JSON line each for ``mesh``, ``icp``, ``sharded``, ``view`` and
-``scaling``, the card's name and power limit, one line of JSON that lists
+prints one JSON line each for ``mesh``, ``icp``, ``sharded``, ``view``,
+``scaling`` and ``sharded_cards`` (``"ran": false`` on one card), the card's
+name and power limit, one line of JSON that lists
 the six kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -747,7 +760,8 @@ def phase_scaling(smi: str, fixed_ops: float) -> dict:
     with tempfile.TemporaryDirectory() as d:
         path = pathlib.Path(d, "scaling.json")
         try:
-            rc = torch_scaling.main(["--devices", *(str(n) for n in SCALING_DEVICES),
+            rc = torch_scaling.main(["--process-group", "gloo",
+                                     "--devices", *(str(n) for n in SCALING_DEVICES),
                                      "--width", str(WIDTH), "--height", str(HEIGHT),
                                      "--iters", "40", "--timeout", "300", "--out", str(path)])
         except RuntimeError as e:
@@ -846,6 +860,246 @@ def phase_bench() -> dict:
     changed = sorted(k for k in before.keys() | after.keys() if before.get(k) != after.get(k))
     check(not changed, f"bench_torch.py wrote nothing in the checkout (changed: {changed[:10]})")
     return {"seconds": seconds, "headline": head}
+
+
+CARDS_RANKS = 4  # phase 23's ranks: one per card, at most four
+CARDS_TIMEOUT = 600.0
+CARDS_SCALING = ((WIDTH, HEIGHT), (3840, 2160))
+CARDS_SCALING_POINTS = (1, 2, 4)
+
+
+def one_process_cards(st, order) -> dict:
+    """Phase 23's first part, in this process (its current card stays
+    ``cuda:0``): SphereRepeat at 1920x1080x40 from (-2, 2, 4), RGB and depth
+    through ``RayMarcher``, and a gradient step (radius 0.55 against the
+    frame at 0.5, the mean squared error, ``backward``) on each card of
+    ``order``; every output held bit for bit to the first card's. The
+    kernel libraries are each one build: a launch on another card uses that
+    card's copy of their code and uniforms."""
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
+
+    ref = target = None
+    cards = []
+    for d in order:
+        dev = torch.device("cuda", d)
+        view = st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0), device=dev)
+        before = (rk.LAUNCHES, rk.BWD_LAUNCHES)
+        marcher = st.RayMarcher(WIDTH, HEIGHT, scenes.sphere_repeat_scene(dev), view=view)
+        with torch.no_grad():
+            rgb, depth = marcher.render(), marcher.render_depth()
+        if target is None:
+            target = rgb
+        start = scenes.sphere_repeat_scene(dev)
+        with torch.no_grad():
+            st.leaves(start)[0].fill_(START_RADIUS)
+        loss = ((st.RayMarcher(WIDTH, HEIGHT, start, view=view).render()
+                 - target.to(dev)) ** 2).mean()
+        loss.backward()
+        torch.cuda.synchronize(dev)
+        got = {"rgb": rgb.cpu().numpy(), "depth": depth.cpu().numpy(),
+               "loss": np.float32(loss.item()),
+               "grads": np.concatenate([p.grad.reshape(-1).cpu().numpy()
+                                        for p in st.leaves(start)])}
+        ref = got if ref is None else ref
+        cards.append({
+            "card": d, "outputs_on": [str(t.device) for t in (rgb, depth, loss)],
+            "current_device": torch.cuda.current_device(),
+            "launches": [rk.LAUNCHES - before[0], rk.BWD_LAUNCHES - before[1]],
+            **{f"{k}_equal": bool(np.array_equal(got[k], ref[k])) for k in got},
+            "rgb_mean": float(got["rgb"].mean()), "loss": float(got["loss"])})
+    return {"order": list(order), "first": order[0], "cards": cards}
+
+
+def cards_checks(reports: list[dict], size: str, vertices: dict, cards: int,
+                 scaling: dict | None = None, one: dict | None = None) -> list[tuple[bool, str]]:
+    """Phase 23's checks of the ranks' reports (``torch_distributed_demo``
+    at ``size``), the scaling runs (``{"WxH": torch_scaling's JSON}``) and
+    the one-process run: ``(ok, what)`` each."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_distributed_demo as demo
+
+    n, cfg = len(reports), demo.SIZES[size]
+    out = []
+    failed = [what for r in reports for ok, what in r["checks"] if not ok]
+    n_checks = sum(len(r["checks"]) for r in reports)
+    out.append((not failed and n_checks > 0,
+                f"{n} ranks over NCCL, a card each: {n_checks} checks passed on the ranks "
+                f"(failed: {failed[:3]})"))
+    devices = [r["device"] for r in reports]
+    buses = [r.get("pci_bus_id") for r in reports]
+    out.append(([r["rank"] for r in reports] == list(range(n))
+                and all(r["backend"] == "nccl" and r["ranks"] == n for r in reports)
+                and devices == [f"cuda:{r}" for r in range(n)]
+                and None not in buses and len(set(buses)) == n,
+                f"every rank in one NCCL group of {n} on a card of its own: {devices}, PCI "
+                f"{buses}"))
+    out.append((all(r["nvcc_builds"] == 0 for r in reports),
+                f"no rank ran nvcc: {[r['nvcc_builds'] for r in reports]}"))
+    launches = {k: [r["launches"][k] for r in reports] for k in reports[0]["launches"]}
+    frame = f"k_render_sharded_{cfg['width']}x{cfg['height']}"
+    steps = cfg["fit_steps"]
+    fours = [k for k in ("render_sharded_depth_4k", "render_sharded_rgb_4k") if k in launches]
+    out.append((launches[frame] == [[1, 0]] * n
+                and launches["k_train_step_sharded"] == [[1, 1]] * n
+                and launches["k_fit_mesh"] == [[steps, steps]] * n
+                and all(launches[k] == [[1, 0]] * n for k in fours),
+                f"one image-forward launch per rank and frame ({frame}, {fours}), one forward and "
+                f"one backward per rank and step: {launches}"))
+    got = [mesh_vertices(r, size) for r in reports]
+    out.append((all(g == vertices for g in got),
+                f"create_mesh_sharded's vertices on each rank {got}, expected {vertices}"))
+    for res, pts in (scaling or {}).items():
+        points = pts["points"]
+        out.append((pts["process_group"] == "nccl"
+                    and [p["devices"] for p in points] == [d for d in CARDS_SCALING_POINTS
+                                                           if d <= n]
+                    and all(p["frame_equal_to_one_rank"] and not p["shared_device"]
+                            and p["launches_per_frame"] == [1.0] * p["devices"] for p in points)
+                    and len({p["frame_sha256"] for p in points}) == 1
+                    and pts["nvcc_builds"] == [0] * pts["num_processes"]
+                    and len(set(pts["rank_devices"])) == pts["num_processes"],
+                    f"torch_scaling {res} over NCCL at {[p['devices'] for p in points]} cards: "
+                    f"frames equal one rank's, no card shared, one launch per rank and frame, "
+                    f"no nvcc"))
+    if one is not None:
+        bad = [c for c in one["cards"]
+               if not (c["rgb_equal"] and c["depth_equal"] and c["loss_equal"] and c["grads_equal"]
+                       and c["outputs_on"] == [f"cuda:{c['card']}"] * 3
+                       and c["current_device"] == one["first"] and c["launches"] == [3, 1])]
+        out.append((not bad and [c["card"] for c in one["cards"]] == one["order"]
+                    and set(one["order"]) == set(range(cards)),
+                    f"one process, the cards in the order {one['order']}: RGB, depth, the loss "
+                    f"and the gradients bit-identical to cuda:{one['first']}'s, each on its own "
+                    f"card, three forward and one backward launch a card (differing: {bad})"))
+    return out
+
+
+def mesh_vertices(report: dict, size: str) -> dict:
+    """{grid side: vertices} of the meshes a rank of ``torch_distributed_demo``
+    at ``size`` made with ``create_mesh_sharded``."""
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_distributed_demo as demo
+
+    out = {demo.SIZES[size]["grid"]: report["mesh_vertices"]}
+    out.update({int(k.rsplit("_", 1)[1]): v for k, v in report.items()
+                if k.startswith("mesh_vertices_")})
+    return out
+
+
+def _ms(t: dict) -> dict:
+    """A timed path of a rank's report: min and every sample, beside one
+    rank's; ``repeat`` calls a sample (ms per call)."""
+    return {"min_ms": min(t["ranks_ms"]), "ms": t["ranks_ms"],
+            "one_rank_min_ms": min(t["one_rank_ms"]) if t["one_rank_ms"] else None,
+            "one_rank_ms": t["one_rank_ms"], "repeat": t.get("repeat", 1)}
+
+
+def cards_line(reports: list[dict], size: str, scaling: dict, one: dict, smi: str, cards: int,
+               seconds: float) -> dict:
+    """The ``sharded_cards`` JSON line of phase 23."""
+    times = reports[0]["times"]
+    collectives = {k: _ms(t) for k, t in times.items() if k.startswith(("all_gather",
+                                                                         "all_reduce"))}
+    return {
+        "ran": True, "cards": cards, "ranks": len(reports), "backend": reports[0]["backend"],
+        "gpu": smi, "seconds": seconds,
+        "devices": [{"rank": r["rank"], "device": r["device"], "pci_bus_id": r.get("pci_bus_id")}
+                    for r in reports],
+        "paths": {k: _ms(t) for k, t in times.items() if k not in collectives},
+        "collectives": collectives,
+        "launches_per_rank": {k: [r["launches"][k] for r in reports]
+                              for k in reports[0]["launches"]},
+        "mesh_vertices": mesh_vertices(reports[0], size),
+        "errors": reports[0]["errors"],
+        "scaling": {res: [{k: p[k] for k in ("devices", "seconds", "ms", "mrays_per_s",
+                                              "walltime_efficiency_pct", "band_ms",
+                                              "band_efficiency_pct", "shared_device")}
+                          for p in out["points"]] for res, out in scaling.items()},
+        "one_process": one,
+    }
+
+
+def cards_launches(line: dict, which: int) -> dict:
+    """Phase 23's launches of the image forward (``which`` 0) or backward
+    (1), summed over the ranks, by path; {} when the phase did not run."""
+    if not line.get("ran"):
+        return {}
+    return {k: sum(r[which] for r in v) for k, v in line["launches_per_rank"].items()}
+
+
+def nvlink_summary() -> str:
+    """Each card's NVLink links and their rates, from ``nvidia-smi nvlink
+    --status`` (its whole output where it lists none)."""
+    text = sh(["nvidia-smi", "nvlink", "--status"])
+    cards = []
+    for line in text.splitlines():
+        if line.startswith("GPU "):
+            cards.append((line.split(":")[0], []))
+        elif line.strip().startswith("Link ") and cards:
+            cards[-1][1].append(line.split(":", 1)[1].strip())
+    if not any(rates for _, rates in cards):
+        return text
+    return "; ".join(f"{card}: {len(rates)} links at {', '.join(sorted(set(rates)))}"
+                     for card, rates in cards)
+
+
+def phase_cards(st, smi: str) -> dict:
+    """Phase 23: the sharded paths over NCCL with a card for each rank, on
+    every card of the machine (up to four), after the same work in this one
+    process on each card. On one card it prints why it did not run."""
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.render.cuda import build
+    from sdfkit_tpu_torch.sdf.compile import compile_scene
+
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        reason = (f"this machine has {cards} card; the sharded paths over NCCL need a card "
+                  f"for each rank, at least two")
+        print(f"phase 23 did not run: {reason}")
+        return {"ran": False, "cards": cards, "reason": reason}
+    sys.path.insert(0, str(ROOT / "tools"))
+    import torch_distributed_demo as demo
+    import torch_scaling
+
+    links = nvlink_summary()
+    print(f"cards: {sh(['nvidia-smi', '-L'])}\nlinks: {links}")
+    t0 = time.perf_counter()
+    n = min(CARDS_RANKS, cards)
+    prog = compile_scene(scenes.sphere_repeat_scene())
+    build.load(prog)  # the ranks load these libraries; none runs nvcc
+    build.load_bwd(prog)
+    one = one_process_cards(st, [0, cards - 1, 0, 1, *range(2, cards - 1)])
+    reports = demo.launch(n, device="cuda", size="cards", backend="nccl", timeout=CARDS_TIMEOUT,
+                          echo=True)
+    scaling = {}
+    with tempfile.TemporaryDirectory() as d:
+        for w, h in CARDS_SCALING:
+            path = pathlib.Path(d, f"scaling_{w}x{h}.json")
+            rc = torch_scaling.main([
+                "--process-group", "nccl", "--devices",
+                *(str(k) for k in CARDS_SCALING_POINTS if k <= n), "--width", str(w), "--height",
+                str(h), "--iters", "40", "--timeout", "300", "--out", str(path)])
+            check(rc == 0, f"torch_scaling {w}x{h} over NCCL exited {rc}")
+            scaling[f"{w}x{h}"] = json.loads(path.read_text())
+    vertices = {g: JAX_MESH_VERTICES[g] for g in MESH_GRIDS}
+    for ok, what in cards_checks(reports, "cards", vertices, cards, scaling, one):
+        check(ok, what)
+    line = cards_line(reports, "cards", scaling, one, smi, cards, time.perf_counter() - t0)
+    line["links"] = links
+    for name, t in line["paths"].items():
+        print(f"cards {name}: {n} cards (nccl) min {t['min_ms']:.3f} ms "
+              f"{[round(x, 3) for x in t['ms']]}; one rank min {t['one_rank_min_ms']} ms; on {smi}")
+    for name, t in line["collectives"].items():
+        print(f"cards {name}: {n} cards (nccl) min {t['min_ms']:.4f} ms "
+              f"{[round(x, 4) for x in t['ms']]}; on {smi}")
+    for res, points in line["scaling"].items():
+        for p in points:
+            print(f"cards scaling {res}x40 {p['devices']} card(s): min {p['seconds'] * 1e3:.3f} ms "
+                  f"{[round(x, 3) for x in p['ms']]}, walltime efficiency "
+                  f"{p['walltime_efficiency_pct']:.2f}%, band ms {p['band_ms']}, band "
+                  f"efficiency {p['band_efficiency_pct']:.2f}%; on {smi}")
+    return line
 
 
 def main() -> int:
@@ -2614,10 +2868,14 @@ def main() -> int:
     # -- 22. the benchmark -------------------------------------------------------------
     t_bench = time.perf_counter()
     phase_bench()
+    # -- 23. the sharded paths on every card over NCCL ----------------------------------
+    t_cards = time.perf_counter()
+    cards_result = phase_cards(st, smi)
     print(f"clock: phases 1-16 took {t_mesh - t_start:.1f} s (the kernels' builds included), "
           f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {t_sharded - t_icp:.1f} s, phase 19 "
           f"{t_view - t_sharded:.1f} s, phase 20 {t_scaling - t_view:.1f} s, phase 21 "
-          f"{t_bench - t_scaling:.1f} s, phase 22 {time.perf_counter() - t_bench:.1f} s")
+          f"{t_bench - t_scaling:.1f} s, phase 22 {t_cards - t_bench:.1f} s, phase 23 "
+          f"{time.perf_counter() - t_cards:.1f} s")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -2629,11 +2887,13 @@ def main() -> int:
     print(json.dumps({"sharded": sharded_line}))
     print(json.dumps({"view": view_line}))
     print(json.dumps({"scaling": scaling_line}))
+    print(json.dumps({"sharded_cards": cards_result}))
     print(smi)
     print(json.dumps({"kernels": [
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
          "launches_sharded": sharded_launches(sharded_line, 0),
+         "launches_sharded_cards": cards_launches(cards_result, 0),
          "launches_view": {"frames": view_line["launches"], "cli": view_line["cli_launches"]},
          "launches_scaling_per_frame": {p["devices"]: p["launches_per_frame"]
                                         for p in scaling_line["points"]},
@@ -2644,7 +2904,8 @@ def main() -> int:
          **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES, "launches": bwd_launches,
-         "launches_sharded": sharded_launches(sharded_line, 1), "max_abs_err": bwd_err,
+         "launches_sharded": sharded_launches(sharded_line, 1),
+         "launches_sharded_cards": cards_launches(cards_result, 1), "max_abs_err": bwd_err,
          "ms": bwd_launch_ms, "plain_ms": plain_bwd_ms, "plain_shape": [pw, ph],
          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
          "mostly_sky_ms": sky_bwd_ms,

@@ -17,14 +17,17 @@
 // The build needs to know nothing of it, and no scene is refused.
 //
 // The array is one buffer per library, that is per scene structure and kernel
-// family. Each launch copies its parameters and view into it on its stream
+// family, on each card: every card the library launches on holds its own copy
+// of the library's module. Each launch copies its parameters and view into it on its stream
 // (device to device, no synchronisation, no host copy: the parameters live on
 // the card) ahead of its kernel, so launches on one stream, PyTorch's
 // default, are ordered. Two streams that launch through one library would
 // overwrite each other's uniforms between copy and kernel, so the wrappers
 // (render/cuda/raymarch_kernel.py) make a launch on another stream than the
-// library's last wait for that one with an event; a caller of the C entry
-// points must do the same.
+// library's last on the same card wait for that one with an event; a caller
+// of the C entry points must do the same. The copy, the kernel and the
+// backward's sizing run on the calling thread's current card (the wrappers
+// make it the tensors' card).
 //
 // The including translation unit defines SDF_N_PARAMS first.
 #pragma once

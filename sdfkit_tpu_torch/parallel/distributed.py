@@ -53,18 +53,50 @@ def default_backend(world_size: int) -> str:
     return "gloo"
 
 
+def require_cards(local_ranks: int) -> None:
+    """Raise unless this host has a card for each of its ``local_ranks``
+    ranks, as NCCL needs (it refuses two ranks on one card)."""
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if cards < local_ranks:
+        raise RuntimeError(
+            f"the nccl backend puts each of this host's {local_ranks} ranks on a card of its own "
+            f"and the host has {cards}; ranks that share a card take backend='gloo'"
+        )
+
+
+def card_id(device) -> str:
+    """``device`` named so that two processes agree: a card's PCI address
+    (domain:bus:device), otherwise the device itself (``cpu``)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return str(device)
+    props = torch.cuda.get_device_properties(device)
+    return f"{props.pci_domain_id:04x}:{props.pci_bus_id:02x}:{props.pci_device_id:02x}"
+
+
 def initialize(init_method: str | None = None, backend: str | None = None, **kwargs) -> None:
     """Join the process group. A no-op when there is neither an address nor
     a launcher's environment (``RANK`` / ``WORLD_SIZE`` / ``MASTER_ADDR``), so
     the same program runs unchanged as one process; also a no-op when the
     group already exists. ``kwargs`` go to ``init_process_group``
     (``world_size``, ``rank``, ``timeout``); ``backend=None`` takes
-    :func:`default_backend`."""
+    :func:`default_backend`.
+
+    Under NCCL the rank joins bound to card ``LOCAL_RANK`` (its rank where
+    no launcher set that), which becomes its current device, so that every
+    collective, barrier and new group knows the card. Asking for NCCL with
+    fewer cards than the host's ranks raises (:func:`require_cards`)."""
     if dist.is_initialized() or (init_method is None and not _cluster_env_present()):
         return
+    world = kwargs.get("world_size", int(os.environ.get("WORLD_SIZE", 1)))
     if backend is None:
-        world = kwargs.get("world_size", int(os.environ.get("WORLD_SIZE", 1)))
         backend = default_backend(world)
+    if backend == "nccl":
+        require_cards(_local_ranks(world))
+        rank = kwargs.get("rank", int(os.environ.get("RANK", 0)))
+        card = torch.device("cuda", _local_rank(rank))
+        torch.cuda.set_device(card)
+        kwargs.setdefault("device_id", card)
     dist.init_process_group(backend=backend, init_method=init_method, **kwargs)
 
 
@@ -127,7 +159,7 @@ def make_mesh(axis_name: str = "rays", device=None) -> Mesh:
     rank, size = dist.get_rank(), dist.get_world_size()
     backend = str(dist.get_backend())
     if device is None and backend == "nccl":
-        device = torch.device("cuda", _local_rank(rank) % torch.cuda.device_count())
+        device = torch.device("cuda", _local_rank(rank))
     device = resolve(device)
     if device.type == "cuda" and device.index is not None:
         torch.cuda.set_device(device)

@@ -67,19 +67,22 @@ class KernelLib:
     rows: ctypes._CFuncPtr | None = None  # backward: (count, want_color) -> partial rows
     store: bool = False  # the depth-history variant of its family
     resident: ctypes._CFuncPtr | None = None  # (want_color) -> resident blocks per SM
-    # The stream of the library's last launch and a lock around a launch: its
-    # uniforms are one buffer that every launch overwrites (``order_uniforms``).
-    last_stream: object = None
+    # The stream of the library's last launch on each card (by index) and a
+    # lock around a launch: its uniforms are one buffer per card that every
+    # launch there overwrites (``order_uniforms``).
+    last_streams: dict = dataclasses.field(default_factory=dict)
     lock: threading.Lock = dataclasses.field(default_factory=threading.Lock)
 
     def order_uniforms(self, stream) -> None:
         """Make ``stream``, about to launch through this library, wait for the
-        library's last launch where that was on another stream: both write
-        the library's uniforms. Call it with ``lock`` held."""
-        last = self.last_stream
+        library's last launch on the same card where that was on another
+        stream: both write that card's copy of the library's uniforms. Each
+        card holds a copy of its own, so launches on two cards wait for
+        nothing. Call it with ``lock`` held."""
+        last = self.last_streams.get(stream.device_index)
         if last is not None and last != stream:
             stream.wait_event(last.record_event())
-        self.last_stream = stream
+        self.last_streams[stream.device_index] = stream
 
 
 _LIBS: dict[tuple, KernelLib] = {}

@@ -33,8 +33,8 @@ start an instruction nearly every cycle (about 46 scene evaluations per ray,
 the scene compiler writes a division by a uniform as a reciprocal taken
 once and two multiply-adds, and the parameters and the view come through
 constant memory (``csrc/raymarch_uniforms.cuh``; device memory for a scene too
-large for the 64 KB bank; one buffer per library, so a launch on another
-stream than the library's last waits for that one). The
+large for the 64 KB bank; one buffer per library and card, so a launch on
+another stream than the library's last on its card waits for that one). The
 image backward runs those evaluations again (it replays the march) plus
 about 46 gradients of the scene; it is written so that many warps are in
 flight (uniforms in constant memory, a register budget set for five blocks an

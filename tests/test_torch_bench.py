@@ -9,6 +9,7 @@ the statistics and the headline's shape.
 The card's run of every section is ``chip_smoke.py`` phase 22.
 """
 
+import copy
 import json
 import pathlib
 import shutil
@@ -215,6 +216,89 @@ def test_headline_keeps_bench_pys_shape_under_2000_characters(render):
     assert line["extra"]["render_ms_plain"] == float(
         f"{render['extra']['render_ms_plain']['median']:.6g}")
     assert len(json.dumps(line)) < 2000
+
+
+# -- the scaling section: one card under gloo, and the cards under NCCL -----------------
+
+@pytest.fixture(scope="module")
+def cpu_audit(tmp_path_factory):
+    """``tools/torch_scaling.py``'s JSON from 1 and 2 ``gloo`` ranks on the
+    CPU, the plain render at the sections' 40x24."""
+    proc = subprocess.run(
+        [sys.executable, str(REPO / "tools" / "torch_scaling.py"), "--device", "cpu", "--backend",
+         "torch", "--devices", "1", "2", "--width", str(W), "--height", str(H), "--timeout",
+         "120"], capture_output=True, text=True, timeout=180,
+        cwd=tmp_path_factory.mktemp("audit"))
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def stand_in_audit(cpu_audit, calls):
+    """``bench_torch.scaling_audit`` on the CPU: the tool's run above, with
+    what the card's run would show where the CPU's cannot: one image-forward
+    launch per rank and frame (the plain path launches none), and under
+    NCCL a card of its own for each rank."""
+    def audit(group, devices, width, height, iters):
+        calls.append((group, tuple(devices), width, height, iters))
+        out = copy.deepcopy(cpu_audit)
+        out["process_group"] = group
+        out["points"] = [p for p in out["points"] if p["devices"] in devices]
+        for p in out["points"]:
+            p["launches_per_frame"] = [1.0] * p["devices"]
+            p["shared_device"] = group == "gloo" and p["devices"] > 1
+        if group == "nccl":
+            out["rank_devices"] = [f"0000:{0x18 + 0x10 * r:02x}:00" for r in range(2)]
+        return out
+
+    return audit
+
+
+@pytest.mark.parametrize("cards", [1, 4])
+def test_scaling_section_over_the_cards(on_host, cpu_audit, monkeypatch, cards):
+    """One card: the 4K bands' stand-ins and the gloo audit, as before. More
+    cards: also the audit over the cards under NCCL, its walltime
+    efficiency per point and each band's ms, and its checks."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(bench_torch, "AUDIT_RANKS", (1, 2))
+    out = bench_torch.bench_scaling(W, H, audit=stand_in_audit(cpu_audit, calls))
+    assert_checks_pass(out)
+    assert [p["devices"] for p in out["real_chip_shard_scaling"]] == list(
+        bench_torch.SCALING_COUNTS)
+    groups = ["gloo", "nccl"] if cards > 1 else ["gloo"]
+    assert calls == [(g, (1, 2), W, H, 40) for g in groups]
+    assert out["torch_scaling_audit"]["process_group"] == "gloo"
+    assert out["spmd_work_partition_n2_pct"] == 100.0
+    if cards == 1:
+        assert "torch_scaling_cards" not in out and "cards_walltime_efficiency_n2_pct" not in out
+        return
+    audit = out["torch_scaling_cards"]
+    assert audit["process_group"] == "nccl" and len(set(audit["rank_devices"])) == 2
+    for p, ran in zip(audit["points"], cpu_audit["points"]):
+        assert p["walltime_efficiency_pct"] == ran["walltime_efficiency_pct"]
+        assert p["band_ms"] == ran["band_ms"] and len(p["band_ms"]) == p["devices"]
+        assert p["shared_device"] is False
+    assert out["cards_walltime_efficiency_n2_pct"] == audit["points"][1]["walltime_efficiency_pct"]
+    line = bench_torch.headline({}, out, True, {})
+    assert line["extra"]["cards_walltime_efficiency_n2_pct"] == float(
+        f"{out['cards_walltime_efficiency_n2_pct']:.6g}")
+    json.dumps(out)
+
+
+def test_a_cards_audit_that_shares_a_card_fails_its_check(on_host, cpu_audit, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(bench_torch, "AUDIT_RANKS", (1, 2))
+    calls = []
+    shared = stand_in_audit(cpu_audit, calls)
+
+    def audit(group, *args):
+        out = shared(group, *args)
+        out["rank_devices"] = ["0000:18:00"] * 2
+        return out
+
+    checks = bench_torch.bench_scaling(W, H, audit=audit)["checks"]
+    assert checks.pop("scaling: the cards audit put each rank on a card of its own") is False
+    assert all(checks.values())
 
 
 # -- the slice against the JAX package --------------------------------------------------

@@ -14,6 +14,8 @@ sharded functions on a 4-device virtual CPU mesh, with the tolerances of
 are unavailable (as ``tests/test_distributed.py``).
 """
 
+import copy
+import json
 import pathlib
 import shutil
 import subprocess
@@ -46,6 +48,7 @@ st.set_default_device("cpu")
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO / "tools"))
+import chip_smoke  # noqa: E402
 import torch_distributed_demo as demo  # noqa: E402
 
 
@@ -178,3 +181,75 @@ def test_the_kernel_route_launches_once_per_band(run):
         assert launches["k_fit_mesh"] == [FIT["steps"], FIT["steps"]]
         assert launches["k_tiles"] == [3, 0]
         assert all(v == [0, 0] for k, v in launches.items() if not k.startswith("k_"))
+
+
+# -- chip_smoke.py phase 23's line, from these ranks as stand-ins for a card each ---------
+
+def as_cards(reports):
+    """The reports as ranks on a card each in an NCCL group would give them:
+    the same checks, launches and times, the backend and the cards relabelled."""
+    out = copy.deepcopy(reports)
+    for r in out:
+        r.update(backend="nccl", device=f"cuda:{r['rank']}",
+                 pci_bus_id=f"0000:{0x18 + 0x10 * r['rank']:02x}:00")
+    return out
+
+
+def one_process_stand_in(n):
+    order = [0, n - 1, 0, 1, *range(2, n - 1)]
+    return {"order": order, "first": 0, "cards": [
+        {"card": d, "outputs_on": [f"cuda:{d}"] * 3, "current_device": 0, "launches": [3, 1],
+         "rgb_equal": True, "depth_equal": True, "loss_equal": True, "grads_equal": True,
+         "rgb_mean": 0.5, "loss": 0.01} for d in order]}
+
+
+def test_the_sharded_cards_line_parses(run):
+    n, reports, _, kernels = run
+    if not kernels:
+        pytest.skip("no host C++ compiler (g++) for the kernel route")
+    cards = as_cards(reports)
+    vertices = {demo.SIZES["small"]["grid"]: reports[0]["mesh_vertices"]}
+    one = one_process_stand_in(n)
+    checks = chip_smoke.cards_checks(cards, "small", vertices, n, one=one)
+    assert checks and all(ok for ok, _ in checks), [w for ok, w in checks if not ok]
+    line = json.loads(json.dumps({"sharded_cards": chip_smoke.cards_line(
+        cards, "small", {}, one, "NVIDIA H100 80GB HBM3, 700.00 W", n, 1.0)}))["sharded_cards"]
+    assert line["ran"] and (line["cards"], line["ranks"], line["backend"]) == (n, n, "nccl")
+    assert [d["device"] for d in line["devices"]] == [f"cuda:{r}" for r in range(n)]
+    assert line["mesh_vertices"] == {"16": reports[0]["mesh_vertices"]}
+    forward = chip_smoke.cards_launches(line, 0)
+    assert {k: v for k, v in forward.items() if k.startswith("k_")} == {
+        "k_render_sharded_16x9": n, f"k_render_sharded_16x{2 * n + 1}": n,
+        "k_train_step_sharded": n, "k_fit_mesh": n * FIT["steps"], "k_tiles": 3 * n}
+    # The plain route, which the ranks here run too, launches nothing.
+    assert all(v == 0 for k, v in forward.items() if not k.startswith("k_"))
+    assert chip_smoke.cards_launches(line, 1)["k_train_step_sharded"] == n
+    assert chip_smoke.cards_launches({"ran": False, "cards": 1}, 0) == {}
+
+
+def failing_checks(reports, n, vertices, one=None):
+    return [w for ok, w in chip_smoke.cards_checks(reports, "small", vertices, n, one=one)
+            if not ok]
+
+
+def test_the_sharded_cards_checks_fail_where_a_card_run_would(run):
+    n, reports, _, kernels = run
+    if not kernels:
+        pytest.skip("no host C++ compiler (g++) for the kernel route")
+    vertices = {demo.SIZES["small"]["grid"]: reports[0]["mesh_vertices"]}
+    shared = as_cards(reports)
+    shared[1]["pci_bus_id"] = shared[0]["pci_bus_id"]
+    assert len(failing_checks(shared, n, vertices)) == 1
+    gloo = as_cards(reports)
+    gloo[0]["backend"] = "gloo"
+    assert len(failing_checks(gloo, n, vertices)) == 1
+    twice = as_cards(reports)
+    twice[-1]["launches"]["k_render_sharded_16x9"] = [2, 0]
+    assert len(failing_checks(twice, n, vertices)) == 1
+    built = as_cards(reports)
+    built[0]["nvcc_builds"] = 1
+    assert len(failing_checks(built, n, vertices)) == 1
+    assert len(failing_checks(as_cards(reports), n, {16: 1})) == 1
+    other = one_process_stand_in(n)
+    other["cards"][1]["rgb_equal"] = False
+    assert len(failing_checks(as_cards(reports), n, vertices, other)) == 1

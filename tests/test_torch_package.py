@@ -238,10 +238,10 @@ def test_a_scene_too_large_for_constant_memory_takes_the_kernels(monkeypatch, tm
 
 
 class _Stream:
-    """A stream as ``KernelLib.order_uniforms`` uses one."""
+    """A stream as ``KernelLib.order_uniforms`` uses one, on card ``device_index``."""
 
-    def __init__(self, log, name):
-        self.log, self.name = log, name
+    def __init__(self, log, name, device_index=0):
+        self.log, self.name, self.device_index = log, name, device_index
 
     def record_event(self):
         self.log.append(("record", self.name))
@@ -263,7 +263,7 @@ def test_a_launch_on_another_stream_waits_for_the_last_one():
     lib.order_uniforms(one)
     lib.order_uniforms(one)
     other.order_uniforms(two)
-    assert log == [] and lib.last_stream is one and other.last_stream is two
+    assert log == [] and lib.last_streams == {0: one} and other.last_streams == {0: two}
     lib.order_uniforms(two)
     assert log == [("record", "one"), ("two", "waits for", "event of one")]
     lib.order_uniforms(two)
@@ -273,13 +273,27 @@ def test_a_launch_on_another_stream_waits_for_the_last_one():
     assert log[2:] == [("record", "two"), ("one", "waits for", "event of two")]
 
 
+def test_launches_on_two_cards_wait_for_nothing():
+    """Each card holds its own copy of a library's uniforms: a launch waits
+    only for the library's last launch on its own card."""
+    log = []
+    zero, one, other_zero = _Stream(log, "zero"), _Stream(log, "one", 1), _Stream(log, "zero'")
+    lib = build.KernelLib(None, None, None, {}, {})
+    lib.order_uniforms(zero)
+    lib.order_uniforms(one)
+    lib.order_uniforms(zero)
+    assert log == [] and lib.last_streams == {0: zero, 1: one}
+    lib.order_uniforms(other_zero)
+    assert log == [("record", "zero"), ("zero'", "waits for", "event of zero")]
+
+
 def test_the_ordered_launch_passes_the_stream_last_and_raises_on_an_error(monkeypatch):
-    stream = types.SimpleNamespace(cuda_stream=77)
+    stream = types.SimpleNamespace(cuda_stream=77, device_index=0)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda: stream)
     seen = []
     lib = build.KernelLib(lambda *a: seen.append(a) or 0, None, None, {}, {})
     rk._run(lib, "raymarch_fwd", 1, 2.5)
-    assert seen == [(1, 2.5, 77)] and lib.last_stream is stream and not lib.lock.locked()
+    assert seen == [(1, 2.5, 77)] and lib.last_streams == {0: stream} and not lib.lock.locked()
     failing = build.KernelLib(lambda *a: 9, None, None, {}, {})
     with pytest.raises(RuntimeError, match="raymarch_bwd launch failed with CUDA error 9"):
         rk._run(failing, "raymarch_bwd")

@@ -8,13 +8,17 @@ Run as the launcher, which spawns the workers on a ``file://`` rendezvous in
 a temporary directory (no port to clash) and fails unless every rank passed:
 
     python tools/torch_distributed_demo.py --ranks 4 --size full      # the card
+    python tools/torch_distributed_demo.py --ranks 4 --size cards --backend nccl  # 4 cards
     python tools/torch_distributed_demo.py --ranks 4 --device cpu     # CPU, gloo
 
 ``--size small`` (the CPU tests) renders 16x9 frames and meshes 16^3 grids;
 ``--size full`` is SphereRepeat at 1920x1080x40, a 4K depth frame, 256^3
-and 512x128x128 grids, with times (``chip_smoke.py`` phase 19). Ranks on one
-card share it in a ``gloo`` group (NCCL refuses two ranks on one device);
-``--backend`` overrides ``parallel.distributed.default_backend``.
+and 512x128x128 grids, with times (``chip_smoke.py`` phase 19); ``--size
+cards`` adds a 4K RGB frame and the bricks and the mesh at 512^3 (phase 23).
+Ranks on one card share it in a ``gloo`` group (NCCL refuses two ranks on
+one device); under ``--backend nccl`` rank r takes card r, and the launcher
+refuses fewer cards than ranks before it spawns any. ``--backend``
+overrides ``parallel.distributed.default_backend``.
 
 What each rank checks, against the one-rank mesh (``distributed.single``):
 ``render_sharded`` RGB and depth bit for bit (and against ``RayMarcher``),
@@ -54,10 +58,14 @@ SIZES = {
     "full": dict(width=1920, height=1080, train_height=1080, vox=(512, 128, 128), grid=256,
                  tile_rows=128, fit_steps=5, times=True, depth4k=(3840, 2160)),
 }
+# A card for each rank (chip_smoke.py phase 23): also a 4K RGB frame, and
+# voxelize_sharded and create_mesh_sharded at 512^3.
+SIZES["cards"] = dict(SIZES["full"], rgb4k=True, big_grid=512)
 LEAF_RTOL = LEAF_ATOL = 5e-5  # dryrun_multichip's bound for the new leaves
 LOSS_RTOL = 1e-5
 FIT_RTOL = 1e-3
 REPS = 5
+COLLECTIVE_REPEAT = 20  # collectives timed back to back, per call
 
 
 class Worker:
@@ -70,6 +78,10 @@ class Worker:
         self.report = {"rank": mesh.rank, "ranks": mesh.size, "backend": mesh.backend,
                        "device": str(mesh.device), "checks": [], "times": {}, "launches": {},
                        "errors": {}}
+        if self.cuda:  # which card this is, beyond its index in this process
+            from sdfkit_tpu_torch.parallel.distributed import card_id
+
+            self.report["pci_bus_id"] = card_id(mesh.device)
         self.outputs = {}
 
     def check(self, ok: bool, what: str) -> None:
@@ -97,10 +109,13 @@ class Worker:
         self.report["launches"][name] = [a - b for a, b in zip(self.launches(), before)]
         return out
 
-    def timed(self, name: str, fn, one=None) -> None:
+    def timed(self, name: str, fn, one=None, repeat: int = 1) -> None:
         """Milliseconds of ``fn`` over the mesh (every rank between two
         barriers) and, beside it, of ``one`` on rank 0 alone while the others
-        wait: host clock, the card synchronised at both ends."""
+        wait: host clock, the card synchronised at both ends. ``repeat``
+        calls of ``fn`` back to back between the barriers give one sample,
+        its ms over ``repeat``: a collective alone, without the barrier's
+        own cost."""
         if not self.size["times"]:
             return
         ms = []
@@ -108,10 +123,11 @@ class Worker:
             self.mesh.barrier()
             self.sync()
             t0 = time.perf_counter()
-            fn()
+            for _ in range(repeat):
+                fn()
             self.sync()
             self.mesh.barrier()
-            ms.append((time.perf_counter() - t0) * 1e3)
+            ms.append((time.perf_counter() - t0) * 1e3 / repeat)
         one_ms = []
         if one is not None and self.mesh.rank == 0:
             one()  # warm
@@ -122,7 +138,7 @@ class Worker:
                 self.sync()
                 one_ms.append((time.perf_counter() - t0) * 1e3)
         self.mesh.barrier()
-        self.report["times"][name] = {"ranks_ms": ms, "one_rank_ms": one_ms}
+        self.report["times"][name] = {"ranks_ms": ms, "one_rank_ms": one_ms, "repeat": repeat}
 
     def keep(self, name: str, t) -> None:
         if isinstance(t, torch.Tensor):
@@ -267,11 +283,14 @@ def run_checks(w: Worker, backend: str, tag: str, tmp: pathlib.Path) -> None:
     resumed = st.fit(fit_start, fit_target, steps=steps, view=fit_view, mesh=mesh,
                      backend=backend, checkpoint_dir=ckpt, **opt)
     saved = sorted(p.name for p in ckpt.glob("*")) if r == 0 else None
+    on = {str(p.device) for p in st.leaves(resumed.sdf)}
     w.check(resumed.resumed_from == steps - 1 and resumed.steps_run == 1
             and np.allclose(resumed.losses, res.losses[-1:], rtol=1e-6)
-            and (saved is None or not any(".tmp" in n for n in saved)),
+            and (saved is None or not any(".tmp" in n for n in saved))
+            and on == {str(mesh.device)},
             f"{what} fit(mesh=) resumed from rank 0's checkpoint of step {resumed.resumed_from}: "
-            f"last loss {resumed.losses} against {res.losses[-1:]}; files {saved}")
+            f"last loss {resumed.losses} against {res.losses[-1:]}; files {saved}; the restored "
+            f"leaves on {on}")
     w.timed(f"{tag}fit_{steps}_steps_ms",
             lambda: st.fit(fit_start, fit_target, steps=steps, view=fit_view, mesh=mesh,
                            backend=backend, **opt),
@@ -303,6 +322,20 @@ def run_checks(w: Worker, backend: str, tag: str, tmp: pathlib.Path) -> None:
     mesh.barrier()
 
 
+def same_brick(bricks, whole) -> bool:
+    """Whether this rank's ``VoxelBricks`` are its layers of ``whole``, bit for bit."""
+    z0, k = bricks.z0, bricks.values.shape[2]
+    return (torch.equal(bricks.values, whole.values[:, :, z0:z0 + k])
+            and torch.equal(bricks.colors, whole.colors[:, :, z0:z0 + k]))
+
+
+def same_mesh(got, want) -> bool:
+    """Vertices, triangles, normals and colours array-equal, and not empty."""
+    return len(got.vertices) > 0 and all(
+        np.array_equal(getattr(got, f), getattr(want, f))
+        for f in ("vertices", "triangles", "normals", "colors"))
+
+
 def grid_checks(w: Worker) -> None:
     """voxelize_sharded and create_mesh_sharded (the plain torch path on the
     device: neither has a kernel)."""
@@ -314,11 +347,6 @@ def grid_checks(w: Worker) -> None:
     mesh, one, size = w.mesh, w.one, w.size
     what = f"[{mesh.size} ranks]"
     hero = scenes.sphere_repeat_scene()
-
-    def same_brick(bricks, whole):
-        z0, k = bricks.z0, bricks.values.shape[2]
-        return (torch.equal(bricks.values, whole.values[:, :, z0:z0 + k])
-                and torch.equal(bricks.colors, whole.colors[:, :, z0:z0 + k]))
 
     nx, ny, nz = size["vox"]
     lo, hi = ((-2.0,) * 3, (2.0,) * 3) if size["times"] else ((-1.0,) * 3, (1.0,) * 3)
@@ -350,10 +378,7 @@ def grid_checks(w: Worker) -> None:
     for name, vox, kw in cases:
         got = par.create_mesh_sharded(mesh, vox, **kw)
         want = ref if not kw else whole.to_mesh(**kw)
-        same = (len(got.vertices) > 0
-                and all(np.array_equal(getattr(got, f), getattr(want, f))
-                        for f in ("vertices", "triangles", "normals", "colors")))
-        w.check(same, f"{what} create_mesh_sharded on {n}^3 {name} {kw or ''}: "
+        w.check(same_mesh(got, want), f"{what} create_mesh_sharded on {n}^3 {name} {kw or ''}: "
                       f"{len(got.vertices)} vertices, {len(got.triangles) // 3} triangles; "
                       f"vertices, triangles, normals and colours array-equal to to_mesh()'s "
                       f"({len(want.vertices)})")
@@ -396,6 +421,16 @@ def full_size_extras(w: Worker) -> None:
     w.timed(f"render_sharded_depth_{W}x{H}_ms",
             lambda: par.render_sharded(mesh, hero, W, H, depth_only=True),
             lambda: par.render_sharded(w.one, hero, W, H, depth_only=True))
+    del depth, ref
+    if w.size.get("rgb4k"):
+        rgb = w.count("render_sharded_rgb_4k", lambda: par.render_sharded(mesh, hero, W, H))
+        with torch.no_grad():
+            ref = st.render(hero, W, H)
+        w.check(rgb.shape == (H, W, 3) and torch.equal(rgb, ref),
+                f"[{mesh.size} ranks] render_sharded RGB {W}x{H} equals render bit for bit")
+        w.timed(f"render_sharded_rgb_{W}x{H}_ms", lambda: par.render_sharded(mesh, hero, W, H),
+                lambda: par.render_sharded(w.one, hero, W, H))
+        del rgb, ref
     # The collectives alone, at the sizes the 1080p paths hand them: a frame's
     # band (RGB) in the all-gather, a step's gradients and loss in the all-reduce.
     fw, fh = w.size["width"], w.size["height"]
@@ -403,6 +438,45 @@ def full_size_extras(w: Worker) -> None:
     grads = torch.zeros(sum(p.numel() for p in st.leaves(hero)) + 1, device=mesh.device)
     w.timed(f"all_gather_band_{fw}x{fh}_ms", lambda: mesh.all_gather(band))
     w.timed("all_reduce_gradients_ms", lambda: mesh.all_reduce_sum(grads))
+    w.timed(f"all_gather_band_{fw}x{fh}_ms_of_{COLLECTIVE_REPEAT}",
+            lambda: mesh.all_gather(band), repeat=COLLECTIVE_REPEAT)
+    w.timed(f"all_reduce_gradients_ms_of_{COLLECTIVE_REPEAT}",
+            lambda: mesh.all_reduce_sum(grads), repeat=COLLECTIVE_REPEAT)
+    if w.size.get("big_grid"):
+        big_grid_checks(w, w.size["big_grid"])
+
+
+def big_grid_checks(w: Worker, n: int) -> None:
+    """voxelize_sharded and create_mesh_sharded of SphereRepeat at n^3
+    against the grid and the mesh of one device, with times."""
+
+    import sdfkit_tpu_torch as st
+    from sdfkit_tpu_torch import parallel as par
+    from sdfkit_tpu_torch import scenes
+
+    mesh, one = w.mesh, w.one
+    hero = scenes.sphere_repeat_scene()
+    lo, hi = (-2.0,) * 3, (2.0,) * 3
+    bricks = w.count(f"voxelize_sharded_{n}", lambda: par.voxelize_sharded(mesh, hero, lo, hi,
+                                                                            n, n, n))
+    with torch.no_grad():
+        whole = st.voxelize(hero, lo, hi, n, n, n)
+    w.check(same_brick(bricks, whole),
+            f"[{mesh.size} ranks] voxelize_sharded {n}^3: this rank's brick (layers {bricks.z0} + "
+            f"{bricks.values.shape[2]}) equals voxelize's bit for bit")
+    got, want = par.create_mesh_sharded(mesh, bricks), whole.to_mesh()
+    del whole
+    w.check(same_mesh(got, want),
+            f"[{mesh.size} ranks] create_mesh_sharded on {n}^3 bricks: {len(got.vertices)} "
+            f"vertices; vertices, triangles, normals and colours array-equal to to_mesh()'s "
+            f"({len(want.vertices)})")
+    w.report[f"mesh_vertices_{n}"] = len(got.vertices)
+    del got, want
+    w.timed(f"voxelize_sharded_{n}^3_ms", lambda: par.voxelize_sharded(mesh, hero, lo, hi, n, n, n),
+            lambda: par.voxelize_sharded(one, hero, lo, hi, n, n, n))
+    one_bricks = par.voxelize_sharded(one, hero, lo, hi, n, n, n) if mesh.rank == 0 else None
+    w.timed(f"create_mesh_sharded_{n}^3_ms", lambda: par.create_mesh_sharded(mesh, bricks),
+            lambda: par.create_mesh_sharded(one, one_bricks))
 
 
 def run_worker(a, host_calls=None) -> int:
@@ -466,6 +540,11 @@ def launch(ranks: int = 2, device: str = "cuda", size: str = "small", backend: s
     if device == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("the ranks run on the card and torch.cuda.is_available() is false; "
                            "pass device='cpu' to run them on the CPU")
+    if backend == "nccl":
+        sys.path.insert(0, REPO)
+        from sdfkit_tpu_torch.parallel.distributed import require_cards
+
+        require_cards(ranks)
     with tempfile.TemporaryDirectory() as d:
         scratch = os.path.join(d, "shared")
         os.makedirs(scratch)
@@ -479,8 +558,11 @@ def launch(ranks: int = 2, device: str = "cuda", size: str = "small", backend: s
             cmd += ["--out", os.fspath(out)]
         cmd += list(worker_args)
         logs = [open(os.path.join(d, f"rank{r}.log"), "w+") for r in range(ranks)]
+        # Every rank is local: rank r takes card r under NCCL.
         procs = [subprocess.Popen(cmd + ["--rank", str(r)], stdout=logs[r],
-                                  stderr=subprocess.STDOUT, text=True, cwd=REPO)
+                                  stderr=subprocess.STDOUT, text=True, cwd=REPO,
+                                  env={**os.environ, "LOCAL_RANK": str(r),
+                                       "LOCAL_WORLD_SIZE": str(ranks)})
                  for r in range(ranks)]
         # A rank that fails leaves the others waiting in a collective: stop
         # them all at the first failure, or at the deadline.

@@ -16,15 +16,21 @@ group instead (the counterpart of ``--coordinator / --num-processes /
 --process-id``). One group serves every point: n = 1 is the mesh of rank 0
 alone (``distributed.single``, no collective), n > 1 a ``Mesh`` over
 ``torch.distributed.new_group(range(n))``; the ranks outside wait at a
-barrier of the whole group. Ranks that share a card join a ``gloo`` group
-(``distributed.default_backend``); ranks with a card each, NCCL.
+barrier of the whole group. ``--process-group nccl`` puts rank r on card r
+of the host (and refuses fewer cards than ranks), ``gloo`` every rank on the
+current card; by default NCCL where the cards cover the ranks
+(``distributed.default_backend``).
+
+    python tools/torch_scaling.py --process-group nccl --devices 1 2 4 --width 3840 --height 2160
 
 Each point reports:
 
 1. **Wall clock**: one warm-up, then ``--reps`` times a barrier, the host
    clock, ``fn()``, a synchronise of the card and a barrier; the min. Where
-   the ranks outnumber the cards (``shared_device``) the ranks take turns on
-   one card and the point measures the collectives, not a speed-up.
+   ranks share a card (``shared_device``: fewer distinct cards, by PCI
+   address, than ranks) they take turns on it and the point measures the
+   collectives, not a speed-up. ``walltime_efficiency_pct`` is the frame's
+   Mrays/s at n over n times that at one rank.
 2. **Work per rank, static**: the image forward's fixed work over the
    largest band (``render.cuda.work.frame_work``: nodes of the compiled
    program, not instructions, and the bytes of the band's output and the
@@ -77,6 +83,10 @@ def parser() -> argparse.ArgumentParser:
                          "card, the plain path on the CPU")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="where the ranks render: the card (raises without one) or the CPU")
+    ap.add_argument("--process-group", choices=("gloo", "nccl"), default=None,
+                    help="the ranks' backend: 'nccl' puts each rank on a card of its own (and "
+                         "raises with fewer cards than ranks), 'gloo' every rank on the current "
+                         "card; by default nccl where the cards cover the ranks")
     ap.add_argument("--timeout", type=float, default=600.0,
                     help="seconds for the ranks (and their collectives)")
     ap.add_argument("--init-method", "--init", dest="init",
@@ -106,7 +116,8 @@ class Rank:
             st.set_default_device("cpu")
             torch.set_num_threads(1)
         kw = {k: v for k, v in (("world_size", a.world_size), ("rank", a.rank)) if v is not None}
-        par.initialize(a.init, timeout=datetime.timedelta(seconds=a.timeout), **kw)
+        par.initialize(a.init, backend=a.process_group,
+                       timeout=datetime.timedelta(seconds=a.timeout), **kw)
         world = par.make_mesh()  # this rank's device; raises on a rank with no card
         if a.device == "cuda" and world.device.type != "cuda":
             raise RuntimeError(f"rank {world.rank} is on {world.device}, not a card")
@@ -227,7 +238,8 @@ def run_rank(a) -> dict:
         mine.append((n, rec))
         dist.barrier()
     every = [None] * world
-    dist.all_gather_object(every, {"points": mine, "nvcc_builds": build.BUILDS})
+    dist.all_gather_object(every, {"points": mine, "nvcc_builds": build.BUILDS,
+                                   "device": distributed.card_id(me.device)})
     report = result(me, every) if rank == 0 else {"rank": rank}
     dist.barrier()
     dist.destroy_process_group()
@@ -255,7 +267,10 @@ def result(me: Rank, every: list[dict]) -> dict:
             "mrays_per_s": cfg.width * cfg.height / secs / 1e6,
             "per_device_operations": band.operations,
             "per_device_bytes": band.bytes,
-            "shared_device": n > (cards if me.cuda else cores),
+            # On the card: ranks that render on fewer cards than there are
+            # ranks; on the CPU: more ranks than cores.
+            "shared_device": (len({every[r]["device"] for r in range(n)}) < n if me.cuda
+                              else n > cores),
             "band_ms": [r["band_ms"] for r in recs],
             "launches_per_frame": [r["launches_per_frame"] for r in recs],
             "frame_equal_to_one_rank": rec0["frame_equal_to_one_rank"],
@@ -290,6 +305,7 @@ def result(me: Rank, every: list[dict]) -> dict:
         "host_cores": cores,
         "num_processes": me.world.size,
         "nvcc_builds": [e["nvcc_builds"] for e in every],
+        "rank_devices": [e["device"] for e in every],
         "points": points,
     }
 
@@ -307,10 +323,15 @@ def main(argv=None) -> int:
             return 0
     else:
         import torch_distributed_demo as demo
+        from sdfkit_tpu_torch.parallel.distributed import require_cards
 
+        if a.process_group == "nccl":
+            require_cards(max(a.devices))
         worker_args = ["--width", str(a.width), "--height", str(a.height), "--iters",
                        str(a.iters), "--reps", str(a.reps), "--backend", a.backend,
                        "--devices", *(str(d) for d in a.devices)]
+        if a.process_group:
+            worker_args += ["--process-group", a.process_group]
         out = demo.launch(max(a.devices), device=a.device, timeout=a.timeout,
                           worker=os.path.abspath(__file__), worker_args=worker_args)[0]
     text = json.dumps(out)
