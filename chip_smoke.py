@@ -94,14 +94,25 @@ iterations:
      ``tools/torch_scaling.py --process-group nccl`` over 1, 2 and 4 cards at
      1920x1080 and 3840x2160. Its ``sharded_cards`` line has each path's host
      ms beside one rank's, the collectives alone, the bands and the walltime
-     efficiencies. On one card it prints that it did not run, and why.
+     efficiencies. On one card it prints that it did not run, and why;
+24   the fitting-sized scene, ``scenes.union_grid_scene()`` (200 spheres,
+     1,400 parameter slots: the backward's large-scene tier), at 1920x1080x40
+     from the default camera: the frame through ``RayMarcher`` against the
+     plain path, the gradient against autograd of the plain path (every leaf
+     and the view on a 64x36 frame, and at 1080p with the cotangent on 16,384
+     seeded pixels), two backward launches bit for bit, ``fit`` of the 600
+     colour scalars toward another colour table, the store-fed and ray-batch
+     forms once, and each library's nvcc seconds, registers and local memory
+     and each kernel's time against its bound. Its six libraries build from
+     the start of the run in a process of their own
+     (``chip_smoke.py --build-union-grid``), beside phases 1-23.
 
 Scenes are built with no device argument: the package's default device is
 the card. The script imports nothing of JAX. It exits non-zero, with no
 result line, when there is no CUDA device or any check fails; on success it
 prints one JSON line each for ``mesh``, ``icp``, ``sharded``, ``view``,
-``scaling`` and ``sharded_cards`` (``"ran": false`` on one card), the card's
-name and power limit, one line of JSON that lists
+``scaling``, ``sharded_cards`` (``"ran": false`` on one card) and
+``union_grid``, the card's name and power limit, one line of JSON that lists
 the six kernels, and last
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
@@ -149,6 +160,7 @@ ICP_POINTS = (10_000, 100_000)
 SLEEP_CYCLES = 40_000_000  # about 20 ms at 1980 MHz, ahead of launches timed on the card
 
 FAILURES: list[str] = []
+CHILDREN: list[subprocess.Popen] = []  # stopped on the way out, whatever happened
 
 
 def check(ok: bool, what: str) -> None:
@@ -862,6 +874,329 @@ def phase_bench() -> dict:
     return {"seconds": seconds, "headline": head}
 
 
+GRID_STEPS = 4  # phase 24's fit steps
+GRID_SUBSET = 16_384  # pixels of the 1080p frame whose cotangent phase 24 holds to the plain path
+
+
+def build_union_grid() -> int:
+    """``chip_smoke.py --build-union-grid``: build the six libraries of the
+    200-sphere union in parallel (one nvcc each, all started together) and
+    print one JSON line per library: its nvcc seconds, registers and local
+    memory (the kernels' and the large tier's adjoints'). Phase 24 starts it
+    in a process of its own at the start of the run, so that the builds go on
+    while phases 1-23 run and their build counts see none of them; it then
+    loads what this process built, with no nvcc of its own."""
+    import concurrent.futures
+
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.render.cuda import build
+    from sdfkit_tpu_torch.sdf.compile import compile_scene
+
+    prog = compile_scene(scenes.union_grid_scene(device="cpu"))
+
+    def one(family):
+        t0 = time.perf_counter()
+        lib = build.load_family(prog, family)
+        return {"family": family, "build_s": lib.build_seconds,
+                "wall_s": time.perf_counter() - t0, "registers": lib.registers,
+                "local_memory": lib.local_memory, "library": lib.path.name}
+
+    with concurrent.futures.ThreadPoolExecutor(len(build.FAMILIES)) as pool:
+        for line in pool.map(one, build.FAMILIES):
+            print(json.dumps(line), flush=True)
+    return 0
+
+
+def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
+    """Phase 24: the fitting-sized scene, ``scenes.union_grid_scene`` (200
+    spheres, 1,400 parameter slots: the backward's large tier) at
+    1920x1080x40 from the default camera, through ``RayMarcher``, ``.sum()
+    .backward()`` and ``fit``: the forward against the plain path, the
+    backward against autograd of the plain path (every leaf and the view on a
+    small frame; at 1080p on a seeded subset of the frame's pixels, the
+    others' cotangent zero), two launches bit for bit (the large tier sums in
+    a fixed order), ``fit`` of the 600 colour scalars, the store-fed and
+    ray-batch forms once, every library's build and registers, and the
+    kernels' times against their bounds."""
+    from sdfkit_tpu_torch import scenes
+    from sdfkit_tpu_torch.render.cuda import build, work
+    from sdfkit_tpu_torch.render.cuda import raymarch_kernel as rk
+    from sdfkit_tpu_torch.render.raymarch import render_rays, settled_steps
+    from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params, operation_counts
+    from sdfkit_tpu_torch.utils.camera import camera_rays
+
+    t_wait = time.perf_counter()
+    out, err = builder.communicate()
+    waited = time.perf_counter() - t_wait
+    built = {}
+    for text in out.splitlines():
+        if text.startswith("{"):
+            line = json.loads(text)
+            built[line["family"]] = line
+    check(builder.returncode == 0 and set(built) == set(build.FAMILIES)
+          and all(b["build_s"] is not None and b["build_s"] < 900 for b in built.values()),
+          f"the six libraries of the 200-sphere scene built from the checkout's sources, each "
+          f"within nvcc's 900 s (waited {waited:.1f} s for them): "
+          f"{ {f: b['build_s'] for f, b in built.items()} } {err[-2000:] if builder.returncode else ''}")
+    for family, b in built.items():
+        print(f"build: union grid {family}: nvcc {b['build_s']} s, registers {b['registers']}, "
+              f"local memory {b['local_memory']}")
+
+    W, H = WIDTH, HEIGHT
+    grid = scenes.union_grid_scene()
+    prog = compile_scene(grid)
+    counts = operation_counts(prog)
+    v = st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = st.RenderConfig(W, H)
+    builds = build.BUILDS
+    libs = {f: build.load_family(prog, f) for f in build.FAMILIES}
+    check(build.BUILDS == builds and prog.large and prog.n_params == 1400,
+          f"phase 24 loaded the builder's libraries with no nvcc of its own (builds "
+          f"{builds} -> {build.BUILDS}); the scene has {prog.n_params} slots and takes the large "
+          f"tier: {prog.large}")
+    resident = {f: [lib.resident(1), lib.resident(0)] for f, lib in libs.items()}
+
+    # -- the forward: RayMarcher under 'auto', against the plain path -------
+    marcher = st.RayMarcher(W, H, grid, view=v)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = 0
+    with torch.no_grad():
+        frame = marcher.render()
+        torch.cuda.synchronize()
+        fwd_launches = rk.LAUNCHES
+        depth = marcher.render_depth()
+    hits = int((depth <= cfg.far).sum())
+    plain = st.RayMarcher(W, H, grid, view=v, backend="torch")
+    with torch.no_grad():
+        plain_frame, plain_ms = host_ms(plain.render)
+    ok, frame_stats = distributional(frame.cpu().numpy(), plain_frame.cpu().numpy())
+    check(marcher.backend == "kernel" and fwd_launches == 1 and ok,
+          f"the 200-sphere frame at {W}x{H}x40 through RayMarcher (backend {marcher.backend}, "
+          f"LAUNCHES {fwd_launches}) against the plain path {frame_stats}; {hits} of {W * H} "
+          f"pixels hit ({hits / (W * H):.4f})")
+    del plain_frame
+
+    # -- the backward: small frame, every leaf and the view -----------------
+    def grads(w, h, backend, depth_mode, cot=None):
+        for q in st.leaves(grid):
+            q.grad = None
+        vv = v.clone().requires_grad_()
+        m = st.RayMarcher(w, h, grid, view=vv, backend=backend)
+        if depth_mode:
+            d = m.render_depth()
+            loss = (torch.where(d < 50.0, d, torch.zeros_like(d)) ** 2).sum()
+        elif cot is None:
+            loss = (m.render() ** 2).sum()
+        else:
+            loss = (m.render() * cot).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        flat = torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad).reshape(-1)
+                          for q in st.leaves(grid)])
+        return flat.cpu().numpy(), vv.grad.cpu().numpy()
+
+    def shares(got, ref):
+        return {"leaf_err_of_largest": float(np.abs(got[0] - ref[0]).max()
+                                             / max(np.abs(ref[0]).max(), 1e-30)),
+                "view_err_of_largest": float(np.abs(got[1] - ref[1]).max()
+                                             / max(np.abs(ref[1]).max(), 1e-30))}
+
+    def close(got, ref, scale):
+        """C.3: the JAX package's rtol (leaves 2e-3, view 5e-2) plus ``scale``
+        of the largest reference entry."""
+        (leaf, vw), (rleaf, rvw) = got, ref
+        return (bool(np.isfinite(leaf).all() and np.isfinite(vw).all())
+                and np.allclose(leaf, rleaf, rtol=2e-3, atol=1e-5 + scale * np.abs(rleaf).max())
+                and np.allclose(vw, rvw, rtol=5e-2, atol=1e-3 + scale * np.abs(rvw).max()))
+
+    small = {}
+    for depth_mode in (False, True):
+        rk.BWD_LAUNCHES = 0
+        got = grads(64, 36, "kernel", depth_mode)
+        launched = rk.BWD_LAUNCHES
+        ref = grads(64, 36, "torch", depth_mode)
+        scale = 2e-3 if depth_mode else 1e-2
+        small["depth" if depth_mode else "rgb"] = stats = shares(got, ref)
+        check(launched == 1 and close(got, ref, scale),
+              f"the 200-sphere {'depth' if depth_mode else 'rgb'} gradient at 64x36 through the "
+              f"kernels (BWD_LAUNCHES {launched}) against autograd of the plain path, every leaf "
+              f"and the view (C.3: + {scale} of the largest entry) {stats}")
+
+    # -- at 1080p: the kernels' gradient of the whole frame, its cotangent on
+    #    a seeded subset of pixels, against autograd of the plain path on the
+    #    same pixels' rays (the plain path's tape of the whole frame would
+    #    not fit on the card: 40 steps of 2,199 operations a pixel) --------
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    pick = torch.randperm(W * H, device="cuda", generator=gen)[:GRID_SUBSET]
+    cot = torch.zeros((W * H, 3), device="cuda")
+    cot[pick] = torch.rand((GRID_SUBSET, 3), device="cuda", generator=gen)
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    got = grads(W, H, "kernel", False, cot.view(H, W, 3))
+    full_launches = (rk.LAUNCHES, rk.BWD_LAUNCHES)
+    for q in st.leaves(grid):
+        q.grad = None
+    vv = v.clone().requires_grad_()
+    ro, rd = camera_rays(W, H, vv, cfg.vfov_degrees, cfg.near, cfg.far)
+    sub = [c.reshape(-1)[pick] for c in (ro.x.expand_as(rd.x), ro.y.expand_as(rd.y),
+                                          ro.z.expand_as(rd.z), rd.x, rd.y, rd.z)]
+    rgb = render_rays(grid, st.V3(*sub[:3]), st.V3(*sub[3:]), cfg)
+    (rgb * cot[pick]).sum().backward()
+    torch.cuda.synchronize()
+    ref = (torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad).reshape(-1)
+                      for q in st.leaves(grid)]).cpu().numpy(), vv.grad.cpu().numpy())
+    full_stats = shares(got, ref)
+    check(full_launches == (1, 1) and close(got, ref, 5e-2),
+          f"the 200-sphere gradient at {W}x{H}x40 through RayMarcher (LAUNCHES, BWD_LAUNCHES = "
+          f"{full_launches}), its cotangent on {GRID_SUBSET} seeded pixels, against autograd of "
+          f"the plain path on those pixels' rays, every leaf and the view (C.3 at full size: "
+          f"+ 5e-2 of the largest entry) {full_stats}")
+    del rgb, sub, ro, rd, ref
+
+    # -- determinism: two launches of the large tier, bit for bit ------------
+    params = flat_params(grid).detach().contiguous()
+    v19 = rk.view19(v, cfg)
+    full_cot = torch.rand((W * H, 3), device="cuda", generator=gen)
+    with torch.no_grad():
+        first = rk.launch_bwd(libs["bwd"], params, v19, cfg, True, full_cot)
+        second = rk.launch_bwd(libs["bwd"], params, v19, cfg, True, full_cot)
+    torch.cuda.synchronize()
+    check(bool(torch.equal(first, second)) and bool(torch.isfinite(first).all()),
+          "two launches of the large tier's image backward at 1080p give bit-identical, finite "
+          "gradients (each warp sums its lanes with a fixed tree into a row of its own)")
+
+    # -- fit of the 600 colour scalars toward another colour table ----------
+    colours = st.leaves(grid)[1::3]
+    check(len(colours) == 200 and all(c.shape == (3,) for c in colours),
+          "the scene's colour leaves are every third leaf (radius, colour, offset)")
+    target_colours = np.random.default_rng(1).uniform(0.2, 1.0, (200, 3)).astype(np.float32)
+    saved = [c.detach().clone() for c in colours]
+    with torch.no_grad():
+        for c, t in zip(colours, target_colours):
+            c.copy_(torch.from_numpy(t))
+        target = st.RayMarcher(W, H, grid, view=v).render().clone()
+        for c, s_ in zip(colours, saved):
+            c.copy_(s_)
+    torch.cuda.synchronize()
+    rk.LAUNCHES = rk.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    fitted = st.fit(grid, target, steps=GRID_STEPS, view=v,
+                    optimizer=lambda leaves: torch.optim.Adam(leaves[1::3], lr=5e-2))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_launches = (rk.LAUNCHES, rk.BWD_LAUNCHES)
+    check(fit_launches == (GRID_STEPS, GRID_STEPS) and all(np.isfinite(fitted.losses))
+          and fitted.losses[-1] < fitted.losses[0],
+          f"fit of the 600 colour scalars at {W}x{H}x40: {GRID_STEPS} steps through the kernels "
+          f"(LAUNCHES, BWD_LAUNCHES = {fit_launches}) in {fit_s:.3f} s, losses {fitted.losses}")
+
+    # -- the store-fed and ray-batch forms, once ------------------------------
+    rk.STORE_LAUNCHES = rk.STORE_BWD_LAUNCHES = 0
+    with torch.no_grad():
+        _, store = rk.launch(libs["fwd_store"], params, v19, cfg, True, want_store=True)
+        fed = rk.launch_bwd(libs["bwd_store"], params, v19, cfg, True, full_cot, store=store)
+    torch.cuda.synchronize()
+    fed_share = float((fed - first).abs().max() / first.abs().max())
+    check((rk.STORE_LAUNCHES, rk.STORE_BWD_LAUNCHES) == (1, 1) and fed_share <= 1e-5,
+          f"the store-fed backward of the 200-sphere scene at 1080p against the replay: "
+          f"{fed_share:.3g} of the largest entry (the same depths; at most 1e-5)")
+    steps = work.march_steps_needed(settled_steps(store), cfg.depth_iterations)
+    del store
+    ro, rd = camera_rays(W, H, v, cfg.vfov_degrees, cfg.near, cfg.far)
+    rays = [c.contiguous().view(-1) for c in (ro.x.expand_as(rd.x), ro.y.expand_as(rd.y),
+                                               ro.z.expand_as(rd.z), rd.x, rd.y, rd.z)]
+    rk.RAYS_LAUNCHES = rk.RAYS_BWD_LAUNCHES = 0
+    with torch.no_grad():
+        _, hit = rk.launch_rays(libs["rays_fwd"], params, rays, cfg, True, want_hit=True)
+        g_rays_params, _ = rk.launch_rays_bwd(libs["rays_bwd"], params, rays, cfg, True,
+                                              full_cot, hit=hit)
+    torch.cuda.synchronize()
+    ray_hits = int(hit.sum())
+    rays_share = float((g_rays_params - first[:prog.n_params]).abs().max()
+                       / first[:prog.n_params].abs().max())
+    check((rk.RAYS_LAUNCHES, rk.RAYS_BWD_LAUNCHES) == (1, 1)
+          and bool(torch.isfinite(g_rays_params).all()) and abs(ray_hits - hits) <= 1e-3 * W * H,
+          f"the ray-batch forms on the frame's {W * H} camera rays: {ray_hits} hit (the image "
+          f"forward {hits}), the pullback finite; {rays_share:.3g} of the largest entry from the "
+          f"image backward's (the two make their rays apart by an ulp, and a grazing ray's "
+          f"gradient is ill conditioned, C.3)")
+    # The ray-batch pullback against autograd of the plain path on a small
+    # frame's camera rays, fed one cotangent.
+    sro, srd = camera_rays(64, 36, v, cfg.vfov_degrees, cfg.near, cfg.far)
+    scot = torch.rand((36, 64, 3), device="cuda", generator=gen)
+    small_rays = {}
+    for backend in ("kernel", "torch"):
+        for q in st.leaves(grid):
+            q.grad = None
+        fn = rk.render_rays_kernel if backend == "kernel" else render_rays
+        (fn(grid, sro, srd, st.RenderConfig(64, 36)) * scot).sum().backward()
+        small_rays[backend] = (torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad)
+                                          .reshape(-1) for q in st.leaves(grid)]).cpu().numpy(),
+                               np.zeros(1))
+    rays_small = shares(small_rays["kernel"], small_rays["torch"])["leaf_err_of_largest"]
+    check(close(small_rays["kernel"], small_rays["torch"], 1e-2),
+          f"the ray-batch pullback of the 200-sphere scene at 64x36 against autograd of the "
+          f"plain path, every leaf (C.3: + 1e-2 of the largest entry): {rays_small:.3g} of the "
+          f"largest entry")
+
+    # -- times with CUDA events, against their bounds -------------------------
+    def events(fn, timed=5) -> float:
+        fn()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        for _ in range(timed):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / timed
+
+    with torch.no_grad():
+        _, store = rk.launch(libs["fwd_store"], params, v19, cfg, True, want_store=True)
+        times = {
+            "fwd": events(lambda: rk.launch(libs["fwd"], params, v19, cfg, True)),
+            "fwd_depth": events(lambda: rk.launch(libs["fwd"], params, v19, cfg, False)),
+            "fwd_store": events(lambda: rk.launch(libs["fwd_store"], params, v19, cfg, True,
+                                                  want_store=True)),
+            "bwd": events(lambda: rk.launch_bwd(libs["bwd"], params, v19, cfg, True, full_cot),
+                          3),
+            "bwd_store": events(lambda: rk.launch_bwd(libs["bwd_store"], params, v19, cfg, True,
+                                                      full_cot, store=store), 3),
+            "rays_fwd": events(lambda: rk.launch_rays(libs["rays_fwd"], params, rays, cfg, True)),
+            "rays_bwd": events(lambda: rk.launch_rays_bwd(libs["rays_bwd"], params, rays, cfg,
+                                                          True, full_cot, hit=hit), 3),
+        }
+        del store
+    costs = work.frame_work(prog, cfg.depth_iterations, W * H, hits, steps, ray_hits, steps)
+    bounds = {"fwd": costs["fwd"].bound(), "fwd_store": costs["fwd_store"].bound(),
+              "bwd": costs["bwd"].bound(),
+              "bwd_store": costs["bwd_store"].bound(), "rays_fwd": costs["rays_fwd"].bound(),
+              "rays_bwd": costs["rays_bwd"].bound()}
+    fixed = {"fwd": costs["fwd_fixed"].bound()[0], "fwd_store": costs["fwd_store_fixed"].bound()[0],
+             "rays_fwd": costs["rays_fwd_fixed"].bound()[0]}
+    for k, ms in times.items():
+        bound = (f", bound {bounds[k][0]:.4f} ms by {bounds[k][1]}" if k in bounds else "")
+        print(f"timing: union grid {k} {ms:.4f} ms a launch at {W}x{H}x40{bound}"
+              + (f" (fixed work {fixed[k]:.4f} ms)" if k in fixed else "") + f" on {smi}")
+    torch.cuda.empty_cache()
+    return {
+        "scene": "union_grid_scene(200)", "parameter_slots": prog.n_params,
+        "large_tier": prog.large, "operations": counts, "pixels": W * H, "hit_pixels": hits,
+        "hit_share": hits / (W * H), "march_steps_needed": steps,
+        "builds": {f: {k: b[k] for k in ("build_s", "registers", "local_memory")}
+                   for f, b in built.items()},
+        "resident_blocks_per_sm": resident, "waited_for_builds_s": waited,
+        "frame_vs_plain": frame_stats, "plain_frame_ms": plain_ms,
+        "grad_64x36": small, "grad_1080p_subset": full_stats, "store_vs_replay": fed_share,
+        "rays_vs_image": rays_share, "rays_64x36_leaf_err_of_largest": rays_small,
+        "fit_losses": fitted.losses, "fit_s": fit_s,
+        "launches": {"fwd": fwd_launches, "grad_1080p": list(full_launches),
+                     "fit": list(fit_launches)},
+        "ms": times, "bound_ms": {k: b[0] for k, b in bounds.items()},
+        "bound_by": {k: b[1] for k, b in bounds.items()}, "bound_ms_fixed_work": fixed,
+        "gpu": smi,
+    }
+
+
 CARDS_RANKS = 4  # phase 23's ranks: one per card, at most four
 CARDS_TIMEOUT = 600.0
 CARDS_SCALING = ((WIDTH, HEIGHT), (3840, 2160))
@@ -1144,6 +1479,11 @@ def main() -> int:
     # Libraries left by an earlier run would be loaded instead of built:
     # start from the sources alone.
     shutil.rmtree(build.BUILD_DIR, ignore_errors=True)
+    # Phase 24's six libraries build in a process of their own meanwhile.
+    grid_builder = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"),
+                                     "--build-union-grid"], stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True, cwd=ROOT)
+    CHILDREN.append(grid_builder)
     hero = scenes.sphere_repeat_scene()
     check(st.sdf.scene_device(hero).type == "cuda" and view().device.type == "cuda",
           f"a scene and a view built with no device argument are on "
@@ -2871,11 +3211,15 @@ def main() -> int:
     # -- 23. the sharded paths on every card over NCCL ----------------------------------
     t_cards = time.perf_counter()
     cards_result = phase_cards(st, smi)
+    # -- 24. the fitting-sized scene: 200 spheres, 1,400 slots, the large tier ---
+    t_grid = time.perf_counter()
+    grid_line = phase_union_grid(st, smi, grid_builder)
     print(f"clock: phases 1-16 took {t_mesh - t_start:.1f} s (the kernels' builds included), "
           f"phase 17 {t_icp - t_mesh:.1f} s, phase 18 {t_sharded - t_icp:.1f} s, phase 19 "
           f"{t_view - t_sharded:.1f} s, phase 20 {t_scaling - t_view:.1f} s, phase 21 "
           f"{t_bench - t_scaling:.1f} s, phase 22 {t_cards - t_bench:.1f} s, phase 23 "
-          f"{time.perf_counter() - t_cards:.1f} s")
+          f"{t_grid - t_cards:.1f} s, phase 24 {time.perf_counter() - t_grid:.1f} s (of which "
+          f"{grid_line.get('waited_for_builds_s', 0.0):.1f} s waiting for its builds)")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -2888,7 +3232,18 @@ def main() -> int:
     print(json.dumps({"view": view_line}))
     print(json.dumps({"scaling": scaling_line}))
     print(json.dumps({"sharded_cards": cards_result}))
+    print(json.dumps({"union_grid": grid_line}))
     print(smi)
+    def grid_kernel(key, launches, err):
+        """The union grid's numbers of one kernel (phase 24)."""
+        return {"launches": launches, "ms": grid_line["ms"][key],
+                "bound_ms": grid_line["bound_ms"][key], "bound_by": grid_line["bound_by"][key],
+                "max_err_of_largest_entry": err, "build_s": grid_line["builds"][key]["build_s"],
+                "registers": grid_line["builds"][key]["registers"],
+                "local_memory": grid_line["builds"][key]["local_memory"]}
+
+    gl = grid_line["launches"]
+    grid_grad_err = grid_line["grad_1080p_subset"]["leaf_err_of_largest"]
     print(json.dumps({"kernels": [
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
@@ -2901,6 +3256,8 @@ def main() -> int:
          "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
          "bound_ms_fixed_work": fwd_fixed_bound, "issue_share": issue_share.get("raymarch_fwd"),
          "warp_steps_saved": warp_saved, "mostly_sky_ms": sky_fwd_ms,
+         "union_grid": grid_kernel("fwd", gl["fwd"] + gl["fit"][0],
+                                   grid_line["frame_vs_plain"]["max"]),
          **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES, "launches": bwd_launches,
@@ -2909,6 +3266,7 @@ def main() -> int:
          "ms": bwd_launch_ms, "plain_ms": plain_bwd_ms, "plain_shape": [pw, ph],
          "bound_ms": bwd_bound, "bound_by": bwd_by, "library_ms": None,
          "mostly_sky_ms": sky_bwd_ms,
+         "union_grid": grid_kernel("bwd", gl["grad_1080p"][1] + gl["fit"][1], grid_grad_err),
          **compiled["raymarch_bwd"]},
         {"name": "raymarch_rays_fwd", "route": "cuda", "source": RAYS_SOURCE,
          "replaces": RAYS_REPLACES, "launches": rays_launches, "max_abs_err": rays_stats["max"],
@@ -2917,7 +3275,8 @@ def main() -> int:
          "issue_share": issue_share.get("raymarch_rays_fwd"),
          "warp_steps_saved": rays_warp_saved,
          "mostly_sky_ms": sky_rays_ms, "shuffled_ms": rays_shuffled_ms,
-         "shuffled_warp_steps_saved": shuffled_saved, **compiled["raymarch_rays_fwd"]},
+         "shuffled_warp_steps_saved": shuffled_saved,
+         "union_grid": grid_kernel("rays_fwd", 1, None), **compiled["raymarch_rays_fwd"]},
         {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,
          "replaces": RAYS_BWD_REPLACES, "launches": rays_step_launches[1],
          "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
@@ -2928,21 +3287,26 @@ def main() -> int:
          "plain_shape": [pw, ph], "bound_ms": rays_bwd_bound, "bound_by": rays_bwd_by,
          "bound_ms_as_replay_and_sweep": replay_form_bound,
          "rays_whose_march_ends_elsewhere": rays_depths_apart,
-         "library_ms": None, **compiled["raymarch_rays_bwd"]},
+         "library_ms": None,
+         "union_grid": grid_kernel("rays_bwd", 1, grid_line["rays_64x36_leaf_err_of_largest"]),
+         **compiled["raymarch_rays_bwd"]},
         {"name": "raymarch_fwd_store", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
          "full_size_vs_plain": store_full_stats,
          "ms": handoff_ms["fwd_store"], "plain_ms": history_ms, "bound_ms": store_bound,
          "bound_by": store_by, "library_ms": None, "bound_ms_fixed_work": store_fixed_bound,
          "issue_share": issue_share.get("raymarch_fwd_store"), "warp_steps_saved": warp_saved,
-         "mostly_sky_ms": sky_store_ms, **compiled["raymarch_fwd_store"]},
+         "mostly_sky_ms": sky_store_ms, "union_grid": grid_kernel("fwd_store", 1, None),
+         **compiled["raymarch_fwd_store"]},
         {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
          "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
          "max_abs_err": store_bwd_err, "max_abs_err_vs_replay": store_vs_replay,
          "ms": handoff_ms["bwd_store"], "mostly_sky_ms": sky_store_bwd_ms,
          "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": store_bwd_bound, "bound_by": store_bwd_by,
-         "library_ms": None, **compiled["raymarch_bwd_store"]},
+         "library_ms": None,
+         "union_grid": grid_kernel("bwd_store", 1, grid_line["store_vs_replay"]),
+         **compiled["raymarch_bwd_store"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2951,4 +3315,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        sys.exit(build_union_grid() if sys.argv[1:] == ["--build-union-grid"] else main())
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()

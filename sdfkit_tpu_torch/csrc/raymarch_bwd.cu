@@ -65,9 +65,19 @@
 // faster, and copies unrolled to constant offsets slower (1.343 ms, with more
 // spilled).
 //
+// A scene of the large tier (SDF_LARGE: more than LARGE_SCENE_SLOTS slots,
+// sdf/compile.py) is pulled back by the large tier of raymarch_bwd.cuh: the
+// same replay, taps and sweep, its parameter cotangents added by the warp to
+// a row of partials of its own (raymarch_sums.cuh), a row per warp, so that
+// no thread keeps an array whose length is a number of slots. The launch
+// zeroes the rows first; the view's 19 sums stay in each thread and are
+// summed over the warp at the end; reduce_partials_kernel then sums the rows
+// in order, so two launches give bit-identical sums in this tier too.
+//
 // The build (render/cuda/build.py) compiles a generated translation unit that
 // defines the scene's sdf_dist/sdf_eval, SDF_N_PARAMS and the adjoints
-// sdf_dist_unit/sdf_eval_vjp, and then includes this file.
+// sdf_dist_unit/sdf_eval_vjp (or the large tier's), and then includes this
+// file.
 #include <cuda_runtime.h>
 
 #include "raymarch_bwd.cuh"
@@ -135,8 +145,14 @@ struct StagedRows {
     for (int k = 0; k < kStoreStages - 1; ++k) issue(steps, k);
   }
 
+#if !SDF_LARGE
   __device__ float sweep(const Ray& r, int steps, float g, const float* P, RayGrad& gr,
                          float* gP) const {
+#else
+  // The large tier's: a lane that goes along (u = 0) steps at depth0.
+  __device__ float sweep(const Ray& r, int steps, float g, float u, float depth0, const float* P,
+                         RayGrad& gr, float* gP) const {
+#endif
     const int segments = (steps + kStoreStageSteps - 1) / kStoreStageSteps;
 #pragma unroll 1
     for (int k = 0; k < segments; ++k) {
@@ -146,14 +162,23 @@ struct StagedRows {
       const int lo = hi > kStoreStageSteps ? hi - kStoreStageSteps : 0;
       const float* src =
           column + ((k % kStoreStages) * kStoreStageSteps + hi - 1 - lo) * kBwdThreads;
+#if !SDF_LARGE
 #pragma unroll 1
       for (int i = hi - 1; i >= lo; --i, src -= kBwdThreads) g = step_vjp(r, *src, g, P, gr, gP);
+#else
+      float d;
+#pragma unroll 1
+      for (int i = hi - 1; i >= lo; --i, src -= kBwdThreads) {
+        g = step_vjp_large(r, u != 0.0f ? *src : depth0, g, u, P, gr, gP, &d);
+      }
+#endif
     }
     return g;
   }
 };
 #endif
 
+#if !SDF_LARGE
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
     raymarch_bwd_kernel(RenderArgs a, const float* __restrict__ grad,
@@ -180,6 +205,48 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   }
   block_sum_to_row<kNOut>(acc, partials + (long long)blockIdx.x * kNOut);
 }
+#else
+// The large-scene tier (raymarch_bwd.cuh, raymarch_sums.cuh): a row of
+// partials per warp, which the launch zeroes first. The parameters' sums go
+// to it as the warp's adds; the view's 19 stay in each thread and are summed
+// over the warp at the end. The pixels of a warp are 32 neighbours, and the
+// warp goes round the grid-stride loop as one: a lane past the end goes
+// along with nothing to add.
+template <bool WANT_COLOR>
+__global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
+    raymarch_bwd_kernel(RenderArgs a, const float* __restrict__ grad,
+                        const float* __restrict__ store, float* __restrict__ partials) {
+  const int lane = threadIdx.x & 31;
+  float* row = partials + ((long long)blockIdx.x * kBwdWarps + (threadIdx.x >> 5)) * kNOut;
+  float gV[kViewScalars];
+#pragma unroll
+  for (int j = 0; j < kViewScalars; ++j) gV[j] = 0.0f;
+  const float* P = c_uniform;
+  const float* view19 = c_uniform + SDF_N_PARAMS;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+#if SDF_STORE
+  __shared__ float ring[kRingFloats];
+#endif
+  for (long long first = blockIdx.x * blockDim.x + (threadIdx.x - lane); first < a.local_npix;
+       first += stride) {
+    const bool active = first + lane < a.local_npix;
+    const long long local = active ? first + lane : a.local_npix - 1;
+    const float* g = grad + (WANT_COLOR ? 3 : 1) * local;
+#if SDF_STORE
+    pullback_pixel_large<WANT_COLOR>(a.pix0 + (int)local, active, P, view19, a, g, row, gV,
+                                     StagedRows{store + local, a.local_npix, ring + threadIdx.x});
+#else
+    pullback_pixel_large<WANT_COLOR>(a.pix0 + (int)local, active, P, view19, a, g, row, gV);
+#endif
+  }
+#pragma unroll
+  for (int j = 0; j < kViewScalars; ++j) {
+    float v = gV[j];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+    if (lane == 0) row[SDF_N_PARAMS + j] = v;
+  }
+}
+#endif
 
 // Outputs of one backward: the parameter slots, 16 of inverse(view @ proj),
 // 3 of the camera position.
@@ -192,11 +259,13 @@ extern "C" int raymarch_bwd_resident(int want_color) {
                     : resident_blocks(raymarch_bwd_kernel<false>, kBwdThreads);
 }
 
-// Rows of partials a launch over local_npix pixels writes (its grid size) on
-// the current device, or a negative CUDA error.
+// Rows of partials a launch over local_npix pixels writes (its grid size, or
+// in the large tier a row per warp) on the current device, or a negative
+// CUDA error.
 extern "C" int raymarch_bwd_rows(int local_npix, int want_color) {
-  return want_color ? backward_grid_rows(raymarch_bwd_kernel<true>, local_npix)
-                    : backward_grid_rows(raymarch_bwd_kernel<false>, local_npix);
+  const int blocks = want_color ? backward_grid_rows(raymarch_bwd_kernel<true>, local_npix)
+                                : backward_grid_rows(raymarch_bwd_kernel<false>, local_npix);
+  return blocks > 0 ? blocks * kRowsPerBlock : blocks;
 }
 
 // Launches both kernels on `stream`; returns the first CUDA error (0 when
@@ -210,7 +279,8 @@ extern "C" int raymarch_bwd_launch(const void* params, const void* view19, int w
                                    float depth0, float near_, float far_, int want_color,
                                    const void* grad, const void* store, void* partials,
                                    int rows, void* out, void* stream) {
-  if (iters < 1 || local_npix <= 0 || rows <= 0 || kHasStore != (store != nullptr)) {
+  if (iters < 1 || local_npix <= 0 || rows <= 0 || rows % kRowsPerBlock != 0 ||
+      kHasStore != (store != nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RenderArgs a{width, height, pix0, local_npix, iters, depth0, near_, far_};
@@ -221,10 +291,15 @@ extern "C" int raymarch_bwd_launch(const void* params, const void* view19, int w
   const float* g = static_cast<const float*>(grad);
   const float* st = static_cast<const float*>(store);
   float* part = static_cast<float*>(partials);
+  if (SDF_LARGE) {
+    err = cudaMemsetAsync(part, 0, sizeof(float) * (size_t)rows * kNOut, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = rows / kRowsPerBlock;
   if (want_color) {
-    raymarch_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(a, g, st, part);
+    raymarch_bwd_kernel<true><<<blocks, kBwdThreads, 0, s>>>(a, g, st, part);
   } else {
-    raymarch_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(a, g, st, part);
+    raymarch_bwd_kernel<false><<<blocks, kBwdThreads, 0, s>>>(a, g, st, part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

@@ -42,11 +42,21 @@
 // of the final depth once the final step is pulled back. One pass, no replay
 // and no kept depths, for any number of iterations.
 //
+// A scene of many parameter slots takes the large-scene tier (SDF_LARGE, set
+// by the emitted adjoint; sdf/compile.py large_tier), the last part of this
+// file: the same pullback with no per-thread array whose length is a number
+// of slots, its cotangents added to a row of sums per warp as they come
+// (raymarch_sums.cuh).
+//
 // Like raymarch_fwd.cuh this is host-and-device code with no CUDA header, so
 // the CPU tests compile it with a host compiler.
 #pragma once
 
 #include "raymarch_fwd.cuh"
+
+#ifndef SDF_LARGE
+#define SDF_LARGE 0
+#endif
 
 // The replay keeps the depths of one segment of the march in a per-thread
 // array. A march of more steps is swept segment by segment from its end, each
@@ -66,6 +76,7 @@ struct RayGrad {
   float ox, oy, oz, dx, dy, dz;
 };
 
+#if !SDF_LARGE
 // One step of the march, depth' = depth + d(ro + rd * depth), pulled back
 // with the cotangent `g` of depth': adds the step's share to the ray and the
 // parameters, and returns the cotangent of `depth`, g + g * (grad d . rd).
@@ -101,6 +112,8 @@ __host__ __device__ __forceinline__ float sweep_vjp(const Ray& r, const float* d
   return g;
 }
 
+#endif  // !SDF_LARGE
+
 // y = v * rsqrt(max(|v|^2, 1e-30)) pulled back: the cotangent of v from the
 // cotangent of y. The floor passes nothing below it (half on a tie).
 __host__ __device__ __forceinline__ void safe_normalize_vjp(float vx, float vy, float vz,
@@ -122,6 +135,7 @@ struct NoHook {
   __host__ __device__ void operator()() const {}
 };
 
+#if !SDF_LARGE
 // The final colour step and the shading pulled back (the port's forward copy
 // is shade_ray in raymarch_fwd.cuh). `g` is the pixel's RGB cotangent and
 // `depth` the depth after the n-1 march steps. Returns false for a sky
@@ -225,6 +239,8 @@ __host__ __device__ __forceinline__ bool final_shade_vjp(const Ray& r, float dep
   return true;
 }
 
+#endif  // !SDF_LARGE
+
 // ray_from_index pulled back: the ray's cotangent becomes that of the 16
 // entries of inverse(view @ proj) (row 2 never enters a ray and gets zero)
 // and of the camera position, added to gV[0..19).
@@ -302,13 +318,20 @@ struct StoreRows {
   __host__ __device__ float last(int steps) const { return at[steps * stride]; }
   // The pixel hits and will sweep rows [0, steps): nothing to start here.
   __host__ __device__ void on_hit(int steps) const {}
+#if !SDF_LARGE
   // The sweep over rows [0, steps), the last first, from the cotangent g of
   // the depth after them.
   __host__ __device__ float sweep(const Ray& r, int steps, float g, const float* P, RayGrad& gr,
                                   float* gP) const {
     return sweep_vjp(r, at, stride, steps, g, P, gr, gP);
   }
+#else
+  __host__ __device__ float sweep(const Ray& r, int steps, float g, float u, float depth0,
+                                  const float* P, RayGrad& gr, float* gP) const;
+#endif
 };
+
+#if !SDF_LARGE
 
 // The pullback of one ray, marched and shaded (shade_ray in raymarch_fwd.cuh).
 // `g` is its cotangent (3 floats, or 1 in depth mode). The parameters' share
@@ -445,3 +468,235 @@ __host__ __device__ __forceinline__ bool tangent_pullback_ray(const Ray& r, cons
   gr.dz += g_depth * jdz;
   return true;
 }
+#endif  // !SDF_LARGE
+
+#if SDF_LARGE
+// ---------------------------------------------------------------------------
+// The large-scene tier: the pullback above, with every parameter cotangent
+// added to the row gP as soon as it is known (raymarch_sums.cuh; on the card
+// the row of the thread's warp, on the host the thread's own sums) and no
+// per-thread array whose length is a number of slots. The emitted adjoints
+// (sdf/compile.py emit_large_vjp_cpp) are
+//
+//   float sdf_dist_vjp(px, py, pz, P, u, g, &ux, &uy, &uz, gP);
+//   void sdf_dist_vjp_pair(pa..., pb..., P, u, g, &ua..., &ub..., gP);
+//   float sdf_eval_vjp(px, py, pz, P, gr, gg, gb, gd, &gpx, &gpy, &gpz, gP);
+//
+// The distance's adjoints keep the unit form for the point: u = 1 gives the
+// distance's gradient in the point, which the recurrence needs, whatever the
+// step's cotangent g, and g scales only what they add to gP. A pair of normal
+// taps is pulled back in one call that subtracts the two unit gradients of a
+// slot before it scales them, as the small tier subtracts its arrays.
+//
+// A warp's lanes stay on one path, since each add is the warp's (sdf_acc): a
+// pixel that needs no pullback (past the frame's end, or sky) goes along
+// with u = 0 and zero cotangents at a point near the camera, where every
+// value is finite, so that it adds exactly nothing; a warp in which no lane
+// needs one skips the rest. On the host the "warp" is one thread, and the
+// pullback of a pixel that needs none ends where the small tier's does.
+
+// One march step pulled back, as step_vjp: `u` is 1 for a lane that takes
+// part and 0 for one that goes along (with g = 0). `dist` takes the step's
+// distance.
+__host__ __device__ __forceinline__ float step_vjp_large(const Ray& r, float depth, float g,
+                                                         float u, const float* P, RayGrad& gr,
+                                                         float* gP, float* dist) {
+  float ux, uy, uz;
+  *dist = sdf_dist_vjp(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P, u, g,
+                       &ux, &uy, &uz, gP);
+  const float along = ux * r.dx + uy * r.dy + uz * r.dz;
+  gr.ox += g * ux;
+  gr.oy += g * uy;
+  gr.oz += g * uz;
+  gr.dx += g * (ux * depth);
+  gr.dy += g * (uy * depth);
+  gr.dz += g * (uz * depth);
+  return g + g * along;
+}
+
+// The sweep over `count` kept depths (depths[i * stride], the last first); a
+// lane that goes along (u = 0) steps at depth0 instead.
+__host__ __device__ __forceinline__ float sweep_vjp_large(const Ray& r, const float* depths,
+                                                          long long stride, int count, float g,
+                                                          float u, float depth0, const float* P,
+                                                          RayGrad& gr, float* gP) {
+  float d;
+#pragma unroll 1
+  for (int i = count - 1; i >= 0; --i) {
+    g = step_vjp_large(r, u != 0.0f ? depths[i * stride] : depth0, g, u, P, gr, gP, &d);
+  }
+  return g;
+}
+
+__host__ __device__ inline float StoreRows::sweep(const Ray& r, int steps, float g, float u,
+                                                  float depth0, const float* P, RayGrad& gr,
+                                                  float* gP) const {
+  return sweep_vjp_large(r, at, stride, steps, g, u, depth0, P, gr, gP);
+}
+
+// final_shade_vjp for the large tier. `active`: the pixel takes part. Sets
+// *live to whether it hits (and takes part), and returns whether any lane of
+// the warp does: if none does, nothing was added and the caller skips what
+// follows; otherwise *g_depth is the cotangent of `depth` (zero where not
+// live). `on_hit()` runs on every lane of a warp that goes on.
+template <class OnHit = NoHook>
+__host__ __device__ __forceinline__ bool final_shade_vjp_large(const Ray& r, float depth,
+                                                               bool active, const float* g,
+                                                               const float* P,
+                                                               const RenderArgs& a, RayGrad& gr,
+                                                               float* gP, float* g_depth,
+                                                               bool* live,
+                                                               OnHit on_hit = OnHit()) {
+  float cr, cg, cb;
+  float sd = depth + sdf_eval(r.ox + r.dx * depth, r.oy + r.dy * depth, r.oz + r.dz * depth, P,
+                              &cr, &cg, &cb);
+  *live = active && !(sd > a.far_);
+  if (!sdf_any(*live)) return false;
+  on_hit();
+  const bool on = *live;
+  if (!on) {
+    depth = a.depth0;  // a finite place to go along
+    sd = a.depth0;
+  }
+  const float u = on ? 1.0f : 0.0f;
+  const float g0 = on ? g[0] : 0.0f, g1 = on ? g[1] : 0.0f, g2 = on ? g[2] : 0.0f;
+  const float px = r.ox + r.dx * depth;
+  const float py = r.oy + r.dy * depth;
+  const float pz = r.oz + r.dz * depth;
+  const float sx = r.ox + r.dx * sd;
+  const float sy = r.oy + r.dy * sd;
+  const float sz = r.oz + r.dz * sd;
+  const float e = 1e-5f;
+  float rx = 0.0f, ry = 0.0f, rz = 0.0f;
+#pragma unroll 1
+  for (int axis = 0; axis < 3; ++axis) {
+    const float ex = axis == 0 ? e : 0.0f, ey = axis == 1 ? e : 0.0f, ez = axis == 2 ? e : 0.0f;
+    const float d = sdf_dist(sx + ex, sy + ey, sz + ez, P) - sdf_dist(sx + -ex, sy + -ey, sz + -ez, P);
+    rx = axis == 0 ? d : rx;
+    ry = axis == 1 ? d : ry;
+    rz = axis == 2 ? d : rz;
+  }
+  float nx = rx, ny = ry, nz = rz;
+  safe_normalize(nx, ny, nz);
+  const float wx = 5.0f - sx;
+  const float wy = 5.0f - sy;
+  const float wz = 10.0f - sz;
+  float lx = wx, ly = wy, lz = wz;
+  safe_normalize(lx, ly, lz);
+  const float dotnl = nx * lx + ny * ly + nz * lz;
+  const float lambert = fmaxf(dotnl, 0.0f);
+  const float g_cr = g0 * lambert;
+  const float g_cg = g1 * lambert;
+  const float g_cb = g2 * lambert;
+  const float g_lambert = on ? g0 * cr + g1 * cg + g2 * cb : 0.0f;
+  const float g_dot = dotnl > 0.0f ? g_lambert : (dotnl < 0.0f ? 0.0f : 0.5f * g_lambert);
+  float g_rx, g_ry, g_rz;
+  safe_normalize_vjp(rx, ry, rz, g_dot * lx, g_dot * ly, g_dot * lz, g_rx, g_ry, g_rz);
+  float g_wx, g_wy, g_wz;
+  safe_normalize_vjp(wx, wy, wz, g_dot * nx, g_dot * ny, g_dot * nz, g_wx, g_wy, g_wz);
+  float g_sx = 0.0f, g_sy = 0.0f, g_sz = 0.0f;
+#pragma unroll 1
+  for (int axis = 0; axis < 3; ++axis) {
+    const float ex = axis == 0 ? e : 0.0f, ey = axis == 1 ? e : 0.0f, ez = axis == 2 ? e : 0.0f;
+    const float g_axis = axis == 0 ? g_rx : (axis == 1 ? g_ry : g_rz);
+    float ax, ay, az, bx, by, bz;
+    sdf_dist_vjp_pair(sx + ex, sy + ey, sz + ez, sx + -ex, sy + -ey, sz + -ez, P, u, g_axis, &ax,
+                      &ay, &az, &bx, &by, &bz, gP);
+    g_sx += g_axis * (ax - bx);
+    g_sy += g_axis * (ay - by);
+    g_sz += g_axis * (az - bz);
+  }
+  g_sx -= g_wx;
+  g_sy -= g_wy;
+  g_sz -= g_wz;
+  gr.ox += g_sx;
+  gr.oy += g_sy;
+  gr.oz += g_sz;
+  gr.dx += g_sx * sd;
+  gr.dy += g_sy * sd;
+  gr.dz += g_sz * sd;
+  const float g_sd = g_sx * r.dx + g_sy * r.dy + g_sz * r.dz;
+  float gx, gy, gz;
+  sdf_eval_vjp(px, py, pz, P, g_cr, g_cg, g_cb, g_sd, &gx, &gy, &gz, gP);
+  gr.ox += gx;
+  gr.oy += gy;
+  gr.oz += gz;
+  gr.dx += gx * depth;
+  gr.dy += gy * depth;
+  gr.dz += gz * depth;
+  *g_depth = g_sd + (gx * r.dx + gy * r.dy + gz * r.dz);
+  return true;
+}
+
+// pullback_ray for the large tier: `active` says whether the ray takes part.
+// Returns whether it hit and was pulled back (`gr` is zero otherwise).
+// `reached`, where given, takes the depth the march reached (before the
+// final step in RGB, after all n steps in depth mode).
+template <bool WANT_COLOR, class Rows = ReplayRows>
+__host__ __device__ __forceinline__ bool pullback_ray_large(const Ray& r, bool active,
+                                                            const float* P, const RenderArgs& a,
+                                                            const float* g, float* gP,
+                                                            RayGrad& gr, Rows rows = Rows(),
+                                                            float* reached = nullptr) {
+  gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+  const int steps = a.iters - 1;  // march steps before the final one
+  float history[Rows::kStored ? 1 : kSdfHistory];
+  int first = 0;
+  float depth;
+  if constexpr (Rows::kStored) {
+    depth = rows.last(steps);
+  } else {
+    first = steps <= 0 ? 0 : (steps - 1) / kSdfHistory * kSdfHistory;
+    depth = replay_march(r, P, a.depth0, first, steps, history);
+  }
+  if (reached != nullptr) *reached = depth;
+  bool live;
+  float g_depth;
+  if (WANT_COLOR) {
+    if constexpr (Rows::kStored) {
+      if (!final_shade_vjp_large(r, depth, active, g, P, a, gr, gP, &g_depth, &live,
+                                 [&] { rows.on_hit(steps); })) {
+        return false;
+      }
+    } else if (!final_shade_vjp_large(r, depth, active, g, P, a, gr, gP, &g_depth, &live)) {
+      return false;
+    }
+  } else {
+    // Depth mode: the last step is one more march step, for every pixel.
+    live = active;
+    if (!sdf_any(live)) return false;
+    if constexpr (Rows::kStored) rows.on_hit(steps);
+    float d;
+    g_depth = step_vjp_large(r, live ? depth : a.depth0, live ? g[0] : 0.0f, live ? 1.0f : 0.0f,
+                             P, gr, gP, &d);
+    if (reached != nullptr) *reached = depth + d;
+  }
+  const float u = live ? 1.0f : 0.0f;
+  if constexpr (Rows::kStored) {
+    rows.sweep(r, steps, g_depth, u, a.depth0, P, gr, gP);
+  } else {
+    g_depth = sweep_vjp_large(r, history, 1, steps - first, g_depth, u, a.depth0, P, gr, gP);
+    while (first > 0) {
+      first -= kSdfHistory;
+      replay_march(r, P, a.depth0, first, first + kSdfHistory, history);
+      g_depth = sweep_vjp_large(r, history, 1, kSdfHistory, g_depth, u, a.depth0, P, gr, gP);
+    }
+  }
+  return live;
+}
+
+// pullback_pixel for the large tier: `active` says whether pixel `idx` takes
+// part; the view's share of a pixel that hit is added to gV.
+template <bool WANT_COLOR, class Rows = ReplayRows>
+__host__ __device__ __forceinline__ bool pullback_pixel_large(int idx, bool active, const float* P,
+                                                              const float* view19,
+                                                              const RenderArgs& a, const float* g,
+                                                              float* gP, float* gV,
+                                                              Rows rows = Rows()) {
+  const Ray r = ray_from_index(idx, view19, a);
+  RayGrad gr;
+  const bool live = pullback_ray_large<WANT_COLOR>(r, active, P, a, g, gP, gr, rows);
+  if (live) ray_vjp(idx, view19, a, r, gr, gV);
+  return live;
+}
+#endif  // SDF_LARGE

@@ -21,6 +21,10 @@
 // used.
 #pragma once
 
+#ifndef SDF_LARGE
+#define SDF_LARGE 0
+#endif
+
 #include <string.h>
 
 // March steps in a group; the test for a warp at its bitwise fixed point
@@ -246,9 +250,26 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
   const float sy = r.oy + r.dy * depth;
   const float sz = r.oz + r.dz * depth;
   const float e = 1e-5f;
+#if SDF_LARGE
+  // A scene of the large tier (sdf/compile.py large_tier) takes the taps an
+  // axis at a time, as the backward does: six straight-line evaluations of
+  // a large scene side by side keep too many values live for the register
+  // file (the scene of 1,400 slots: 255 registers and 1,480 bytes of stack,
+  // PERF.md). An axis left alone adds 0.0f, so the taps are the same floats.
+  float nx = 0.0f, ny = 0.0f, nz = 0.0f;
+#pragma unroll 1
+  for (int axis = 0; axis < 3; ++axis) {
+    const float ex = axis == 0 ? e : 0.0f, ey = axis == 1 ? e : 0.0f, ez = axis == 2 ? e : 0.0f;
+    const float d = sdf_dist(sx + ex, sy + ey, sz + ez, P) - sdf_dist(sx + -ex, sy + -ey, sz + -ez, P);
+    nx = axis == 0 ? d : nx;
+    ny = axis == 1 ? d : ny;
+    nz = axis == 2 ? d : nz;
+  }
+#else
   float nx = sdf_dist(sx + e, sy, sz, P) - sdf_dist(sx + -e, sy, sz, P);
   float ny = sdf_dist(sx, sy + e, sz, P) - sdf_dist(sx, sy + -e, sz, P);
   float nz = sdf_dist(sx, sy, sz + e, P) - sdf_dist(sx, sy, sz + -e, P);
+#endif
   safe_normalize(nx, ny, nz);
   float lx = 5.0f - sx;
   float ly = 5.0f - sy;

@@ -47,6 +47,7 @@ constexpr int kNAcc = kNParams > 0 ? kNParams : 1;
 // spill) 1.088 ms, 5 (96, 192 bytes spilled) 1.054, 6 (80, 284 bytes) 1.069.
 constexpr int kRaysBwdMinBlocks = 5;
 
+#if !SDF_LARGE
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)
     raymarch_rays_bwd_kernel(const float* __restrict__ ox,
@@ -79,6 +80,54 @@ __global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)
   }
   block_sum_to_row<kNParams>(acc, partials + (long long)blockIdx.x * kNParams);
 }
+#else
+// The large-scene tier: the tangent march would carry a derivative per slot
+// the distance reads across the whole march, so a ray is pulled back as the
+// image backward pulls a pixel back, by a replay of its march and a sweep
+// (pullback_ray_large), its parameter cotangents added to the warp's row of
+// partials (raymarch_sums.cuh), which the launch zeroes first. The warp goes
+// round the grid-stride loop as one; a ray past the end, or flagged as a
+// miss, goes along with nothing to add.
+template <bool WANT_COLOR>
+__global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)
+    raymarch_rays_bwd_kernel(const float* __restrict__ ox,
+                             const float* __restrict__ oy, const float* __restrict__ oz,
+                             const float* __restrict__ dx, const float* __restrict__ dy,
+                             const float* __restrict__ dz, RenderArgs a,
+                             const float* __restrict__ grad, const unsigned char* __restrict__ hit,
+                             float* __restrict__ g_rays, float* __restrict__ depths,
+                             float* __restrict__ partials) {
+  const int lane = threadIdx.x & 31;
+  float* row = partials + ((long long)blockIdx.x * kBwdWarps + (threadIdx.x >> 5)) * kNParams;
+  const float* P = c_uniform;
+  const long long n = a.local_npix;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long first = blockIdx.x * blockDim.x + (threadIdx.x - lane); first < n;
+       first += stride) {
+    const bool in = first + lane < n;
+    const long long i = in ? first + lane : n - 1;
+    const bool marched = in && (hit == nullptr || hit[i]);
+    RayGrad gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    float depth = __int_as_float(0x7fc00000);  // NaN: a ray the flag skips marches nowhere
+    if (sdf_any(marched)) {
+      const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
+      float reached;
+      pullback_ray_large<WANT_COLOR>(r, marched, P, a, grad + (WANT_COLOR ? 3 : 1) * i, row, gr,
+                                     ReplayRows(), &reached);
+      if (marched) depth = reached;
+    }
+    if (in) {
+      g_rays[i] = gr.ox;
+      g_rays[n + i] = gr.oy;
+      g_rays[2 * n + i] = gr.oz;
+      g_rays[3 * n + i] = gr.dx;
+      g_rays[4 * n + i] = gr.dy;
+      g_rays[5 * n + i] = gr.dz;
+      if (depths != nullptr) depths[i] = depth;
+    }
+  }
+}
+#endif
 
 // Scalars one backward sums: the parameter slots.
 extern "C" int raymarch_rays_bwd_n_out() { return kNParams; }
@@ -93,8 +142,9 @@ extern "C" int raymarch_rays_bwd_resident(int want_color) {
 // Rows of partials a launch over n rays writes (its grid size) on the
 // current device, or a negative CUDA error.
 extern "C" int raymarch_rays_bwd_rows(int n, int want_color) {
-  return want_color ? backward_grid_rows(raymarch_rays_bwd_kernel<true>, n)
-                    : backward_grid_rows(raymarch_rays_bwd_kernel<false>, n);
+  const int blocks = want_color ? backward_grid_rows(raymarch_rays_bwd_kernel<true>, n)
+                                : backward_grid_rows(raymarch_rays_bwd_kernel<false>, n);
+  return blocks > 0 ? blocks * kRowsPerBlock : blocks;
 }
 
 // Launches both kernels on `stream`; returns the first CUDA error (0 when
@@ -113,7 +163,8 @@ extern "C" int raymarch_rays_bwd_launch(const void* params, const void* ox, cons
                                         const void* grad, const void* hit, void* g_rays,
                                         void* depths, void* partials, int rows, void* out,
                                         void* stream) {
-  if (iters < 1 || n <= 0 || rows <= 0 || (hit != nullptr && !want_color)) {
+  if (iters < 1 || n <= 0 || rows <= 0 || rows % kRowsPerBlock != 0 ||
+      (hit != nullptr && !want_color)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   RenderArgs a{0, 0, 0, n, iters, depth0, near_, far_};
@@ -128,12 +179,17 @@ extern "C" int raymarch_rays_bwd_launch(const void* params, const void* ox, cons
   float* part = static_cast<float*>(partials);
   cudaError_t err = copy_uniforms(static_cast<const float*>(params), nullptr, s);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (SDF_LARGE) {
+    err = cudaMemsetAsync(part, 0, sizeof(float) * (size_t)rows * kNParams, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int blocks = rows / kRowsPerBlock;
   if (want_color) {
-    raymarch_rays_bwd_kernel<true><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4], c[5],
-                                                                a, g, h, gr, dep, part);
+    raymarch_rays_bwd_kernel<true><<<blocks, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4],
+                                                                  c[5], a, g, h, gr, dep, part);
   } else {
-    raymarch_rays_bwd_kernel<false><<<rows, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4],
-                                                                 c[5], a, g, h, gr, dep, part);
+    raymarch_rays_bwd_kernel<false><<<blocks, kBwdThreads, 0, s>>>(c[0], c[1], c[2], c[3], c[4],
+                                                                   c[5], a, g, h, gr, dep, part);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

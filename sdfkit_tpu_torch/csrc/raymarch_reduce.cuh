@@ -27,9 +27,27 @@ constexpr int kBwdThreads = 128;
 // registers, 364 bytes) 1.412, and 8 no faster than 6. Warps pay up to about
 // 20 an SM, and 5 blocks leave a larger scene the most registers at that
 // speed.
-constexpr int kBwdMinBlocks = 5;
+#ifndef SDF_LARGE
+#define SDF_LARGE 0
+#endif
+#ifndef SDF_STORE
+#define SDF_STORE 0
+#endif
+// The large-scene tier (raymarch_sums.cuh) keeps no running sums in the
+// thread, and its replay of the march, a forward with little to overlap it,
+// runs faster the more warps are in flight. Measured on an H100 with the
+// 200-sphere union at 1920x1080x40 (tools/torch_kernel_probe.py --budgets),
+// the image backward at 5 / 8 / 10 / 12 / 16 blocks an SM: 271.2 / 232.4 /
+// 211.5 / 192.2 / 165.0 ms; the store-fed one, which replays nothing and
+// holds at most 9 blocks for its shared ring: 107.3 / 103.0 / 112.2 / 111.9 /
+// 126.1 ms.
+constexpr int kBwdLargeMinBlocks = SDF_STORE ? 8 : 16;
+constexpr int kBwdMinBlocks = SDF_LARGE ? kBwdLargeMinBlocks : 5;
 constexpr int kBwdWarps = kBwdThreads / 32;
 constexpr int kReduceThreads = 256;
+// Rows of partials a block writes: one, or one per warp in the large-scene
+// tier, whose warps add to their own rows.
+constexpr int kRowsPerBlock = SDF_LARGE ? kBwdWarps : 1;
 
 // Block sum of each of a thread's N running sums acc[0..N) into row[0..N):
 // shuffles within a warp, then the warps' sums in order. Two rows of shared

@@ -152,9 +152,11 @@ def translation_unit(program: Program, family: str = "fwd") -> str:
     fam = FAMILIES[family]
     unit = _HEAD + program.source + "\n"
     if fam.adjoint:
-        unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS itself
+        unit += program.adjoint_source + "\n"  # defines SDF_N_PARAMS (and SDF_LARGE) itself
     else:
         unit += f"#define SDF_N_PARAMS {program.n_params}\n"
+        if program.large:
+            unit += "#define SDF_LARGE 1\n"
     if fam.store:
         unit += "#define SDF_STORE 1\n"
     return unit + f'#include "{fam.prefix}.cu"\n'
@@ -173,23 +175,28 @@ def kernel_key(mangled: str) -> str:
 
 def _ptxas(log: str) -> tuple[dict, dict]:
     """Registers per thread and local-memory bytes (stack frame, spills) of
-    each kernel, from ptxas -v."""
+    each kernel, from ptxas -v; and the local memory of each function of
+    the scene's that is not inlined (the large tier's adjoints), under its
+    name."""
     registers, local = {}, {}
-    current = None
+    current = function = None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            current = kernel_key(m.group(1))
+            current, function = kernel_key(m.group(1)), None
             continue
-        if current is None:
+        m = re.search(r"Function properties for _Z(\d+)(\w+)", line)
+        if m and m.group(2).startswith("sdf_"):
+            function = m.group(2)[:int(m.group(1))]
             continue
         m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
-        if m:
-            local[current] = dict(zip(("stack_frame", "spill_stores", "spill_loads"),
-                                      map(int, m.groups())))
+        if m and (function or current):
+            local.setdefault(function or current, dict(zip(
+                ("stack_frame", "spill_stores", "spill_loads"), map(int, m.groups()))))
+            function = None
         m = re.search(r"Used (\d+) registers", line)
-        if m:
+        if m and current:
             registers[current] = int(m.group(1))
             current = None
     return registers, local

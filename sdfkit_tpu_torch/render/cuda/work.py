@@ -44,7 +44,9 @@ RAY_VJP_OPS = 60  # its pullback to the 19 view scalars
 # Around one unit gradient of a sweep step, besides the distance's adjoint:
 # the point (6), grad d . rd (5), the gradient times the depth (3), the ray's
 # six sums (12) and the recurrence (2); the multiply of each parameter
-# slot's scaled add is dist_slots more.
+# slot's scaled add is slots_added more (the slots one evaluation adds to:
+# every slot the distance reads in the small tier, the taken path's in the
+# large one, operation_counts).
 UNIT_OPS = 28
 SM_LANES = 128  # instructions an SM starts per cycle, one per lane
 
@@ -95,10 +97,10 @@ def frame_work(program: Program, iterations: int, pixels: int, hits: int, march_
       also writes the depth history, and the backward fed it (no replay);
     * with ``ray_hits`` and ``ray_march_steps`` (the ray-batch forward's own,
       over the frame's rays): ``rays_fwd`` / ``rays_fwd_fixed``,
-      ``rays_bwd`` (the tangent march on the rays that hit) and
-      ``rays_bwd_as_replay`` (the same pullback done as the image
-      backward's replay and sweep, without the ray's generation and its
-      pullback)."""
+      ``rays_bwd`` (the tangent march on the rays that hit; in the large
+      tier their replay and sweep) and ``rays_bwd_as_replay`` (the same
+      pullback done as the image backward's replay and sweep, without the
+      ray's generation and its pullback)."""
     c = operation_counts(program)
     n = iterations
     step = c["dist"] + STEP_OPS
@@ -116,7 +118,7 @@ def frame_work(program: Program, iterations: int, pixels: int, hits: int, march_
                 + (pixels - hit_count) * RAY_OPS)
 
     fwd = forward(march_steps, hits)
-    unit = c["dist_unit"] + UNIT_OPS + c["dist_slots"]
+    unit = c["dist_unit"] + UNIT_OPS + c["slots_added"]
     bwd = (pixels * ((n - 1) * step + c["eval"] + RAY_OPS)
            + hits * (TAPS * step + (TAPS + n - 1) * unit + c["eval_vjp"] + 3 * SHADE_OPS))
     out = {
@@ -137,10 +139,15 @@ def frame_work(program: Program, iterations: int, pixels: int, hits: int, march_
         out["rays_fwd"] = Work(forward(ray_march_steps, ray_hits) - pixels * RAY_OPS,
                                fwd_bytes + rays_in)
         out["rays_fwd_fixed"] = Work(fixed - pixels * RAY_OPS, fwd_bytes + rays_in)
+        rays_bwd_bytes = pixels * (24 + 12 + 1 + 24) + 8 * program.n_params
         out["rays_bwd"] = Work(
             ray_hits * ((n - 1) * tangent + c["eval"] + TAPS * step + TAPS * unit
-                        + c["eval_vjp"] + 3 * SHADE_OPS),
-            pixels * (24 + 12 + 1 + 24) + 8 * program.n_params)
+                        + c["eval_vjp"] + 3 * SHADE_OPS), rays_bwd_bytes)
+        if program.large:
+            # The large tier replays and sweeps the rays the forward hit.
+            out["rays_bwd"] = Work(
+                ray_hits * ((n - 1) * (step + unit) + c["eval"] + TAPS * step + TAPS * unit
+                            + c["eval_vjp"] + 3 * SHADE_OPS), rays_bwd_bytes)
         out["rays_bwd_as_replay"] = Work(bwd - pixels * RAY_OPS - hits * RAY_VJP_OPS,
                                          bwd_bytes + 2 * rays_in)
     return out

@@ -36,6 +36,7 @@ never pays for the backward's build.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import math
 
@@ -60,8 +61,9 @@ class Program:
     eval_live: tuple  # node ids colour + distance need, in order
     source: str  # the C++ of sdf_dist and sdf_eval
     hash: str
-    adjoint_source: str = ""  # the C++ of sdf_dist_unit and sdf_eval_vjp
+    adjoint_source: str = ""  # the C++ of the adjoints (sdf_dist_unit ... or sdf_dist_vjp ...)
     adjoint_hash: str = ""
+    large: bool = False  # the backward's large-scene tier (``large_tier``)
 
 
 def _deps(node: tuple) -> tuple:
@@ -131,6 +133,7 @@ def trace(expr: SdfExpr) -> Program:
         n_params=n_params, dist_live=dist_live, eval_live=eval_live,
         source="", hash="",
     )
+    prog = dataclasses.replace(prog, large=large_tier(prog))
     source = emit_cpp(prog)
     adjoint = emit_vjp_cpp(prog)
     return dataclasses.replace(
@@ -158,8 +161,8 @@ _PROGRAMS: dict[tuple, Program] = {}
 
 
 def compile_scene(expr: SdfExpr) -> Program:
-    """The scene's program, traced once per structure."""
-    key = _structure(expr)
+    """The scene's program, traced once per structure (and tier threshold)."""
+    key = (_structure(expr), LARGE_SCENE_SLOTS)
     prog = _PROGRAMS.get(key)
     if prog is None:
         prog = _PROGRAMS[key] = trace(expr)
@@ -515,9 +518,15 @@ def operation_counts(program: Program) -> dict:
     recompute plus every expression and accumulation of its reverse sweep.
     ``dist_unit`` is ``sdf_dist_unit`` with one accumulation per parameter
     slot it reaches (``dist_slots`` of them, ``SDF_N_DIST_SLOTS`` in the
-    emitted source). These are nodes of the program, not instructions: the
-    card executes several for an IEEE division or square root (``PERF.md`` has
-    the measured ratio)."""
+    emitted source), ``slots_added`` the slots one call adds to. These are
+    nodes of the program, not instructions: the card executes several for an
+    IEEE division or square root (``PERF.md`` has the measured ratio).
+
+    For a program of the large tier the adjoints count what one evaluation
+    needs: the forward and the reverse sweep down the costliest path of the
+    regions whose cotangent is not zero (``_emit_gated``), the adds on that
+    path as ``slots_added``; ``dist_unit_recompute`` and
+    ``eval_vjp_recompute`` are the forward operations those regions redo."""
     def forward(live):
         return sum(program.nodes[i][0] not in ("const", "input", "param") for i in live)
 
@@ -547,10 +556,17 @@ def operation_counts(program: Program) -> dict:
         return be.n, slots
 
     dist, both = forward(program.dist_live), forward(program.eval_live)
-    eval_vjp, _ = reverse(program.eval_live, [(r, "x") for r in (*program.color, program.dist)])
     dist_unit, slots = reverse(program.dist_live, [(program.dist, 1.0)])
+    if program.large:
+        parts = _large_parts(program)
+        d, e = parts["dist"][2], parts["eval"][2]
+        return {"dist": dist, "eval": both, "dist_unit": dist + d["reverse"],
+                "eval_vjp": both + e["reverse"], "dist_slots": len(slots),
+                "slots_added": d["slots_added"], "dist_unit_recompute": d["recompute"],
+                "eval_vjp_recompute": e["recompute"]}
+    eval_vjp, _ = reverse(program.eval_live, [(r, "x") for r in (*program.color, program.dist)])
     return {"dist": dist, "eval": both, "dist_unit": dist + dist_unit,
-            "eval_vjp": both + eval_vjp, "dist_slots": len(slots)}
+            "eval_vjp": both + eval_vjp, "dist_slots": len(slots), "slots_added": len(slots)}
 
 
 # ---------------------------------------------------------------------------
@@ -582,10 +598,15 @@ def _uniform(program: Program, live) -> set:
     return uniform
 
 
-def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[str], dict]:
+def _emit_body(program: Program, live, keep_rows: bool = False, suffix: str = "",
+               inputs=("px", "py", "pz"), params: str = "P",
+               record=None) -> tuple[list[str], dict]:
     """The forward lines of ``live`` and each node's C++ name. With
     ``keep_rows`` a gather also leaves its palette row in ``k<id>`` (-1 for
-    no row), which the adjoint reads.
+    no row), which the adjoint reads. ``suffix`` ends every name the lines
+    declare and ``inputs`` names the point, so that one function can hold
+    the forwards of two points; ``params`` names the parameter array, and
+    ``record(i, names)`` gives lines to follow node ``i``'s.
 
     A division by a uniform value ``c`` (the cell size of a repetition, under
     a ``floor``) is written as the tail of the IEEE division with the
@@ -613,28 +634,29 @@ def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[st
             names[i] = ("true" if node[1] else "false") if program.is_bool[i] else _literal(node[1])
             continue
         if op == "input":
-            names[i] = ("px", "py", "pz")[node[1]]
+            names[i] = inputs[node[1]]
             continue
-        v = names[i] = f"v{i}"
+        v = names[i] = f"v{i}{suffix}"
         a = [names[j] for j in _deps(node)]
         if op == "param":
-            lines.append(f"const float {v} = P[{node[1]}];")
+            lines.append(f"const float {v} = {params}[{node[1]}];")
         elif op == "gather":
             _, base, rows, channel, _ = node
             # Row pos of the palette, 0 unless pos is an integer in [0, rows).
             lines.append(f"float {v} = 0.0f;")
             if keep_rows:
-                lines.append(f"int k{i} = -1;")
+                lines.append(f"int k{i}{suffix} = -1;")
                 lines.append(
                     f"if ({a[0]} >= 0.0f && {a[0]} < {float(rows):.1f}f) {{ "
                     f"const int k = (int){a[0]}; "
-                    f"if ((float)k == {a[0]}) {{ k{i} = k; {v} = P[{base} + 3 * k + {channel}]; }} }}"
+                    f"if ((float)k == {a[0]}) {{ k{i}{suffix} = k; "
+                    f"{v} = {params}[{base} + 3 * k + {channel}]; }} }}"
                 )
                 continue
             lines.append(
                 f"if ({a[0]} >= 0.0f && {a[0]} < {float(rows):.1f}f) {{ "
                 f"const int k{i} = (int){a[0]}; "
-                f"if ((float)k{i} == {a[0]}) {v} = P[{base} + 3 * k{i} + {channel}]; }}"
+                f"if ((float)k{i} == {a[0]}) {v} = {params}[{base} + 3 * k{i} + {channel}]; }}"
             )
         elif op == "where":
             lines.append(f"const float {v} = {a[0]} ? {a[1]} : {a[2]};")
@@ -644,14 +666,17 @@ def _emit_body(program: Program, live, keep_rows: bool = False) -> tuple[list[st
             lines.append(f"const float {v} = {_CPP_CALL[op]}({', '.join(a)});")
         elif op == "div" and node[2] in uniform and node[1] not in uniform:
             c = node[2]
+            rc, q = f"rc{c}{suffix}", f"q{i}{suffix}"
             if c not in reciprocals:
                 reciprocals.add(c)
-                lines.append(f"const float rc{c} = 1.0f / {a[1]};")
-            lines.append(f"const float q{i} = {a[0]} * rc{c};")
-            lines.append(f"const float {v} = fmaf(fmaf(-{a[1]}, q{i}, {a[0]}), rc{c}, q{i});")
+                lines.append(f"const float {rc} = 1.0f / {a[1]};")
+            lines.append(f"const float {q} = {a[0]} * {rc};")
+            lines.append(f"const float {v} = fmaf(fmaf(-{a[1]}, {q}, {a[0]}), {rc}, {q});")
         else:
             ty = "bool" if program.is_bool[i] else "float"
             lines.append(f"const {ty} {v} = {a[0]} {_CPP_BINARY[op]} {a[1]};")
+        if record is not None:
+            lines += record(i, names)
     return lines, names
 
 
@@ -744,7 +769,12 @@ def emit_vjp_cpp(program: Program) -> str:
       distance depends on. ``sdf_dist_unit_add(g, uP, gP)`` adds ``g`` times
       those to ``gP[slot]``. The kernels use it wherever the cotangent is a
       scalar that is known late (a march step's, a normal tap's): the unit
-      form does not wait for it."""
+      form does not wait for it.
+
+    A program of the large tier (``Program.large``) gets
+    :func:`emit_large_vjp_cpp` instead."""
+    if program.large:
+        return emit_large_vjp_cpp(program)
     head = "__host__ __device__ __forceinline__"
     slots: dict[int, int] = {}  # parameter slot -> its place in uP
 
@@ -784,5 +814,452 @@ def emit_vjp_cpp(program: Program) -> str:
     return "\n".join(out)
 
 
-__all__ = ["Program", "compile_scene", "emit_cpp", "emit_vjp_cpp", "flat_params",
-           "operation_counts", "run", "run_unit", "run_vjp", "trace"]
+# ---------------------------------------------------------------------------
+# The large-scene tier of the adjoint.
+# ---------------------------------------------------------------------------
+
+# The backward's tier (csrc/raymarch_bwd.cuh). A scene of at most this many
+# parameter slots takes the small tier: each thread keeps a running sum per
+# slot, and the unit form a gradient per slot the distance reads, in arrays
+# whose every index is a constant, so that for a small scene they live in
+# registers. A larger scene, or one whose distance reads a palette of more
+# than PALETTE_UNROLLED_ROWS rows, takes the large tier, which keeps no array
+# whose length is a number of slots (emit_large_vjp_cpp). Measured on an H100
+# with unions of 4 to 24 spheres at 1920x1080x40, the image backward in the
+# small / large tier (tools/torch_kernel_probe.py --tiers): 28 slots 0.447 /
+# 0.482 ms, 56 slots 0.992 / 0.846, 84 slots 1.668 / 1.477, 112 slots 2.620 /
+# 2.261, 168 slots 7.763 / 4.163 (PERF.md).
+LARGE_SCENE_SLOTS = 32
+
+# The large tier's adjoint skips a subtree whose cotangent is zero for the
+# whole warp (the untaken side of a min, a where or an abs): every subtree of
+# the reverse sweep that takes its cotangent from selects alone and has at
+# least GATE_MIN_NODES nodes gets its own test, down to at most GATE_DEPTH
+# tests inside one another (a left-deep chain of unions is tested that far
+# along).
+GATE_MIN_NODES = 8
+GATE_DEPTH = 32
+
+# The nodes whose pullback needs no float value: a select's cotangent goes by
+# comparisons alone (their outcomes are kept as bits), a sum's passes as it is.
+_SELECTS = ("min", "max", "abs", "where")
+
+
+def large_tier(program: Program) -> bool:
+    """Whether the backward of ``program`` takes the large-scene tier."""
+    return program.n_params > LARGE_SCENE_SLOTS or any(
+        program.nodes[i][0] == "gather" and program.nodes[i][2] > PALETTE_UNROLLED_ROWS
+        for i in program.dist_live)
+
+
+def _flow(program: Program, live) -> dict:
+    """Node -> the nodes of ``live`` that pass it a cotangent (the edges of
+    :func:`_reverse`: no cotangent leaves a comparison, a floor, a leaf or a
+    where's condition, and none reaches a constant)."""
+    consumers = {i: [] for i in live}
+    for c in live:
+        node = program.nodes[c]
+        if node[0] in ("input", "param", "gather") or node[0] in _NO_COTANGENT:
+            continue
+        for j in dict.fromkeys(node[1:]):  # a square names its operand twice
+            if program.nodes[j][0] not in _NO_COTANGENT:
+                consumers[j].append(c)
+    return consumers
+
+
+def _gating(program: Program, live, seed_ids) -> dict:
+    """The reverse sweep's structure for the large tier: which nodes a
+    cotangent reaches from ``seed_ids``, each one's immediate dominator in
+    the flow of cotangents (``root``, -1, above the seeds: every path from a
+    seed to the node passes its dominator, so the node's cotangent is zero
+    where its dominator's is), the gated nodes (whose cotangent a select
+    gives: it is often exactly zero) and each node's level: the nearest gated
+    dominator, in whose region the node's cotangent is complete and pulled
+    back."""
+    consumers = _flow(program, live)
+    reached, stack = set(seed_ids), list(seed_ids)
+    feeds = {i: [] for i in live}
+    for j, cs in consumers.items():
+        for c in cs:
+            feeds[c].append(j)
+    while stack:
+        for j in feeds[stack.pop()]:
+            if j not in reached:
+                reached.add(j)
+                stack.append(j)
+    root = -1
+    idom, depth = {}, {root: 0}
+
+    def common(a, b):
+        while a != b:
+            if depth[a] < depth[b]:
+                a, b = b, a
+            a = idom[a]
+        return a
+
+    for j in sorted(reached, reverse=True):  # ids are topological: consumers first
+        preds = [c for c in consumers[j] if c in reached] + ([root] if j in seed_ids else [])
+        d = preds[0]
+        for c in preds[1:]:
+            d = common(d, c)
+        idom[j], depth[j] = d, depth[d] + 1
+    size = dict.fromkeys([root, *reached], 1)
+    for j in sorted(reached):
+        size[idom[j]] += size[j]
+    head, nesting, gated = {root: root}, {root: 0}, set()
+    for j in sorted(reached, reverse=True):
+        parent = head[idom[j]]
+        if (j not in seed_ids and program.nodes[j][0] not in ("input", "param", "gather")
+                and size[j] >= GATE_MIN_NODES and nesting[parent] < GATE_DEPTH
+                and all(program.nodes[c][0] in _SELECTS for c in consumers[j])):
+            gated.add(j)
+            head[j], nesting[j] = j, nesting[parent] + 1
+        else:
+            head[j] = parent
+    level = {j: head[idom[j]] for j in reached}
+    return {"root": root, "reached": reached, "consumers": consumers, "gated": gated,
+            "level": level}
+
+
+class _NamedOps(_CppOps):
+    """:func:`_pullback` as C++ with temporaries named from one counter (the
+    large tier's regions are nested scopes), its operations counted in
+    ``n``. A comparison found in ``bits`` (keyed by operation and operands)
+    is the kept outcome there, not a comparison of values."""
+
+    def __init__(self):
+        super().__init__([])
+        self.temporaries = 0
+        self.n = 0
+        self.leaves = 0  # parameter adds
+        self.bits = {}
+
+    def let(self, a):
+        self.temporaries += 1
+        self.lines.append(f"const float t{self.temporaries} = {_s(a)};")
+        return f"t{self.temporaries}"
+
+    def lt(self, a, b):
+        self.n += 1
+        return self.bits.get(("lt", a, b)) or _CppOps.lt(a, b)
+
+    def gt(self, a, b):
+        self.n += 1
+        return self.bits.get(("gt", a, b)) or _CppOps.gt(a, b)
+
+
+def _counted(name):
+    base = getattr(_CppOps, name)
+
+    def op(self, *args):
+        self.n += 1
+        return base(*args)
+
+    return op
+
+
+for _name in ("_neg", "_mul", "_div", "_sub", "sin", "cos", "select"):
+    setattr(_NamedOps, _name, _counted(_name))
+
+
+def _values_needed(program: Program, j: int) -> tuple:
+    """The forward values the pullback of node ``j`` reads (a select reads
+    its kept comparisons instead, a gather its row)."""
+    node = program.nodes[j]
+    op = node[0]
+    if op in ("input", "const", "param", "add", "sub", "neg") or op in _SELECTS:
+        return ()
+    if op in ("gather", "sqrt"):
+        return (j,)
+    if op == "div":
+        return (node[2], j)
+    return tuple(node[1:])  # mul, sin, cos
+
+
+def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str], dict, dict]:
+    """The body of one large-tier adjoint, for one or two points through the
+    same program. ``seeds`` are (node id, expression) pairs, ``points`` are
+    (suffix, input names) pairs, and ``leaf(lines, i, node, totals, rows)``
+    writes the add of a parameter's or a gather's cotangent (one total per
+    point; ``rows`` the gather's row names). Cotangents are ``a<id><suffix>``
+    and the points' ``g{x,y,z}<suffix>``.
+
+    The forward runs once, in full, and keeps the outcome of every select's
+    comparisons as two bits of the words ``w<k><suffix>``, so that the
+    reverse sweep through the selects (a union's min and where chains) reads
+    no float value. The reverse sweep runs region by region (``_gating``):
+    a gated node's region runs only where some lane of the warp has a
+    cotangent there that is not zero (``sdf_any``), and first recomputes the
+    few forward values its own pullbacks read (a primitive's), in names that
+    shadow the outer ones; so few values stay live across the sweep.
+    Returns the lines, the forward names, and counts: ``reverse``, the
+    operations of the reverse sweep down the costliest path of regions,
+    ``recompute``, the forward operations the regions on that path redo, and
+    ``slots_added``, the parameter adds on it."""
+    nodes = program.nodes
+    g = _gating(program, live, [i for i, _ in seeds])
+    root, level, gated = g["root"], g["level"], g["gated"]
+    reached, consumers = g["reached"], g["consumers"]
+    members = {}
+    for j in reached:
+        members.setdefault(level[j], []).append(j)
+    # A sum that takes a cotangent inside a nested region is declared, zero,
+    # in the region where it is complete.
+    preset = {}
+    for i in reached:
+        if nodes[i][0] not in ("input", "const") and any(
+                (c if c in gated else level[c]) != level[i]
+                for c in consumers[i] if c in reached):
+            preset.setdefault(level[i], []).append(i)
+    kept = {j: k for k, j in enumerate(sorted(j for j in reached if nodes[j][0] in _SELECTS))}
+    words = (len(kept) + 15) // 16
+    suffixes = [sfx for sfx, _ in points]
+
+    def bit(j, which, sfx):
+        k = kept[j]
+        return f"((w{k // 16}{sfx} >> {2 * (k % 16) + which}) & 1u)"
+
+    def record(sfx):
+        def lines_after(i, names):
+            if i not in kept:
+                return []
+            node, k = nodes[i], kept[i]
+            word, one, two = f"w{k // 16}{sfx}", 1 << 2 * (k % 16), 2 << 2 * (k % 16)
+            if node[0] == "where":
+                return [f"{word} |= {names[node[1]]} ? {one}u : 0u;"]
+            x, y = (names[node[1]], "0.0f") if node[0] == "abs" else (names[node[1]], names[node[2]])
+            return [f"{word} |= ({x} < {y} ? {one}u : 0u) | ({x} > {y} ? {two}u : 0u);"]
+        return lines_after
+
+    be = _NamedOps()
+    declared = set()
+
+    def add(i, exprs, lines):
+        node = nodes[i]
+        for sfx, e in zip(suffixes, exprs):
+            if node[0] == "input":
+                lines.append(f"g{'xyz'[node[1]]}{sfx} += {_s(e)};")
+            elif i in declared:
+                lines.append(f"a{i}{sfx} += {_s(e)};")
+            else:
+                lines.append(f"float a{i}{sfx} = {_s(e)};")
+        if node[0] != "input":
+            be.n += i in declared
+            declared.add(i)
+
+    def pull(j, names, sfx, total, want):
+        """The pullback of node j for one point."""
+        node = nodes[j]
+        op = node[0]
+        out = names.get(j, "?")
+        if op in ("min", "max"):
+            be.bits = {("lt", "@a", "@b"): bit(j, 0, sfx), ("gt", "@a", "@b"): bit(j, 1, sfx),
+                       ("lt", "@b", "@a"): bit(j, 1, sfx), ("gt", "@b", "@a"): bit(j, 0, sfx)}
+            return _pullback(op, total, out, ["@a", "@b"], be, want)
+        if op == "abs":
+            be.bits = {("gt", "@a", 0.0): bit(j, 0, sfx), ("lt", "@a", 0.0): bit(j, 1, sfx)}
+            return _pullback(op, total, out, ["@a"], be, want)
+        if op == "where":
+            return _pullback(op, total, out, [bit(j, 0, sfx), "@b", "@c"], be, want)
+        args = [names.get(d, "?") for d in node[1:]]
+        if op == "mul" and node[1] == node[2]:
+            return (be.mul(2.0, be.mul(total, args[0])), None)
+        return _pullback(op, total, out, args, be, want)
+
+    def region(h):
+        """(lines, forward names of the first point, path counts) of the
+        region of gated node ``h`` (``root``: the whole function)."""
+        lines = []
+        outer = h == root
+        order = sorted((j for j in members.get(h, []) if nodes[j][0] != "const"), reverse=True)
+        if not outer:
+            order.insert(0, h)
+        if outer:
+            fwd = sorted(live)
+            if words:
+                lines += [f"unsigned {', '.join(f'w{k}{sfx} = 0u' for k in range(words))};"
+                          for sfx in suffixes]
+        else:
+            need, stack = set(), []
+            for j in order:
+                if j == h or j not in gated:
+                    stack.extend(_values_needed(program, j))
+            while stack:
+                j = stack.pop()
+                if j not in need:
+                    need.add(j)
+                    stack.extend(_deps(nodes[j]))
+            fwd = sorted(need)
+        recompute = sum(nodes[j][0] not in ("const", "input", "param") for j in fwd)
+        names = []
+        for sfx, inputs in points:
+            # A region reads the parameters through P, which the compiler
+            # cannot prove equal to the outer forward's SDF_P: so it cannot
+            # merge the recomputed values with the outer ones and keep those
+            # live across the sweep instead.
+            body, nm = _emit_body(program, fwd, keep_rows=True, suffix=sfx, inputs=inputs,
+                                  params="SDF_P" if outer else "P",
+                                  record=record(sfx) if outer else None)
+            lines += body
+            names.append(nm)
+        be.lines = lines
+        for i in preset.get(h, []):
+            for sfx in suffixes:
+                lines.append(f"float a{i}{sfx} = 0.0f;")
+            declared.add(i)
+        if outer:
+            for i, e in seeds:
+                add(i, [e] * len(points), lines)
+        n0, leaves0, below, below_leaves, paths = be.n, be.leaves, 0, 0, [(0, 0, 0)]
+        for j in order:
+            if j not in declared:
+                continue  # no cotangent reaches it
+            node = nodes[j]
+            if j != h and j in gated:
+                n1, l1 = be.n, be.leaves
+                inner, _, path = region(j)
+                below += be.n - n1
+                below_leaves += be.leaves - l1
+                paths.append(path)
+                be.lines = lines
+                test = " || ".join(f"a{j}{sfx} != 0.0f" for sfx in suffixes)
+                lines.append(f"if (sdf_any({test})) {{")
+                lines += [f"  {ln}" for ln in inner]
+                lines.append("}")
+                continue
+            totals = [f"a{j}{sfx}" for sfx in suffixes]
+            if node[0] in ("param", "gather"):
+                be.n += 1
+                be.leaves += 1
+                leaf(lines, j, node, totals, [f"k{j}{sfx}" for sfx in suffixes])
+                continue
+            deps = node[1:]
+            want = [nodes[d][0] not in _NO_COTANGENT for d in deps]
+            pulled = [pull(j, nm, sfx, total, want)
+                      for nm, sfx, total in zip(names, suffixes, totals)]
+            for k, d in enumerate(deps):
+                if want[k] and pulled[0][k] is not None:
+                    add(d, [q[k] for q in pulled], lines)
+        reverse, redo, added = max(paths)
+        return lines, names[0], (be.n - n0 - below + reverse,
+                                 (0 if outer else recompute) + redo,
+                                 be.leaves - leaves0 - below_leaves + added)
+
+    lines, names, (reverse, recompute, added) = region(root)
+    return lines, names, {"reverse": reverse, "recompute": recompute, "slots_added": added}
+
+
+@functools.lru_cache(maxsize=4)
+def _large_parts(program: Program) -> dict:
+    """The large tier's three adjoints: name -> (lines, forward names, counts)."""
+    point = [("", ("px", "py", "pz"))]
+    pair = [("a", ("pxa", "pya", "pza")), ("b", ("pxb", "pyb", "pzb"))]
+
+    def row(node, k):
+        _, base, _, channel, _ = node
+        return f"{k} >= 0 ? {base} + 3 * {k} + {channel} : -1"
+
+    def scaled(lines, i, node, totals, rows):
+        """The distance's: g times the unit cotangent."""
+        if node[0] == "param":
+            lines.append(f"sdf_acc(gP, {node[1]}, g * {totals[0]});")
+        else:
+            lines.append(f"sdf_acc_at(gP, {row(node, rows[0])}, g * {totals[0]});")
+
+    def paired(lines, i, node, totals, rows):
+        """A pair of taps': g times the difference of their unit cotangents,
+        taken before the scaling where both read the same slot."""
+        ta, tb = totals
+        if node[0] == "param":
+            lines.append(f"sdf_acc(gP, {node[1]}, g * ({ta} - {tb}));")
+            return
+        ka, kb = rows
+        lines.append(f"sdf_acc_at(gP, {row(node, ka)}, {ka} == {kb} ? g * ({ta} - {tb}) "
+                     f": g * {ta});")
+        lines.append(f"sdf_acc_at(gP, {kb} != {ka} ? ({row(node, kb)}) : -1, -(g * {tb}));")
+
+    def seeded(lines, i, node, totals, rows):
+        """The colour-and-distance adjoint's: the cotangent as it is."""
+        if node[0] == "param":
+            lines.append(f"sdf_acc(gP, {node[1]}, {totals[0]});")
+        else:
+            lines.append(f"sdf_acc_at(gP, {row(node, rows[0])}, {totals[0]});")
+
+    seeds = [*zip(program.color, ("gr", "gg", "gb")), (program.dist, "gd")]
+    return {
+        "dist": _emit_gated(program, program.dist_live, [(program.dist, "u")], point, scaled),
+        "pair": _emit_gated(program, program.dist_live, [(program.dist, "u")], pair, paired),
+        "eval": _emit_gated(program, program.eval_live, seeds, point, seeded),
+    }
+
+
+def emit_large_vjp_cpp(program: Program) -> str:
+    """The adjoints of the large-scene tier as C++ for host and device. They
+    add every parameter cotangent straight into ``gP``, a row of sums that
+    ``sdf_acc`` / ``sdf_acc_at`` (``csrc/raymarch_sums.cuh``) fill: on the
+    card the warp's row, its lanes' values summed in a fixed order and
+    exact zeros skipped. No array of the scene's size is declared.
+
+    * ``sdf_dist_vjp(p, P, u, g, &gp, gP)``: the distance at p; ``*gp`` is
+      ``u`` times its gradient in the point and ``g * u`` times its gradient
+      in the parameters is added to ``gP``. ``u`` is the unit seed (1, or 0
+      for a lane that adds nothing), so the point's gradient does not wait
+      for ``g``, as in the small tier's unit form.
+    * ``sdf_dist_vjp_pair(pa, pb, P, u, g, &ga, &gb, gP)``: the same for two
+      points (a pair of normal taps), adding ``g`` times the difference of
+      their unit gradients, taken before the scaling.
+    * ``sdf_eval_vjp``: as in the small tier (cotangents of colour and
+      distance in, the point's cotangent out), adding to ``gP``.
+
+    Each runs its reverse sweep region by region (:func:`_emit_gated`) and is
+    a function of its own (``SDF_SPARSE``: not inlined on the card), so that
+    its source is compiled once however many call sites it has."""
+    parts = _large_parts(program)
+    head = "SDF_SPARSE"
+    dist_lines, dist_names, _ = parts["dist"]
+    pair_lines, _, _ = parts["pair"]
+    eval_lines, eval_names, _ = parts["eval"]
+    slots = {program.nodes[i][1] for i in program.dist_live if program.nodes[i][0] == "param"}
+    slots |= {program.nodes[i][1] + 3 * t + program.nodes[i][3] for i in program.dist_live
+              if program.nodes[i][0] == "gather" for t in range(program.nodes[i][2])}
+    out = [
+        "// Scene adjoint emitted by sdfkit_tpu_torch.sdf.compile: the large-scene tier.",
+        "#define SDF_LARGE 1",
+        f"#define SDF_N_PARAMS {program.n_params}",
+        f"#define SDF_N_DIST_SLOTS {len(slots)}",
+        '#include "raymarch_sums.cuh"',
+        f"{head} float sdf_dist_vjp(float px, float py, float pz, const float* __restrict__ P,",
+        "                          float u, float g, float* gpx, float* gpy, float* gpz,",
+        "                          float* gP) {",
+        "  float gx = 0.0f, gy = 0.0f, gz = 0.0f;",
+        *(f"  {ln}" for ln in dist_lines),
+        "  *gpx = gx;", "  *gpy = gy;", "  *gpz = gz;",
+        f"  return {dist_names[program.dist]};",
+        "}",
+        "",
+        f"{head} void sdf_dist_vjp_pair(float pxa, float pya, float pza, float pxb, float pyb,",
+        "                               float pzb, const float* __restrict__ P, float u, float g,",
+        "                               float* gpxa, float* gpya, float* gpza, float* gpxb,",
+        "                               float* gpyb, float* gpzb, float* gP) {",
+        "  float gxa = 0.0f, gya = 0.0f, gza = 0.0f, gxb = 0.0f, gyb = 0.0f, gzb = 0.0f;",
+        *(f"  {ln}" for ln in pair_lines),
+        "  *gpxa = gxa;", "  *gpya = gya;", "  *gpza = gza;",
+        "  *gpxb = gxb;", "  *gpyb = gyb;", "  *gpzb = gzb;",
+        "}",
+        "",
+        f"{head} float sdf_eval_vjp(float px, float py, float pz, const float* __restrict__ P,",
+        "                          float gr, float gg, float gb, float gd,",
+        "                          float* gpx, float* gpy, float* gpz, float* gP) {",
+        "  float gx = 0.0f, gy = 0.0f, gz = 0.0f;",
+        *(f"  {ln}" for ln in eval_lines),
+        "  *gpx = gx;", "  *gpy = gy;", "  *gpz = gz;",
+        f"  return {eval_names[program.dist]};",
+        "}",
+        "",
+    ]
+    return "\n".join(out)
+
+
+__all__ = ["Program", "compile_scene", "emit_cpp", "emit_large_vjp_cpp", "emit_vjp_cpp",
+           "flat_params", "large_tier", "operation_counts", "run", "run_unit", "run_vjp",
+           "trace"]

@@ -65,9 +65,9 @@ extern "C" void raymarch_fwd_host(const float* P, const float* view19, int width
 """
 
 
-def _gxx(src: pathlib.Path, so: pathlib.Path):
+def _gxx(src: pathlib.Path, so: pathlib.Path, opt: str = "-O2"):
     subprocess.run(
-        ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", "-I", str(CSRC), "-o", str(so), str(src)],
+        ["g++", opt, "-std=c++17", "-shared", "-fPIC", "-I", str(CSRC), "-o", str(so), str(src)],
         check=True, capture_output=True, timeout=120,
     )
     return ctypes.CDLL(str(so))

@@ -30,6 +30,18 @@ from test_torch_kernel_host import LOOP, SHIM, _gxx
 LOOP_BWD = """
 #include "raymarch_bwd.cuh"
 
+// A pixel's or a ray's pullback in the scene's tier: the large tier adds to
+// the thread's sums as the small tier's arrays do (raymarch_sums.cuh).
+#if SDF_LARGE
+#define PULL_PIXEL(C, ...) pullback_pixel_large<C>(__VA_ARGS__)
+#define PULL_RAY(C, ...) pullback_ray_large<C>(__VA_ARGS__)
+#define ACTIVE true,
+#else
+#define PULL_PIXEL(C, ...) pullback_pixel<C>(__VA_ARGS__)
+#define PULL_RAY(C, ...) pullback_ray<C>(__VA_ARGS__)
+#define ACTIVE
+#endif
+
 extern "C" void raymarch_bwd_host(const float* P, const float* view19, int width,
                                   int height, int pix0, int local_npix, int iters,
                                   float depth0, float near_, float far_, int want_color,
@@ -39,8 +51,8 @@ extern "C" void raymarch_bwd_host(const float* P, const float* view19, int width
   for (int j = 0; j < n_out; ++j) out[j] = 0.0;
   for (int i = 0; i < local_npix; ++i) {
     float acc[SDF_N_PARAMS + 19] = {0.0f};
-    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS);
-    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, acc + SDF_N_PARAMS);
+    if (want_color) PULL_PIXEL(true, pix0 + i, ACTIVE P, view19, a, grad + 3 * i, acc, acc + SDF_N_PARAMS);
+    else PULL_PIXEL(false, pix0 + i, ACTIVE P, view19, a, grad + i, acc, acc + SDF_N_PARAMS);
     for (int j = 0; j < n_out; ++j) out[j] += (double)acc[j];
   }
 }
@@ -69,8 +81,8 @@ extern "C" void raymarch_bwd_store_host(const float* P, const float* view19, int
     float acc[SDF_N_PARAMS + 19] = {0.0f};
     const StoreRows rows{store + i, local_npix};
     float* gV = acc + SDF_N_PARAMS;
-    if (want_color) pullback_pixel<true>(pix0 + i, P, view19, a, grad + 3 * i, acc, gV, rows);
-    else pullback_pixel<false>(pix0 + i, P, view19, a, grad + i, acc, gV, rows);
+    if (want_color) PULL_PIXEL(true, pix0 + i, ACTIVE P, view19, a, grad + 3 * i, acc, gV, rows);
+    else PULL_PIXEL(false, pix0 + i, ACTIVE P, view19, a, grad + i, acc, gV, rows);
     for (int j = 0; j < n_out; ++j) out[j] += (double)acc[j];
   }
 }
@@ -91,8 +103,9 @@ extern "C" void raymarch_rays_fwd_host(const float* P, const float* ox, const fl
   }
 }
 
-// The ray-batch kernel's loop: the tangent march, a ray flagged as a miss
-// skipped; depths (NaN for a skipped ray) where asked for.
+// The ray-batch kernel's loop: the tangent march (in the large tier the
+// replay and the sweep), a ray flagged as a miss skipped; depths (NaN for a
+// skipped ray) where asked for.
 extern "C" void raymarch_rays_bwd_host(const float* P, const float* ox, const float* oy,
                                        const float* oz, const float* dx, const float* dy,
                                        const float* dz, int n, int iters, float depth0,
@@ -107,8 +120,14 @@ extern "C" void raymarch_rays_bwd_host(const float* P, const float* ox, const fl
     RayGrad gr = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
     float depth = NAN;
     if (hit == nullptr || hit[i]) {
+#if SDF_LARGE
+      const float* g = grad + (want_color ? 3 : 1) * i;
+      if (want_color) pullback_ray_large<true>(r, true, P, a, g, acc, gr, ReplayRows(), &depth);
+      else pullback_ray_large<false>(r, true, P, a, g, acc, gr, ReplayRows(), &depth);
+#else
       if (want_color) tangent_pullback_ray<true>(r, P, a, grad + 3 * i, acc, gr, depth);
       else tangent_pullback_ray<false>(r, P, a, grad + i, acc, gr, depth);
+#endif
     }
     const float g6[6] = {gr.ox, gr.oy, gr.oz, gr.dx, gr.dy, gr.dz};
     for (int k = 0; k < 6; ++k) g_rays[(long long)k * n + i] = g6[k];
@@ -130,8 +149,8 @@ extern "C" void raymarch_rays_bwd_replay_host(const float* P, const float* ox, c
     const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
     float acc[SDF_N_PARAMS + 1] = {0.0f};
     RayGrad gr;
-    if (want_color) pullback_ray<true>(r, P, a, grad + 3 * i, acc, gr);
-    else pullback_ray<false>(r, P, a, grad + i, acc, gr);
+    if (want_color) PULL_RAY(true, r, ACTIVE P, a, grad + 3 * i, acc, gr);
+    else PULL_RAY(false, r, ACTIVE P, a, grad + i, acc, gr);
     const float g6[6] = {gr.ox, gr.oy, gr.oz, gr.dx, gr.dy, gr.dz};
     for (int k = 0; k < 6; ++k) g_rays[(long long)k * n + i] = g6[k];
     for (int j = 0; j < SDF_N_PARAMS; ++j) out[j] += (double)acc[j];
@@ -167,7 +186,10 @@ def host_library(build_dir, program, extra=""):
         lib = ctypes.CDLL(str(so))
     else:
         src.write_text(unit)
-        lib = _gxx(src, so)
+        # A scene of the large tier compiles unoptimised: g++ -O2 took 43 s
+        # on the 200-sphere adjoint and -O0 7 s, and x86-64's SSE arithmetic
+        # (no FMA in its base set) gives the same floats either way.
+        lib = _gxx(src, so, "-O0" if program.large else "-O2")
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.restype = None

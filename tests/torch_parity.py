@@ -20,6 +20,7 @@ import sdfkit_tpu as sk
 import sdfkit_tpu_torch as st
 from sdfkit_tpu.utils.v3 import V3 as JV
 from sdfkit_tpu_torch import ops
+from sdfkit_tpu_torch.scenes import balanced_union, union_grid_scene, union_grid_table
 from sdfkit_tpu_torch.utils.v3 import V3 as TV
 
 PALETTE = [[0.9, 0.2, 0.2], [0.2, 0.9, 0.2], [0.2, 0.2, 0.9]]
@@ -101,6 +102,16 @@ def j_index(ix, iy, iz):
     return ix * 3.0
 
 
+def j_union_grid(n):
+    """The port's ``union_grid_scene`` in the JAX package's DSL: the same
+    table of spheres, the same pairing (``_union_tree``'s)."""
+    t = union_grid_table(n)
+    return balanced_union([
+        sk.sphere(float(r), color=tuple(map(float, c))).translate(*map(float, o))
+        for r, c, o in zip(t["radius"], t["color"], t["offset"])
+    ])
+
+
 def t_index(ix, iy, iz):
     return ix * 3.0
 
@@ -153,17 +164,26 @@ def _scenes(m, lib):
             "x", (1.0,), cb["palette"][:2], index_fn=cb["index"], combine="multiply"),
         "sphere_repeat": lambda: (m.sphere(0.5).repeat_xy(1.125, 1.125, cb["bench"])
                                   | m.box(0.25).repeat_xz(1.5, 1.5, cb["bench"])),
+        # The backward's large-scene tier: 200 spheres (1,400 slots) and 24
+        # (168), past its threshold.
+        "union_grid": lambda: cb["union_grid"](200),
+        "union_grid_24": lambda: cb["union_grid"](24),
     }
 
 
 _J = dict(cell=j_cell_color, bench=j_bench_color, checker=j_checker, shear=j_shear,
           out=j_out, warp_in=j_warp_in, warp_out=j_warp_out, solid=j_solid,
-          index=j_index, palette=jnp.asarray(PALETTE, jnp.float32))
+          index=j_index, palette=jnp.asarray(PALETTE, jnp.float32), union_grid=j_union_grid)
 _T = dict(cell=t_cell_color, bench=t_bench_color, checker=t_checker, shear=t_shear,
           out=t_out, warp_in=t_warp_in, warp_out=t_warp_out, solid=t_solid,
-          index=t_index, palette=np.asarray(PALETTE, np.float32))
+          index=t_index, palette=np.asarray(PALETTE, np.float32), union_grid=union_grid_scene)
 
-NAMES = tuple(_scenes(sk, _J))
+# The scenes of the large tier are held to the JAX package in
+# tests/test_torch_bigscene.py, at the sizes this CPU affords (the JAX side
+# runs op by op there: its jit takes minutes on a tree of this size). NAMES
+# is every other scene, which the per-scene tests walk.
+LARGE_NAMES = ("union_grid", "union_grid_24")
+NAMES = tuple(name for name in _scenes(sk, _J) if name not in LARGE_NAMES)
 
 
 def build(name: str, perturb_seed: int | None = None):

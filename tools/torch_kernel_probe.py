@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
-    python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME]
+    python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME] [--scenes NAME ...]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and for one sphere,
-and prints, one JSON object per line with ``"probe"`` naming it:
+or for the scenes ``--scenes`` names (``union_grid`` is the 200-sphere union
+of ``scenes.union_grid_scene``, 1,400 parameter slots, built in a package
+that predates it from this checkout's table with that package's DSL), and
+prints, one JSON object per line with ``"probe"`` naming it:
 
-* ``build``: per library the registers, stack and spills ``ptxas -v``
-  reported, the resident blocks per SM the occupancy calculator gives, and
+* ``program``: per scene its parameter slots and operation counts;
+* ``build``: per library (of every scene but one sphere) the nvcc seconds,
+  the registers, stack and spills ``ptxas -v`` reported, the resident blocks per SM the occupancy calculator gives, and
   from ``cuobjdump -sass`` the instructions of each kernel and of each of its
   loops with their square roots, reciprocals and division range checks;
 * ``listing``: the SASS of the store-fed backward's sweep loop, per package;
@@ -40,6 +44,20 @@ and prints, one JSON object per line with ``"probe"`` naming it:
   them, and without), and the forwards (image, with store, ray-batch with
   and without hit flags, ray-batch on the shuffled rays) of every package.
 
+``--tiers N ...`` does only this: for the union of N spheres
+(``scenes.union_grid_scene(N)``, 7 N slots) at each N, the image backward
+built in both tiers of the scene compiler (``LARGE_SCENE_SLOTS`` set above
+and below the scene's slots) and timed at 1920x1080x40 from the default
+camera, in turns, one ``tier`` line per scene and tier: the measurement the
+tier threshold is chosen from.
+
+``--budgets K ...`` does only this: the image backward and the store-fed
+backward of the 200-sphere union built with the large tier's register budget
+set for K resident blocks an SM in both builds (``kBwdLargeMinBlocks`` in
+``csrc/raymarch_reduce.cuh``, edited in a copy of ``csrc/`` for each K), and
+timed at 1920x1080x40 in turns, one ``budget`` line per K: the measurement
+the constant is chosen from.
+
 ``--against DIR`` (repeatable) names a directory that holds another
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
 ``git archive <commit> sdfkit_tpu_torch | tar -x -C DIR``); each is imported
@@ -52,6 +70,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import ctypes
 import hashlib
 import importlib
 import inspect
@@ -107,6 +126,12 @@ def main() -> int:
     ap.add_argument("--against", action="append", default=[],
                     help="another package root to probe beside this checkout")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--scenes", nargs="+", default=["sphere_repeat", "one_sphere"],
+                    choices=["sphere_repeat", "one_sphere", "union_grid"])
+    ap.add_argument("--tiers", nargs="+", type=int, default=[],
+                    help="sphere counts of union_grid_scene to time in both backward tiers")
+    ap.add_argument("--budgets", nargs="+", type=int, default=[],
+                    help="resident blocks an SM to build the large tier's backwards for")
     args = ap.parse_args()
 
     import numpy as np
@@ -161,10 +186,29 @@ def main() -> int:
     time_sleep()
     sleep_ms = time_sleep()
 
-    view = this.st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    if args.tiers:
+        return tier_sweep(this, args.tiers, say, events)
+    if args.budgets:
+        return budget_sweep(this, args.budgets, say, events)
+
+    # SphereRepeat and the sphere from bench.py's camera; the union grid from
+    # the default camera, whose frame it fills.
+    views = {"sphere_repeat": this.st.look_at((-2.0, 2.0, 4.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)),
+             "union_grid": this.st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))}
     cfg = this.st.RenderConfig(WIDTH, HEIGHT)
-    scenes = {label: {"sphere_repeat": p.scenes.sphere_repeat_scene(),
-                      "one_sphere": p.st.sphere(0.5)} for label, p in packages.items()}
+    def union_grid(p):
+        """The 200-sphere union in package ``p``, from this checkout's table."""
+        if hasattr(p.scenes, "union_grid_scene"):
+            return p.scenes.union_grid_scene()
+        t = this.scenes.union_grid_table()
+        return this.scenes.balanced_union([
+            p.st.sphere(float(r), color=tuple(map(float, c))).translate(*map(float, o))
+            for r, c, o in zip(t["radius"], t["color"], t["offset"])])
+
+    makers = {"sphere_repeat": lambda p: p.scenes.sphere_repeat_scene(),
+              "one_sphere": lambda p: p.st.sphere(0.5), "union_grid": union_grid}
+    scenes = {label: {name: makers[name](p) for name in args.scenes}
+              for label, p in packages.items()}
     programs = {label: {name: p.compile.compile_scene(expr) for name, expr in scenes[label].items()}
                 for label, p in packages.items()}
 
@@ -178,14 +222,14 @@ def main() -> int:
 
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip(jobs, pool.map(load, jobs)))
-    hero = programs["this"]["sphere_repeat"]
-    roots = sum(hero.nodes[i][0] == "sqrt" for i in hero.dist_live)
-    say("program", operations=this.compile.operation_counts(hero),
-        square_roots_per_distance=roots)
+    for name, prog in programs["this"].items():
+        say("program", scene=name, parameter_slots=prog.n_params,
+            operations=this.compile.operation_counts(prog),
+            square_roots_per_distance=sum(prog.nodes[i][0] == "sqrt" for i in prog.dist_live))
     for (label, family, name), lib in libs.items():
-        if name != "sphere_repeat":
+        if name == "one_sphere":
             continue
-        say("build", package=label, family=family, nvcc_seconds=lib.build_seconds,
+        say("build", package=label, scene=name, family=family, nvcc_seconds=lib.build_seconds,
             registers=lib.registers, local_memory=lib.local_memory,
             resident_blocks_per_sm={"rgb": lib.resident(1), "depth": lib.resident(0)},
             sass=sass.library_sass(lib.path))
@@ -214,7 +258,7 @@ def main() -> int:
 
     for (label, family, name), lib in libs.items():
         if name == "sphere_repeat" and family == "bwd_store":
-            say("listing", package=label, family=family, sweep=sweep_listing(lib))
+            say("listing", package=label, scene=name, family=family, sweep=sweep_listing(lib))
 
     def lib_of(label, family, name):
         return libs[(label, family, name)]
@@ -290,13 +334,15 @@ def main() -> int:
 
     with torch.no_grad():
         rk = this.rk
-        ro, rd = this.camera.camera_rays(WIDTH, HEIGHT, view, cfg.vfov_degrees, cfg.near, cfg.far)
-        rays = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
         gen = torch.Generator(device="cuda").manual_seed(17)
         order = torch.randperm(WIDTH * HEIGHT, device="cuda", generator=gen)
-        shuffled = [r[order].contiguous() for r in rays]
-        v19 = rk.view19(view, cfg)
         for name in programs["this"]:
+            view = views.get(name, views["sphere_repeat"])
+            ro, rd = this.camera.camera_rays(WIDTH, HEIGHT, view, cfg.vfov_degrees, cfg.near,
+                                             cfg.far)
+            rays = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+            shuffled = [r[order].contiguous() for r in rays]
+            v19 = rk.view19(view, cfg)
             params = this.compile.flat_params(scenes["this"][name]).contiguous()
             for label, p in packages.items():
                 other = p.compile.flat_params(scenes[label][name]).contiguous()
@@ -401,6 +447,123 @@ def main() -> int:
                 say("time", scene=name, variant=k, ms=float(np.mean(v)), rounds=v)
             del store, outputs
             torch.cuda.empty_cache()
+    return 0
+
+
+def tier_sweep(pkg, counts, say, events) -> int:
+    """The image backward of ``union_grid_scene(n)`` for each n in both
+    tiers, built in parallel, then timed in turns (there and back)."""
+    import torch
+
+    comp = pkg.compile
+    programs = {}
+    for n in counts:
+        expr = pkg.scenes.union_grid_scene(n)
+        for large, slots in ((False, 10**9), (True, 0)):
+            comp.LARGE_SCENE_SLOTS = slots
+            programs[(n, large)] = (expr, comp.compile_scene(expr))
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        libs = dict(zip(programs, pool.map(lambda k: pkg.build.load_family(programs[k][1], "bwd"),
+                                           programs)))
+    view = pkg.st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = pkg.st.RenderConfig(WIDTH, HEIGHT)
+    v19 = pkg.rk.view19(view, cfg)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.rand((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
+    runs = {}
+    for key, (expr, _) in programs.items():
+        params = pkg.compile.flat_params(expr).detach().contiguous()
+        runs[key] = (lambda lib=libs[key], params=params:
+                     pkg.rk.launch_bwd(lib, params, v19, cfg, True, cot))
+    times = {k: [] for k in runs}
+    with torch.no_grad():
+        for k in [*runs, *reversed(runs)]:
+            times[k].append(events(runs[k]))
+        for (n, large), lib in libs.items():
+            same = None
+            if large:
+                small, big = runs[(n, False)](), runs[(n, True)]()
+                same = float((small - big).abs().max() / small.abs().max())
+            say("tier", spheres=n, parameter_slots=programs[(n, large)][1].n_params,
+                tier="large" if large else "small", nvcc_seconds=lib.build_seconds,
+                registers=lib.registers, local_memory=lib.local_memory,
+                resident_blocks_per_sm=lib.resident(1), ms=sum(times[(n, large)]) / 2,
+                rounds=times[(n, large)], large_vs_small_of_largest_entry=same)
+    return 0
+
+
+def budget_sweep(pkg, budgets, say, events) -> int:
+    """The large tier's image backward and store-fed backward of the
+    200-sphere union at each register budget (resident blocks an SM), each
+    built from a copy of ``csrc/`` with the constant edited, into a build
+    directory of its own, in parallel; then timed in turns."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    build = pkg.build
+    expr = pkg.scenes.union_grid_scene()
+    prog = pkg.compile.compile_scene(expr)
+    work = pathlib.Path(tempfile.mkdtemp(prefix="budgets"))
+    pattern = "constexpr int kBwdLargeMinBlocks = "
+    for k in budgets:  # the same budget for the replay and the store-fed build
+        shutil.copytree(build.CSRC, work / f"csrc{k}")
+        header = work / f"csrc{k}" / "raymarch_reduce.cuh"
+        text = header.read_text()
+        start = text.index(pattern) + len(pattern)
+        header.write_text(text[:start] + str(k) + text[text.index(";", start):])
+
+    def compile_one(job):
+        k, family = job
+        unit = build.translation_unit(prog, family)
+        stem = f"budget{k}_{family}"
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(work / f"csrc{k}"), "-o",
+               str(work / f"{stem}.so"), str(work / f"{stem}.cu")]
+        (work / f"{stem}.cu").write_text(unit)
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(proc.stderr[-4000:])
+        return time.perf_counter() - t0, build._ptxas(proc.stdout + proc.stderr)
+
+    jobs = [(k, f) for k in budgets for f in ("bwd", "bwd_store")]
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        made = dict(zip(jobs, pool.map(compile_one, jobs)))
+    libs = {}
+    for (k, family), (seconds, (registers, local)) in made.items():
+        fam = build.FAMILIES[family]
+        cdll = ctypes.CDLL(str(work / f"budget{k}_{family}.so"))
+        fn = getattr(cdll, fam.prefix + "_launch")
+        fn.restype, fn.argtypes = ctypes.c_int, list(fam.argtypes)
+        rows, resident = cdll.raymarch_bwd_rows, cdll.raymarch_bwd_resident
+        rows.restype, rows.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        resident.restype, resident.argtypes = ctypes.c_int, [ctypes.c_int]
+        libs[(k, family)] = build.KernelLib(launch=fn, path=work / f"budget{k}_{family}.so",
+                                            build_seconds=seconds, registers=registers,
+                                            local_memory=local, rows=rows, store=fam.store,
+                                            resident=resident)
+    view = pkg.st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = pkg.st.RenderConfig(WIDTH, HEIGHT)
+    v19 = pkg.rk.view19(view, cfg)
+    params = pkg.compile.flat_params(expr).detach().contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.rand((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
+    with torch.no_grad():
+        _, store = pkg.rk.launch(build.load(prog, store=True), params, v19, cfg, True,
+                                 want_store=True)
+        runs = {key: (lambda lib=lib, key=key: pkg.rk.launch_bwd(
+                    lib, params, v19, cfg, True, cot, store=store if key[1] == "bwd_store" else None))
+                for key, lib in libs.items()}
+        times = {k: [] for k in runs}
+        for k in [*runs, *reversed(runs)]:
+            times[k].append(events(runs[k]))
+    for (k, family), lib in libs.items():
+        say("budget", blocks=k, family=family, nvcc_seconds=lib.build_seconds,
+            registers=lib.registers, local_memory=lib.local_memory,
+            resident_blocks_per_sm=lib.resident(1), ms=sum(times[(k, family)]) / 2,
+            rounds=times[(k, family)])
+    shutil.rmtree(work, ignore_errors=True)
     return 0
 
 
