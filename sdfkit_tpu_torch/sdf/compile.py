@@ -826,9 +826,9 @@ def emit_vjp_cpp(program: Program) -> str:
 # than PALETTE_UNROLLED_ROWS rows, takes the large tier, which keeps no array
 # whose length is a number of slots (emit_large_vjp_cpp). Measured on an H100
 # with unions of 4 to 24 spheres at 1920x1080x40, the image backward in the
-# small / large tier (tools/torch_kernel_probe.py --tiers): 28 slots 0.447 /
-# 0.482 ms, 56 slots 0.992 / 0.846, 84 slots 1.668 / 1.477, 112 slots 2.620 /
-# 2.261, 168 slots 7.763 / 4.163 (PERF.md).
+# small / large tier (tools/torch_kernel_probe.py --tiers): 28 slots 0.451 /
+# 0.460 ms, 35 slots 0.567 / 0.528, 42 slots 0.685 / 0.644, 56 slots 0.994 /
+# 0.845, 112 slots 2.631 / 2.340, 168 slots 7.804 / 3.770 (PERF.md).
 LARGE_SCENE_SLOTS = 32
 
 # The large tier's adjoint skips a subtree whose cotangent is zero for the

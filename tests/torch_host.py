@@ -186,9 +186,9 @@ def host_library(build_dir, program, extra=""):
         lib = ctypes.CDLL(str(so))
     else:
         src.write_text(unit)
-        # A scene of the large tier compiles unoptimised: g++ -O2 took 43 s
-        # on the 200-sphere adjoint and -O0 7 s, and x86-64's SSE arithmetic
-        # (no FMA in its base set) gives the same floats either way.
+        # A scene of the large tier compiles unoptimised: g++ -O2 is slow on
+        # an adjoint of that size, and x86-64's SSE arithmetic (no FMA in its
+        # base set) gives the same floats either way.
         lib = _gxx(src, so, "-O0" if program.large else "-O2")
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
