@@ -892,6 +892,10 @@ def build_union_grid() -> int:
     from sdfkit_tpu_torch.render.cuda import build
     from sdfkit_tpu_torch.sdf.compile import compile_scene
 
+    # The lowest priority, for this process and its nvcc children: phases
+    # 1-23 run beside the builds, and their host clocks should see as little
+    # of them as the host's cores allow.
+    os.nice(19)
     prog = compile_scene(scenes.union_grid_scene(device="cpu"))
 
     def one(family):
@@ -974,7 +978,6 @@ def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
           f"the 200-sphere frame at {W}x{H}x40 through RayMarcher (backend {marcher.backend}, "
           f"LAUNCHES {fwd_launches}) against the plain path {frame_stats}; {hits} of {W * H} "
           f"pixels hit ({hits / (W * H):.4f})")
-    del plain_frame
 
     # -- the backward: small frame, every leaf and the view -----------------
     def grads(w, h, backend, depth_mode, cot=None):
@@ -1045,6 +1048,7 @@ def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
     ref = (torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad).reshape(-1)
                       for q in st.leaves(grid)]).cpu().numpy(), vv.grad.cpu().numpy())
     full_stats = shares(got, ref)
+    subset_plain_rgb = rgb.detach().cpu().numpy()
     check(full_launches == (1, 1) and close(got, ref, 5e-2),
           f"the 200-sphere gradient at {W}x{H}x40 through RayMarcher (LAUNCHES, BWD_LAUNCHES = "
           f"{full_launches}), its cotangent on {GRID_SUBSET} seeded pixels, against autograd of "
@@ -1092,13 +1096,22 @@ def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
     # -- the store-fed and ray-batch forms, once ------------------------------
     rk.STORE_LAUNCHES = rk.STORE_BWD_LAUNCHES = 0
     with torch.no_grad():
-        _, store = rk.launch(libs["fwd_store"], params, v19, cfg, True, want_store=True)
+        store_frame, store = rk.launch(libs["fwd_store"], params, v19, cfg, True,
+                                       want_store=True)
         fed = rk.launch_bwd(libs["bwd_store"], params, v19, cfg, True, full_cot, store=store)
     torch.cuda.synchronize()
+    store_launches = (rk.STORE_LAUNCHES, rk.STORE_BWD_LAUNCHES)
+    ok, store_stats = distributional(store_frame.view(H, W, 3).cpu().numpy(),
+                                     plain_frame.cpu().numpy())
+    check(store_launches[0] == 1 and ok,
+          f"the forward with store of the 200-sphere scene at {W}x{H}x40 (STORE_LAUNCHES "
+          f"{store_launches[0]}) against the plain path {store_stats}")
+    del store_frame, plain_frame
     fed_share = float((fed - first).abs().max() / first.abs().max())
-    check((rk.STORE_LAUNCHES, rk.STORE_BWD_LAUNCHES) == (1, 1) and fed_share <= 1e-5,
-          f"the store-fed backward of the 200-sphere scene at 1080p against the replay: "
-          f"{fed_share:.3g} of the largest entry (the same depths; at most 1e-5)")
+    check(store_launches[1] == 1 and fed_share <= 1e-5,
+          f"the store-fed backward of the 200-sphere scene at 1080p (STORE_BWD_LAUNCHES "
+          f"{store_launches[1]}) against the replay: {fed_share:.3g} of the largest entry (the "
+          f"same depths; at most 1e-5)")
     steps = work.march_steps_needed(settled_steps(store), cfg.depth_iterations)
     del store
     ro, rd = camera_rays(W, H, v, cfg.vfov_degrees, cfg.near, cfg.far)
@@ -1106,16 +1119,27 @@ def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
                                                ro.z.expand_as(rd.z), rd.x, rd.y, rd.z)]
     rk.RAYS_LAUNCHES = rk.RAYS_BWD_LAUNCHES = 0
     with torch.no_grad():
-        _, hit = rk.launch_rays(libs["rays_fwd"], params, rays, cfg, True, want_hit=True)
+        ray_rgb, hit = rk.launch_rays(libs["rays_fwd"], params, rays, cfg, True, want_hit=True)
         g_rays_params, _ = rk.launch_rays_bwd(libs["rays_bwd"], params, rays, cfg, True,
                                               full_cot, hit=hit)
     torch.cuda.synchronize()
+    rays_launches = (rk.RAYS_LAUNCHES, rk.RAYS_BWD_LAUNCHES)
     ray_hits = int(hit.sum())
+    # The ray-batch forward against render_rays on the 1080p gradient check's
+    # seeded subset of the camera rays (the same rays: camera_rays of a copy
+    # of the view).
+    ok, rays_fwd_stats = distributional(ray_rgb[pick].cpu().numpy(), subset_plain_rgb)
+    check(rays_launches[0] == 1 and ok,
+          f"the ray-batch forward of the 200-sphere scene on the frame's {W * H} camera rays "
+          f"(RAYS_LAUNCHES {rays_launches[0]}), its colours of the {GRID_SUBSET} seeded rays "
+          f"against render_rays on them {rays_fwd_stats}")
+    del ray_rgb
     rays_share = float((g_rays_params - first[:prog.n_params]).abs().max()
                        / first[:prog.n_params].abs().max())
-    check((rk.RAYS_LAUNCHES, rk.RAYS_BWD_LAUNCHES) == (1, 1)
+    check(rays_launches[1] == 1
           and bool(torch.isfinite(g_rays_params).all()) and abs(ray_hits - hits) <= 1e-3 * W * H,
-          f"the ray-batch forms on the frame's {W * H} camera rays: {ray_hits} hit (the image "
+          f"the ray-batch forms on the frame's {W * H} camera rays (RAYS_BWD_LAUNCHES "
+          f"{rays_launches[1]}): {ray_hits} hit (the image "
           f"forward {hits}), the pullback finite; {rays_share:.3g} of the largest entry from the "
           f"image backward's (the two make their rays apart by an ulp, and a grazing ray's "
           f"gradient is ill conditioned, C.3)")
@@ -1128,13 +1152,18 @@ def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
         for q in st.leaves(grid):
             q.grad = None
         fn = rk.render_rays_kernel if backend == "kernel" else render_rays
+        rk.RAYS_LAUNCHES = rk.RAYS_BWD_LAUNCHES = 0
         (fn(grid, sro, srd, st.RenderConfig(64, 36)) * scot).sum().backward()
+        torch.cuda.synchronize()
+        if backend == "kernel":
+            small_rays_launches = (rk.RAYS_LAUNCHES, rk.RAYS_BWD_LAUNCHES)
         small_rays[backend] = (torch.cat([(torch.zeros_like(q) if q.grad is None else q.grad)
                                           .reshape(-1) for q in st.leaves(grid)]).cpu().numpy(),
                                np.zeros(1))
     rays_small = shares(small_rays["kernel"], small_rays["torch"])["leaf_err_of_largest"]
-    check(close(small_rays["kernel"], small_rays["torch"], 1e-2),
-          f"the ray-batch pullback of the 200-sphere scene at 64x36 against autograd of the "
+    check(small_rays_launches == (1, 1) and close(small_rays["kernel"], small_rays["torch"], 1e-2),
+          f"the ray-batch pullback of the 200-sphere scene at 64x36 (RAYS_LAUNCHES, "
+          f"RAYS_BWD_LAUNCHES = {small_rays_launches}) against autograd of the "
           f"plain path, every leaf (C.3: + 1e-2 of the largest entry): {rays_small:.3g} of the "
           f"largest entry")
 
@@ -1186,11 +1215,13 @@ def phase_union_grid(st, smi: str, builder: subprocess.Popen) -> dict:
                    for f, b in built.items()},
         "resident_blocks_per_sm": resident, "waited_for_builds_s": waited,
         "frame_vs_plain": frame_stats, "plain_frame_ms": plain_ms,
+        "store_frame_vs_plain": store_stats, "rays_subset_vs_plain": rays_fwd_stats,
         "grad_64x36": small, "grad_1080p_subset": full_stats, "store_vs_replay": fed_share,
         "rays_vs_image": rays_share, "rays_64x36_leaf_err_of_largest": rays_small,
         "fit_losses": fitted.losses, "fit_s": fit_s,
         "launches": {"fwd": fwd_launches, "grad_1080p": list(full_launches),
-                     "fit": list(fit_launches)},
+                     "fit": list(fit_launches), "store": list(store_launches),
+                     "rays_1080p": list(rays_launches), "rays_64x36": list(small_rays_launches)},
         "ms": times, "bound_ms": {k: b[0] for k, b in bounds.items()},
         "bound_by": {k: b[1] for k, b in bounds.items()}, "bound_ms_fixed_work": fixed,
         "gpu": smi,
@@ -3235,15 +3266,18 @@ def main() -> int:
     print(json.dumps({"union_grid": grid_line}))
     print(smi)
     def grid_kernel(key, launches, err):
-        """The union grid's numbers of one kernel (phase 24)."""
+        """The union grid's numbers of one kernel (phase 24): its launches on
+        the phase's path as its counters read them, and ``err``, the phase's
+        readings of it against its reference, by name."""
         return {"launches": launches, "ms": grid_line["ms"][key],
                 "bound_ms": grid_line["bound_ms"][key], "bound_by": grid_line["bound_by"][key],
-                "max_err_of_largest_entry": err, "build_s": grid_line["builds"][key]["build_s"],
+                **err, "build_s": grid_line["builds"][key]["build_s"],
                 "registers": grid_line["builds"][key]["registers"],
                 "local_memory": grid_line["builds"][key]["local_memory"]}
 
     gl = grid_line["launches"]
-    grid_grad_err = grid_line["grad_1080p_subset"]["leaf_err_of_largest"]
+    grid_grad_err = {"leaf_err_of_largest_entry_vs_plain":
+                     grid_line["grad_1080p_subset"]["leaf_err_of_largest"]}
     print(json.dumps({"kernels": [
         {"name": "raymarch_fwd", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES, "launches": launches, "launches_in_fit": fwd_launches,
@@ -3256,8 +3290,8 @@ def main() -> int:
          "plain_ms": plain_ms, "bound_ms": fwd_bound, "bound_by": fwd_by, "library_ms": None,
          "bound_ms_fixed_work": fwd_fixed_bound, "issue_share": issue_share.get("raymarch_fwd"),
          "warp_steps_saved": warp_saved, "mostly_sky_ms": sky_fwd_ms,
-         "union_grid": grid_kernel("fwd", gl["fwd"] + gl["fit"][0],
-                                   grid_line["frame_vs_plain"]["max"]),
+         "union_grid": grid_kernel("fwd", gl["fwd"] + gl["grad_1080p"][0] + gl["fit"][0],
+                                   {"max_abs_err_vs_plain": grid_line["frame_vs_plain"]["max"]}),
          **compiled["raymarch_fwd"]},
         {"name": "raymarch_bwd", "route": "cuda", "source": BWD_SOURCE,
          "replaces": BWD_REPLACES, "launches": bwd_launches,
@@ -3276,7 +3310,10 @@ def main() -> int:
          "warp_steps_saved": rays_warp_saved,
          "mostly_sky_ms": sky_rays_ms, "shuffled_ms": rays_shuffled_ms,
          "shuffled_warp_steps_saved": shuffled_saved,
-         "union_grid": grid_kernel("rays_fwd", 1, None), **compiled["raymarch_rays_fwd"]},
+         "union_grid": grid_kernel(
+             "rays_fwd", gl["rays_1080p"][0] + gl["rays_64x36"][0],
+             {"max_abs_err_vs_plain": grid_line["rays_subset_vs_plain"]["max"]}),
+         **compiled["raymarch_rays_fwd"]},
         {"name": "raymarch_rays_bwd", "route": "cuda", "source": RAYS_BWD_SOURCE,
          "replaces": RAYS_BWD_REPLACES, "launches": rays_step_launches[1],
          "max_abs_err": rays_bwd_err, "max_err_of_largest_entry": rays_bwd_share,
@@ -3288,7 +3325,9 @@ def main() -> int:
          "bound_ms_as_replay_and_sweep": replay_form_bound,
          "rays_whose_march_ends_elsewhere": rays_depths_apart,
          "library_ms": None,
-         "union_grid": grid_kernel("rays_bwd", 1, grid_line["rays_64x36_leaf_err_of_largest"]),
+         "union_grid": grid_kernel(
+             "rays_bwd", gl["rays_1080p"][1] + gl["rays_64x36"][1],
+             {"leaf_err_of_largest_entry_vs_plain": grid_line["rays_64x36_leaf_err_of_largest"]}),
          **compiled["raymarch_rays_bwd"]},
         {"name": "raymarch_fwd_store", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": STORE_REPLACES, "launches": store_launches[0], "max_abs_err": store_err,
@@ -3296,7 +3335,10 @@ def main() -> int:
          "ms": handoff_ms["fwd_store"], "plain_ms": history_ms, "bound_ms": store_bound,
          "bound_by": store_by, "library_ms": None, "bound_ms_fixed_work": store_fixed_bound,
          "issue_share": issue_share.get("raymarch_fwd_store"), "warp_steps_saved": warp_saved,
-         "mostly_sky_ms": sky_store_ms, "union_grid": grid_kernel("fwd_store", 1, None),
+         "mostly_sky_ms": sky_store_ms,
+         "union_grid": grid_kernel(
+             "fwd_store", gl["store"][0],
+             {"max_abs_err_vs_plain": grid_line["store_frame_vs_plain"]["max"]}),
          **compiled["raymarch_fwd_store"]},
         {"name": "raymarch_bwd_store", "route": "cuda", "source": BWD_SOURCE,
          "replaces": STORE_BWD_REPLACES, "launches": store_launches[1],
@@ -3305,7 +3347,9 @@ def main() -> int:
          "plain_ms": plain_bwd_ms,
          "plain_shape": [pw, ph], "bound_ms": store_bwd_bound, "bound_by": store_bwd_by,
          "library_ms": None,
-         "union_grid": grid_kernel("bwd_store", 1, grid_line["store_vs_replay"]),
+         "union_grid": grid_kernel(
+             "bwd_store", gl["store"][1],
+             {"err_of_largest_entry_vs_replay": grid_line["store_vs_replay"]}),
          **compiled["raymarch_bwd_store"]},
     ]}))
     print(json.dumps({"ok": True, "device": {

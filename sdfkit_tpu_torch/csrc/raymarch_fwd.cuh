@@ -254,8 +254,15 @@ __host__ __device__ __forceinline__ void shade_ray(const Ray& r, const float* P,
   // A scene of the large tier (sdf/compile.py large_tier) takes the taps an
   // axis at a time, as the backward does: six straight-line evaluations of
   // a large scene side by side keep too many values live for the register
-  // file (the scene of 1,400 slots: 255 registers and 1,480 bytes of stack,
-  // PERF.md). An axis left alone adds 0.0f, so the taps are the same floats.
+  // file. Measured on an H100 at 1920x1080x40 (tools/torch_kernel_probe.py
+  // --taps), straight-line / loop: SphereRepeat (14 slots) 0.2364 / 0.2521
+  // ms; unions of 4 to 8 spheres (28-56 slots) within 0.5% of each other;
+  // 12 spheres (84) 0.6466 / 0.6264; 24 (168) 1.7796 / 1.4399; 100 (700)
+  // 34.62 / 11.50, 255 registers and 264 bytes of stack against 39; 200
+  // (1,400) 106.02 / 35.90. So the forward takes the loop past the
+  // backward's threshold too. The two forms' frames were bit for bit the
+  // same on every union, not on SphereRepeat (nvcc contracts its distance
+  // another way in the loop).
   float nx = 0.0f, ny = 0.0f, nz = 0.0f;
 #pragma unroll 1
   for (int axis = 0; axis < 3; ++axis) {

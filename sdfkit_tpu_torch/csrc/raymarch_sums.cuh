@@ -15,6 +15,11 @@
 // tier keeps a warp's lanes on one path through the pullback (a lane with
 // nothing to add takes part with a zero), and every branch around a call is
 // the warp's (sdf_any). A warp whose lanes all hold zero skips the tree.
+// Measured on an H100, the 200-sphere union's image backward at
+// 1920x1080x40 (tools/torch_kernel_probe.py --rows): these rows 163.56 ms;
+// one row a block in shared memory, its warps adding with shared atomics
+// (so in no fixed order: two launches differ) 164.60 ms; a row a warp in
+// shared memory, 22.7 KB a block, which leaves 9 blocks an SM, 223.33 ms.
 //
 // Compiled for the host (the CPU tests' g++ build), a "warp" is the one
 // thread and the row is the thread's own sums.

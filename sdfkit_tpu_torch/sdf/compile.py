@@ -161,8 +161,8 @@ _PROGRAMS: dict[tuple, Program] = {}
 
 
 def compile_scene(expr: SdfExpr) -> Program:
-    """The scene's program, traced once per structure (and tier threshold)."""
-    key = (_structure(expr), LARGE_SCENE_SLOTS)
+    """The scene's program, traced once per structure."""
+    key = _structure(expr)
     prog = _PROGRAMS.get(key)
     if prog is None:
         prog = _PROGRAMS[key] = trace(expr)
@@ -836,7 +836,9 @@ LARGE_SCENE_SLOTS = 32
 # the reverse sweep that takes its cotangent from selects alone and has at
 # least GATE_MIN_NODES nodes gets its own test, down to at most GATE_DEPTH
 # tests inside one another (a left-deep chain of unions is tested that far
-# along).
+# along). Neither is tuned on the card: 8 is below the node count of a
+# translated sphere (about 10), so that each primitive of a union gets its
+# test, and a balanced union is 32 deep only at 2^32 primitives.
 GATE_MIN_NODES = 8
 GATE_DEPTH = 32
 

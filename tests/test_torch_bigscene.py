@@ -161,9 +161,9 @@ def _tiers(monkeypatch, expr):
     """(small, large) programs of one scene: the tier threshold set above and
     below its slots."""
     monkeypatch.setattr(sc, "LARGE_SCENE_SLOTS", 10**6)
-    small = sc.compile_scene(expr)
+    small = sc.trace(expr)
     monkeypatch.setattr(sc, "LARGE_SCENE_SLOTS", 4)
-    large = sc.compile_scene(expr)
+    large = sc.trace(expr)
     assert (small.large, large.large) == (False, True)
     return small, large
 

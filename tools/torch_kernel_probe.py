@@ -2,6 +2,7 @@
 """Probe the sphere-trace CUDA kernels of sdfkit_tpu_torch on one GPU.
 
     python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME] [--scenes NAME ...]
+    python3 tools/torch_kernel_probe.py --tiers N ... | --budgets K ... | [--rows] [--taps N ...]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and for one sphere,
@@ -57,6 +58,18 @@ set for K resident blocks an SM in both builds (``kBwdLargeMinBlocks`` in
 ``csrc/raymarch_reduce.cuh``, edited in a copy of ``csrc/`` for each K), and
 timed at 1920x1080x40 in turns, one ``budget`` line per K: the measurement
 the constant is chosen from.
+
+``--rows`` and ``--taps N ...`` (together or apart) do only this, each
+library built from a copy of ``csrc/`` with the variant's text in place:
+``--rows`` times the 200-sphere union's image backward at 1920x1080x40 with
+its sums in each of ``ROW_PLACES`` (the kernels' rows a warp in device
+memory, a block's row in shared memory, a row a warp in shared memory), one
+``rows`` line each with its difference from the kernels' gradient and
+whether two launches agree bit for bit; ``--taps`` times the RGB forward of
+SphereRepeat and of ``union_grid_scene(N)`` at each N with the six normal
+taps straight-line and a loop over the axes, one ``taps`` line per scene
+and form with whether the two frames agree bit for bit: the measurements
+the large tier's sums and the forward's taps are chosen from.
 
 ``--against DIR`` (repeatable) names a directory that holds another
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
@@ -132,6 +145,12 @@ def main() -> int:
                     help="sphere counts of union_grid_scene to time in both backward tiers")
     ap.add_argument("--budgets", nargs="+", type=int, default=[],
                     help="resident blocks an SM to build the large tier's backwards for")
+    ap.add_argument("--rows", action="store_true",
+                    help="time the large tier's image backward with its sums in each of "
+                         "ROW_PLACES")
+    ap.add_argument("--taps", nargs="+", type=int, default=[],
+                    help="sphere counts of union_grid_scene whose forward (and SphereRepeat's) "
+                         "to time with the taps straight-line and a loop over the axes")
     args = ap.parse_args()
 
     import numpy as np
@@ -190,6 +209,20 @@ def main() -> int:
         return tier_sweep(this, args.tiers, say, events)
     if args.budgets:
         return budget_sweep(this, args.budgets, say, events)
+    if args.rows or args.taps:
+        import shutil
+        import tempfile
+
+        work = pathlib.Path(tempfile.mkdtemp(prefix="variants"))
+        jobs = {**(rows_jobs(this, work) if args.rows else {}),
+                **(taps_jobs(this, work, args.taps) if args.taps else {})}
+        libs = build_variants(this, work, jobs)
+        if args.rows:
+            rows_sweep(this, libs, say, events)
+        if args.taps:
+            taps_sweep(this, libs, args.taps, say, events)
+        shutil.rmtree(work, ignore_errors=True)
+        return 0
 
     # SphereRepeat and the sphere from bench.py's camera; the union grid from
     # the default camera, whose frame it fills.
@@ -461,7 +494,7 @@ def tier_sweep(pkg, counts, say, events) -> int:
         expr = pkg.scenes.union_grid_scene(n)
         for large, slots in ((False, 10**9), (True, 0)):
             comp.LARGE_SCENE_SLOTS = slots
-            programs[(n, large)] = (expr, comp.compile_scene(expr))
+            programs[(n, large)] = (expr, comp.trace(expr))
     with concurrent.futures.ThreadPoolExecutor(8) as pool:
         libs = dict(zip(programs, pool.map(lambda k: pkg.build.load_family(programs[k][1], "bwd"),
                                            programs)))
@@ -492,6 +525,66 @@ def tier_sweep(pkg, counts, say, events) -> int:
     return 0
 
 
+def edited_csrc(pkg, work: pathlib.Path, name: str, edits) -> pathlib.Path:
+    """A copy of the package's ``csrc/`` under ``work`` with ``edits`` made:
+    each ``(file, old, new)`` replaces text that is there exactly once."""
+    import shutil
+
+    dest = work / f"csrc_{name}"
+    shutil.copytree(pkg.build.CSRC, dest)
+    for file, old, new in edits:
+        text = (dest / file).read_text()
+        if text.count(old) != 1:
+            raise ValueError(f"{name}: the text to replace in {file} is not there once")
+        (dest / file).write_text(text.replace(old, new))
+    return dest
+
+
+def build_variants(pkg, work: pathlib.Path, jobs: dict) -> dict:
+    """key -> the library of ``jobs[key] = (program, family, csrc dir)``, or
+    the compiler's error as a string: one nvcc each, all in parallel, into
+    ``work``."""
+    build = pkg.build
+
+    def compile_one(item):
+        key, (prog, family, csrc) = item
+        stem = "_".join(map(str, key))
+        (work / f"{stem}.cu").write_text(build.translation_unit(prog, family))
+        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(csrc), "-o",
+               str(work / f"{stem}.so"), str(work / f"{stem}.cu")]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode != 0:
+            return key, f"nvcc failed ({proc.returncode}): {proc.stderr[-3000:]}"
+        seconds = time.perf_counter() - t0
+        fam = build.FAMILIES[family]
+        cdll = ctypes.CDLL(str(work / f"{stem}.so"))
+        fn = getattr(cdll, fam.prefix + "_launch")
+        fn.restype, fn.argtypes = ctypes.c_int, list(fam.argtypes)
+        resident = getattr(cdll, fam.prefix + "_resident")
+        resident.restype, resident.argtypes = ctypes.c_int, [ctypes.c_int]
+        rows = None
+        if fam.adjoint:
+            rows = getattr(cdll, fam.prefix + "_rows")
+            rows.restype, rows.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
+        registers, local = build._ptxas(proc.stdout + proc.stderr)
+        return key, build.KernelLib(launch=fn, path=work / f"{stem}.so", build_seconds=seconds,
+                                    registers=registers, local_memory=local, rows=rows,
+                                    store=fam.store, resident=resident)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        return dict(pool.map(compile_one, jobs.items()))
+
+
+def turns(runs: dict, events) -> dict:
+    """Device ms of each of ``runs`` (key -> call), timed in turns there and
+    back: key -> [first round, second round]."""
+    times = {k: [] for k in runs}
+    for k in [*runs, *reversed(runs)]:
+        times[k].append(events(runs[k]))
+    return times
+
+
 def budget_sweep(pkg, budgets, say, events) -> int:
     """The large tier's image backward and store-fed backward of the
     200-sphere union at each register budget (resident blocks an SM), each
@@ -506,43 +599,16 @@ def budget_sweep(pkg, budgets, say, events) -> int:
     expr = pkg.scenes.union_grid_scene()
     prog = pkg.compile.compile_scene(expr)
     work = pathlib.Path(tempfile.mkdtemp(prefix="budgets"))
-    pattern = "constexpr int kBwdLargeMinBlocks = "
+    pattern = "constexpr int kBwdLargeMinBlocks = SDF_STORE ? 8 : 16;"
+    jobs = {}
     for k in budgets:  # the same budget for the replay and the store-fed build
-        shutil.copytree(build.CSRC, work / f"csrc{k}")
-        header = work / f"csrc{k}" / "raymarch_reduce.cuh"
-        text = header.read_text()
-        start = text.index(pattern) + len(pattern)
-        header.write_text(text[:start] + str(k) + text[text.index(";", start):])
-
-    def compile_one(job):
-        k, family = job
-        unit = build.translation_unit(prog, family)
-        stem = f"budget{k}_{family}"
-        cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-I", str(work / f"csrc{k}"), "-o",
-               str(work / f"{stem}.so"), str(work / f"{stem}.cu")]
-        (work / f"{stem}.cu").write_text(unit)
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(proc.stderr[-4000:])
-        return time.perf_counter() - t0, build._ptxas(proc.stdout + proc.stderr)
-
-    jobs = [(k, f) for k in budgets for f in ("bwd", "bwd_store")]
-    with concurrent.futures.ThreadPoolExecutor(8) as pool:
-        made = dict(zip(jobs, pool.map(compile_one, jobs)))
-    libs = {}
-    for (k, family), (seconds, (registers, local)) in made.items():
-        fam = build.FAMILIES[family]
-        cdll = ctypes.CDLL(str(work / f"budget{k}_{family}.so"))
-        fn = getattr(cdll, fam.prefix + "_launch")
-        fn.restype, fn.argtypes = ctypes.c_int, list(fam.argtypes)
-        rows, resident = cdll.raymarch_bwd_rows, cdll.raymarch_bwd_resident
-        rows.restype, rows.argtypes = ctypes.c_int, [ctypes.c_int, ctypes.c_int]
-        resident.restype, resident.argtypes = ctypes.c_int, [ctypes.c_int]
-        libs[(k, family)] = build.KernelLib(launch=fn, path=work / f"budget{k}_{family}.so",
-                                            build_seconds=seconds, registers=registers,
-                                            local_memory=local, rows=rows, store=fam.store,
-                                            resident=resident)
+        csrc = edited_csrc(pkg, work, f"b{k}", [("raymarch_reduce.cuh", pattern,
+                                                 f"constexpr int kBwdLargeMinBlocks = {k};")])
+        jobs.update({(k, f): (prog, f, csrc) for f in ("bwd", "bwd_store")})
+    libs = build_variants(pkg, work, jobs)
+    failed = {k: v for k, v in libs.items() if isinstance(v, str)}
+    if failed:
+        raise RuntimeError(f"budget builds failed: {failed}")
     view = pkg.st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
     cfg = pkg.st.RenderConfig(WIDTH, HEIGHT)
     v19 = pkg.rk.view19(view, cfg)
@@ -555,9 +621,7 @@ def budget_sweep(pkg, budgets, say, events) -> int:
         runs = {key: (lambda lib=lib, key=key: pkg.rk.launch_bwd(
                     lib, params, v19, cfg, True, cot, store=store if key[1] == "bwd_store" else None))
                 for key, lib in libs.items()}
-        times = {k: [] for k in runs}
-        for k in [*runs, *reversed(runs)]:
-            times[k].append(events(runs[k]))
+        times = turns(runs, events)
     for (k, family), lib in libs.items():
         say("budget", blocks=k, family=family, nvcc_seconds=lib.build_seconds,
             registers=lib.registers, local_memory=lib.local_memory,
@@ -565,6 +629,139 @@ def budget_sweep(pkg, budgets, say, events) -> int:
             rounds=times[(k, family)])
     shutil.rmtree(work, ignore_errors=True)
     return 0
+
+
+# The large tier's image backward with its sums elsewhere than the kernels'
+# row a warp in device memory (``--rows``): a block's one row in shared
+# memory, its warps' lane 0 adding with shared atomics (the order of the
+# warps' adds is not fixed), or a row a warp in shared memory; either way the
+# block writes one row of partials at its end, summing its warps' rows in
+# order.
+_ROWS_BEFORE = """  const int lane = threadIdx.x & 31;
+  float* row = partials + ((long long)blockIdx.x * kBwdWarps + (threadIdx.x >> 5)) * kNOut;
+"""
+_ROWS_AFTER = """  const int lane = threadIdx.x & 31;
+  __shared__ float shared_rows[kSharedRows * kNOut];
+  for (int j = threadIdx.x; j < kSharedRows * kNOut; j += blockDim.x) shared_rows[j] = 0.0f;
+  __syncthreads();
+  float* row = shared_rows + (kSharedRows == 1 ? 0 : (threadIdx.x >> 5)) * kNOut;
+"""
+_ROWS_END_BEFORE = """    if (lane == 0) row[SDF_N_PARAMS + j] = v;
+  }
+}
+#endif
+"""
+_ROWS_END_AFTER = """    if (lane == 0) atomicAdd(row + SDF_N_PARAMS + j, v);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < kNOut; j += blockDim.x) {
+    float s = 0.0f;
+    for (int w = 0; w < kSharedRows; ++w) s += shared_rows[w * kNOut + j];
+    partials[(long long)blockIdx.x * kNOut + j] = s;
+  }
+}
+#endif
+"""
+ROW_PLACES = ("warp_device", "block_shared", "warp_shared")
+
+
+def rows_jobs(pkg, work: pathlib.Path) -> dict:
+    """``--rows``: the 200-sphere union's image backward with each of
+    ``ROW_PLACES`` for its sums, at the kernels' register budget."""
+    prog = pkg.compile.compile_scene(pkg.scenes.union_grid_scene())
+    jobs = {("rows", "warp_device"): (prog, "bwd", pkg.build.CSRC)}
+    for place, count in (("block_shared", "1"), ("warp_shared", "kBwdWarps")):
+        csrc = edited_csrc(pkg, work, place, [
+            ("raymarch_reduce.cuh", "constexpr int kRowsPerBlock = SDF_LARGE ? kBwdWarps : 1;",
+             f"constexpr int kRowsPerBlock = 1;\nconstexpr int kSharedRows = {count};"),
+            ("raymarch_bwd.cu", _ROWS_BEFORE, _ROWS_AFTER),
+            ("raymarch_bwd.cu", _ROWS_END_BEFORE, _ROWS_END_AFTER)])
+        jobs[("rows", place)] = (prog, "bwd", csrc)
+    return jobs
+
+
+def rows_sweep(pkg, libs, say, events) -> None:
+    """Times ``rows_jobs``' libraries in turns at 1920x1080x40 and holds each
+    against the kernels' (the largest difference over the largest entry) and
+    against itself launch to launch (bit for bit)."""
+    import torch
+
+    expr = pkg.scenes.union_grid_scene()
+    view = pkg.st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = pkg.st.RenderConfig(WIDTH, HEIGHT)
+    v19 = pkg.rk.view19(view, cfg)
+    params = pkg.compile.flat_params(expr).detach().contiguous()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.rand((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
+    built = {place: libs[("rows", place)] for place in ROW_PLACES}
+    for place, lib in built.items():
+        if isinstance(lib, str):
+            say("rows", place=place, error=lib)
+    built = {p: lib for p, lib in built.items() if not isinstance(lib, str)}
+    runs = {p: (lambda lib=lib: pkg.rk.launch_bwd(lib, params, v19, cfg, True, cot))
+            for p, lib in built.items()}
+    with torch.no_grad():
+        times = turns(runs, events)
+        ref = runs["warp_device"]() if "warp_device" in runs else None
+        for place, lib in built.items():
+            first, second = runs[place](), runs[place]()
+            say("rows", place=place, nvcc_seconds=lib.build_seconds, registers=lib.registers,
+                local_memory=lib.local_memory, resident_blocks_per_sm=lib.resident(1),
+                ms=sum(times[place]) / 2, rounds=times[place],
+                launch_to_launch_bit_identical=bool(torch.equal(first, second)),
+                vs_warp_device_of_largest_entry=None if ref is None else float(
+                    (first - ref).abs().max() / ref.abs().max()))
+
+
+# The forward's six taps (``--taps``): straight-line, the six evaluations
+# side by side, or a loop over the three axes.
+_TAPS_IF = "#if SDF_LARGE\n  // A scene of the large tier"
+TAP_FORMS = {"straight": "#if 0\n  // A scene of the large tier",
+             "loop": "#if 1\n  // A scene of the large tier"}
+
+
+def taps_jobs(pkg, work: pathlib.Path, counts) -> dict:
+    """``--taps N ...``: the image forward of SphereRepeat and of
+    ``union_grid_scene(N)`` for each N, with each of ``TAP_FORMS``."""
+    scenes = {"sphere_repeat": pkg.scenes.sphere_repeat_scene(),
+              **{f"union{n}": pkg.scenes.union_grid_scene(n) for n in counts}}
+    jobs = {}
+    for form, text in TAP_FORMS.items():
+        csrc = edited_csrc(pkg, work, f"taps_{form}", [("raymarch_fwd.cuh", _TAPS_IF, text)])
+        for name, expr in scenes.items():
+            jobs[("taps", name, form)] = (pkg.compile.compile_scene(expr), "fwd", csrc)
+    return jobs
+
+
+def taps_sweep(pkg, libs, counts, say, events) -> None:
+    """Times ``taps_jobs``' RGB forwards in turns at 1920x1080x40 (SphereRepeat
+    from bench.py's camera, the unions from the default one) and holds the
+    two forms' frames bit for bit."""
+    import torch
+
+    scenes = {"sphere_repeat": (pkg.scenes.sphere_repeat_scene(), (-2.0, 2.0, 4.0)),
+              **{f"union{n}": (pkg.scenes.union_grid_scene(n), (0.0, 0.0, 5.0)) for n in counts}}
+    cfg = pkg.st.RenderConfig(WIDTH, HEIGHT)
+    with torch.no_grad():
+        for name, (expr, eye) in scenes.items():
+            v19 = pkg.rk.view19(pkg.st.look_at(eye, (0.0, 0.0, 0.0), (0.0, 1.0, 0.0)), cfg)
+            params = pkg.compile.flat_params(expr).detach().contiguous()
+            built = {form: libs[("taps", name, form)] for form in TAP_FORMS}
+            if any(isinstance(lib, str) for lib in built.values()):
+                say("taps", scene=name, error={f: lib for f, lib in built.items()
+                                               if isinstance(lib, str)})
+                continue
+            runs = {form: (lambda lib=lib: pkg.rk.launch(lib, params, v19, cfg, True))
+                    for form, lib in built.items()}
+            times = turns(runs, events)
+            frames = {form: run() for form, run in runs.items()}
+            same = bool(torch.equal(frames["straight"].view(torch.int32),
+                                    frames["loop"].view(torch.int32)))
+            for form, lib in built.items():
+                say("taps", scene=name, parameter_slots=pkg.compile.compile_scene(expr).n_params,
+                    form=form, nvcc_seconds=lib.build_seconds, registers=lib.registers,
+                    local_memory=lib.local_memory, resident_blocks_per_sm=lib.resident(1),
+                    ms=sum(times[form]) / 2, rounds=times[form], frames_bit_identical=same)
 
 
 if __name__ == "__main__":
