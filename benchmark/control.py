@@ -6,9 +6,11 @@ program's own: the control and the faults, each put in the program's place.
 The control is the plain reference computed in bfloat16, the precision
 below the float32 that every configuration states (the render has no
 matrix product that TF32 would reach: its view's inverse is the only one,
-and the reference computes it in float32 with TF32 off). For a frames cell
-it renders the frames a run would check; for a fit cell it takes the fit's
-first steps. A fit cell also reads two faults, planted in the float32
+and the reference computes it in float32 with TF32 off). The cell's loop
+(``loops/<loop>.py``, ``control_readings``) says what is read: for a
+frames cell the frames a run would check; for a fit cell the steps a run
+follows, and the loss at the parameters they reached. A fit cell also
+reads two faults, planted in the float32
 reference: ``half_rows`` leaves the frame's lower half out of the loss and
 takes the mean over the rest; ``altered`` adds 0.1 to the first 64 rows of
 every frame where the render produces it. And a look, no fault:
@@ -29,76 +31,7 @@ sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
 import torch  # noqa: E402
 
-from benchmark.harness import check, generate, spec  # noqa: E402
-from benchmark.reference import render as ref  # noqa: E402
-
-LOW = torch.bfloat16
-ALTERED_ROWS, ALTERED_BY = 64, 0.1
-NUDGE = 1e-6  # two float32 ulps of a camera 4-5 units out
-
-
-def _nudged(view: dict, device):
-    eye = [*view["eye"][:2], view["eye"][2] + NUDGE]
-    return ref.look_at(eye, view["target"], view["up"], device)
-
-
-def frames_readings(cell: spec.Cell, seed: int, device) -> dict:
-    """{kind: numbers} over as many frames as a run checks, at views the
-    seed picks along the orbit: the control, and the look at the first
-    view's frame with the camera nudged."""
-    config = cell.config
-    cfg = generate.render_config(config)
-    ref_mod, _ = spec.scene_modules(config["scene"]["kind"])
-    table = ref_mod.table(config["scene"], device)
-    views = generate.views(config["view"], device)
-    rng = generate.host_rng(seed, "control")
-    picked = [rng.randrange(views.shape[0]) for _ in range(int(config["check"]["frames"]))]
-    want = [ref.render(ref_mod, table, views[k], cfg) for k in picked]
-    control = [check.frame_numbers(ref.render(ref_mod, table, views[k], cfg, dtype=LOW), w)
-               for k, w in zip(picked, want)]
-    nudged = ref.render(ref_mod, table, _nudged(config["view"], device), cfg)
-    return {"control": check.worst(control),
-            "nudged": check.frame_numbers(nudged, ref.render(
-                ref_mod, table, generate.fixed_view(config["view"], device), cfg))}
-
-
-def _alter(rgb, rows):
-    """Add ``ALTERED_BY`` to the frame's first ``ALTERED_ROWS`` rows."""
-    r = torch.arange(rows.start, rows.stop, device=rgb.device)
-    return rgb + ALTERED_BY * (r < ALTERED_ROWS).to(rgb.dtype)[:, None, None]
-
-
-def fit_readings(cell: spec.Cell, seed: int, device) -> dict:
-    """{kind: numbers} of the control and the faults over the fit's first
-    steps, each against the float32 reference from the same start."""
-    config, steps = cell.config, int(cell.traffic["steps_checked"])
-    cfg = generate.render_config(config)
-    plan = config["fit"]
-    train, lr = plan["train"], float(plan["lr"])
-    ref_mod, _ = spec.scene_modules(config["scene"]["kind"])
-    view = generate.fixed_view(config["view"], device)
-    table = ref_mod.table(config["scene"], device)
-    start = generate.drawn(table, plan.get("start", {}), seed, "start", device)
-    aim = generate.drawn(table, plan.get("target", {}), seed, "target", device)
-    target = ref.render(ref_mod, aim, view, cfg)
-
-    def run(at=view, **faults):
-        losses, grad, after = ref.fit_steps(ref_mod, start, at, target, cfg, train, lr, steps,
-                                            **faults)
-        rows = table[train].shape[0] if table[train].ndim == 2 else 1  # one leaf a row
-        return losses, list(grad.reshape(rows, -1)), list((after[train] - start[train])
-                                                           .reshape(rows, -1))
-
-    want = run()
-    out = {}
-    nudged = _nudged(config["view"], device)
-    for kind, faults in (("control", {"dtype": LOW}),
-                         ("half_rows", {"rows_kept": slice(0, cfg["height"] // 2)}),
-                         ("altered", {"alter": _alter}),
-                         ("nudged", {"at": nudged})):
-        got = run(**faults)
-        out[kind] = check.fit_numbers(got[0], want[0], got[1], want[1], got[2], want[2], got[0])
-    return out
+from benchmark.harness import spec  # noqa: E402
 
 
 def main(argv=None) -> int:
@@ -110,7 +43,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("the control runs on a CUDA card", file=sys.stderr)
         return 2
-    read = {"frames": frames_readings, "fit": fit_readings}[cell.traffic["loop"]]
+    read = spec.loop(cell.traffic["loop"]).control_readings
     for seed in args.seeds:
         for kind, numbers in read(cell, seed, "cuda").items():
             print(json.dumps({"workload": cell.name, "seed": seed, "kind": kind,

@@ -58,27 +58,31 @@ def leaf_norm_gap(got: list, want: list) -> float:
     return float(gap[kept].max())
 
 
-def fit_numbers(losses, ref_losses, grads, ref_grads, changes, ref_changes,
-                window_losses) -> dict:
-    """A fit against the reference's over its first steps: each step's loss
-    (the worst relative gap), the first gradient as the optimizer got it
-    and the parameters' change after the steps (``leaf_norm_gap``), and the
+def loss_gaps(loss_pairs) -> list[float]:
+    """Each (program, reference) pair of losses' gap, over the larger of the
+    reference's loss and its first."""
+    scale = abs(loss_pairs[0][1])
+    return [abs(a - b) / max(abs(b), scale) for a, b in loss_pairs]
+
+
+def fit_numbers(loss_pairs, grads, ref_grads, changes, ref_changes, window_losses) -> dict:
+    """A fit against the reference's: each (program, reference) pair of
+    losses (the worst gap, over the reference's loss there or its first
+    loss, whichever is larger: a loss near its minimum makes a relative gap
+    of nothing), the first gradient as the optimizer got it and the
+    parameters' change over the steps followed (``leaf_norm_gap``), and the
     count of losses in the window that are not finite."""
-    loss_gap = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
-    return {"loss_gap": loss_gap,
+    return {"loss_gap": max(loss_gaps(loss_pairs)),
             "grad_gap": leaf_norm_gap(grads, ref_grads),
             "change_gap": leaf_norm_gap(changes, ref_changes),
             "nonfinite": float(sum(not (x == x and abs(x) != float("inf"))
                                    for x in window_losses))}
 
 
-def judge(numbers: dict, limits: dict) -> tuple[list[Check], dict]:
-    """(every number that has a limit with it, {number: value} of those
-    whose limit is null: read and reported, not compared). A number the
-    limits file does not name is a fault of the file."""
+def judge(numbers: dict, limits: dict) -> list[Check]:
+    """Each number against its limit. A number the limits file does not
+    name, or names with no number, is a fault of the file."""
     missing = sorted(set(numbers) - set(limits))
     if missing:
         raise KeyError(f"no limit for {missing}")
-    checks = [Check(k, float(v), float(limits[k])) for k, v in numbers.items()
-              if limits[k] is not None]
-    return checks, {k: float(v) for k, v in numbers.items() if limits[k] is None}
+    return [Check(k, float(v), float(limits[k])) for k, v in numbers.items()]

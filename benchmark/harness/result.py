@@ -7,7 +7,7 @@ import sys
 
 import torch
 
-from benchmark.harness import loops, spec
+from benchmark.harness import spec
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "sdfkit_tpu")  # top-level names a run may not hold
 
@@ -29,9 +29,19 @@ def power_limit_w() -> float | None:
         return None
 
 
+def quantity_of(name: str, measured: dict) -> str | None:
+    """The loop's quantity that the end-to-end metric ``name`` reports:
+    ``name`` itself, or for ``<quantity>.<group>`` the ``<quantity>``, so
+    that cells whose runs spread differently take bounds of their own."""
+    for quantity in (name, name.split(".")[0]):
+        if quantity in measured:
+            return quantity
+    return None
+
+
 def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t0: float) -> dict:
     """The cell's run: its result line, with ``checks`` last."""
-    outcome = loops.LOOPS[cell.traffic["loop"]](cell, seed, seconds, traced, device, t0)
+    outcome = spec.loop(cell.traffic["loop"]).run(cell, seed, seconds, traced, device, t0)
     metrics = {}
     if traced:
         for m in cell.per_layer:
@@ -40,8 +50,9 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t0: fl
                 metrics[m["name"]] = {"value": value, "unit": m["unit"]}
     else:
         for m in cell.end_to_end:
-            if m["name"] in outcome.end_to_end:
-                metrics[m["name"]] = {"value": outcome.end_to_end[m["name"]], "unit": m["unit"]}
+            quantity = quantity_of(m["name"], outcome.end_to_end)
+            if quantity is not None:
+                metrics[m["name"]] = {"value": outcome.end_to_end[quantity], "unit": m["unit"]}
     on_card = torch.device(device).type == "cuda"
     dev = {"platform": "gpu" if on_card else "cpu",
            "kind": torch.cuda.get_device_name(device) if on_card else "cpu",
@@ -55,6 +66,5 @@ def run(cell: spec.Cell, seed: int, seconds: float, traced: bool, device, t0: fl
         line["breakdown"] = {"device_ops": s.device_ops, "idle_gaps": s.idle_gaps}
     line["builds"] = outcome.builds
     line["setup"] = outcome.setup
-    line["readings"] = outcome.readings
     line["checks"] = {c.name: c.line() for c in outcome.checks}
     return line

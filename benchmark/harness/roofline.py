@@ -9,7 +9,7 @@ Operations are counted by the rule of the scene compiler's node count at
 the benchmark's first commit (one node of the compiled program is one
 operation), frozen per scene in its configuration's ``counts``, plus the
 fixed work around a distance evaluation named here. The metric readers
-(``metrics/kernel.*_roofline_pct.*.py``) say what a frame and a gradient
+(``metrics/kernel.*_roofline.*.py``) say what a frame and a gradient
 need of them.
 """
 

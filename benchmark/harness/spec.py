@@ -1,10 +1,11 @@
 """What a run measures, found by name: the cell in ``BENCHMARK.json``, its
 configuration (``configs/<config>.json``), its traffic mix
-(``traffic/<mix>.json``), its limits (``limits/<cell>.json``), the scene
-kind's reference (``reference/<kind>.py``) and port builder
-(``scenes/<kind>.py``), and the readers of the per-layer metrics
-(``metrics/<metric>.py``). No list of them is written in the code: a file
-added under one of these folders and named in ``BENCHMARK.json`` is found.
+(``traffic/<mix>.json``) and the loop the mix names (``loops/<loop>.py``),
+its limits (``limits/<cell>.json``), the scene kind's reference
+(``reference/<kind>.py``) and port builder (``scenes/<kind>.py``), and the
+readers of the per-layer metrics (``metrics/<metric>.py``). No list of them
+is written in the code: a file added under one of these folders and named in
+``BENCHMARK.json`` is found.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import importlib
 import importlib.util
 import json
 import pathlib
+import sys
 
 HERE = pathlib.Path(__file__).resolve().parents[1]  # the benchmark's folder
 ROOT = HERE.parent  # the checkout
@@ -64,12 +66,24 @@ def scene_modules(kind: str):
             importlib.import_module(f"benchmark.scenes.{kind}"))
 
 
+def _load(path: pathlib.Path, name: str):
+    """The module of the file ``path``, under ``name`` (loaded once)."""
+    if name in sys.modules and sys.modules[name].__file__ == str(path):
+        return sys.modules[name]
+    spec = importlib.util.spec_from_file_location(name, path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def loop(name: str):
+    """The module ``loops/<name>.py``: ``run`` and ``control_readings``."""
+    return _load(HERE / "loops" / f"{name}.py", f"benchmark.loops.{name}")
+
+
 def metric_reader(name: str):
     """``read(ctx)`` of ``metrics/<name>.py``: the metric's value, or None
     where the run gives it nothing to read."""
-    path = HERE / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"benchmark_metric_{name.replace('.', '_')}",
-                                                  path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _load(HERE / "metrics" / f"{name}.py",
+                 f"benchmark_metric_{name.replace('.', '_')}").read

@@ -82,6 +82,11 @@ def _union(intervals) -> list:
     return out
 
 
+def union_length(spans) -> float:
+    """The length of the union of (start, end) spans, in their unit."""
+    return sum(b - a for a, b in _union(spans))
+
+
 def summarize(events, window: str, spans_of_interest) -> Summary | None:
     """Reduce the events inside the user span named ``window`` (the last
     one, where there are several). ``spans_of_interest``: the span names

@@ -1,0 +1,6 @@
+"""``device.idle_pct.fit``, its arithmetic and its reader, in the cells that report
+``step_ms.small``."""
+
+from benchmark.harness import spec
+
+read = spec.metric_reader("device.idle_pct.fit")

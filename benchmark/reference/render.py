@@ -258,6 +258,13 @@ def loss_and_grads(scene, params, view, target, cfg: dict, dtype=torch.float32,
     return total.float(), grads
 
 
+def frame_loss(scene, params, view, target, cfg: dict, block_pixels: int = 1 << 19) -> float:
+    """The mean squared error of the frame against ``target``, with no
+    autograd: a fit step's loss at ``params``."""
+    rgb = render(scene, params, view, cfg, block_pixels=block_pixels)
+    return float(((rgb.double() - target.double()) ** 2).mean())
+
+
 def fit_steps(scene, params, view, target, cfg: dict, train: str, lr: float, steps: int,
               **faults) -> tuple[list, torch.Tensor, dict]:
     """``steps`` steps of Adam on ``params[train]`` from ``params``: (each

@@ -8,11 +8,12 @@ asks for. Prints, as the last line of standard output, one JSON object:
 metrics, or with ``--trace 1`` its per-layer ones), ``device``, with
 ``--trace 1`` ``breakdown``, then ``builds`` (nvcc runs in this process: 0
 in a warm checkout), ``setup`` (seconds from the start to each step of
-set-up), ``readings`` (numbers read and not compared) and,
-last, ``checks``: each number compared with its limit, which also end
-standard error. Exits 2 without a card, or with
-fewer cards than the cell asks for; 3 where a module of JAX or of the JAX
-package was loaded.
+set-up, and the parts that ``setup_s`` leaves out: ``reference_s``, the
+reference's, and ``tracer_s``, the start of a tracer that times the window)
+and, last, ``checks``: each number compared with its limit,
+which also end standard error. Exits 2 without a card, or with fewer cards
+than the cell asks for; 3 where a module of JAX or of the JAX package was
+loaded.
 """
 
 import time
@@ -59,8 +60,6 @@ def main(argv=None) -> int:
     if loaded:
         print(f"modules of JAX or the JAX package were loaded: {loaded}", file=sys.stderr)
         return 3
-    for name, value in line["readings"].items():
-        print(f"reading {name}: {value!r} (not compared)", file=sys.stderr)
     for name, c in line["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})", file=sys.stderr)
     sys.stderr.flush()

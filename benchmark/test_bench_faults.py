@@ -5,9 +5,10 @@ an answer altered where it is produced, half of the work left out (for a
 fit, the mean taken over the rest), and for a fit a step that leaves its
 state unchanged. One card has no exchange between cards to leave out.
 
-The control (the reference in bfloat16 in the program's place) fails the
-same limits at this size: ``control.py`` reads it at the cells' own sizes
-on the card."""
+Each fault of a fit also once in the window's ``fit`` call alone, with the
+set-up's steps sound. The control (the reference in bfloat16 in the
+program's place) fails the same limits at this size: ``control.py`` reads
+it at the cells' own sizes on the card."""
 
 from __future__ import annotations
 
@@ -19,7 +20,6 @@ import torch
 import sdfkit_tpu_torch as st
 from sdfkit_tpu_torch.parallel import train
 
-from benchmark import control
 from benchmark.harness import check, result, spec
 
 SEED = 2**32 + 77
@@ -70,6 +70,43 @@ def _drop_lower_half(frame):
     return frame
 
 
+def _in_the_window_only(monkeypatch, fault):
+    """``st.fit`` with ``fault(monkeypatch)`` in force from its second call
+    on (the window's; set-up makes the first), undone after each."""
+    whole, calls = st.fit, []
+
+    def fit(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            return whole(*args, **kwargs)
+        with pytest.MonkeyPatch.context() as m:
+            fault(m)
+            return whole(*args, **kwargs)
+
+    monkeypatch.setattr(st, "fit", fit)
+
+
+def _state_unchanged(m):
+    m.setattr(torch.optim.Adam, "step", lambda self, closure=None: None)
+
+
+def _frame_altered(m):
+    rows = train.row_renderer
+
+    def altered(*args, **kwargs):
+        render = rows(*args, **kwargs)
+        return lambda r0, n: _add_to_top_rows(render(r0, n).clone())
+
+    m.setattr(train, "row_renderer", altered)
+
+
+def _half_the_loss(m):
+    whole = train.band_loss_and_grads
+    m.setattr(train, "band_loss_and_grads",
+              lambda mesh, render, params, target: whole(mesh, render, params,
+                                                         target[: target.shape[0] // 2]))
+
+
 def test_a_sound_run_is_correct():
     assert _run("sphere_repeat_1080p.frames_orbit")["correct"] is True
     assert _run(FIT)["correct"] is True
@@ -84,37 +121,36 @@ def test_a_broken_frame_fails(monkeypatch, change):
 
 
 def test_a_step_that_leaves_its_state_unchanged_fails(monkeypatch):
-    monkeypatch.setattr(torch.optim.Adam, "step", lambda self, closure=None: None)
+    _state_unchanged(monkeypatch)
     line = _run(FIT)
     assert line["correct"] is False
     assert line["checks"]["change_gap"]["value"] == pytest.approx(1.0)
 
 
 def test_half_the_frame_left_out_of_the_loss_fails(monkeypatch):
-    whole = train.band_loss_and_grads
-
-    def half(mesh, render, params, target):
-        return whole(mesh, render, params, target[: target.shape[0] // 2])
-
-    monkeypatch.setattr(train, "band_loss_and_grads", half)
+    _half_the_loss(monkeypatch)
     assert _run(FIT)["correct"] is False
 
 
 def test_a_frame_altered_inside_the_fit_fails(monkeypatch):
-    rows = train.row_renderer
-
-    def altered(*args, **kwargs):
-        render = rows(*args, **kwargs)
-        return lambda r0, n: _add_to_top_rows(render(r0, n).clone())
-
-    monkeypatch.setattr(train, "row_renderer", altered)
+    _frame_altered(monkeypatch)
     assert _run(FIT)["correct"] is False
 
 
-@pytest.mark.parametrize("name", ["sphere_repeat_1080p.frames_orbit", FIT])
+@pytest.mark.parametrize("fault", [_state_unchanged, _frame_altered, _half_the_loss],
+                         ids=["state_unchanged", "frame_altered", "half_the_loss"])
+def test_a_fault_in_the_window_call_alone_fails(monkeypatch, fault):
+    """The set-up's steps are sound and the window's ``fit`` call is broken:
+    the check follows the window's first step and judges its last."""
+    _in_the_window_only(monkeypatch, fault)
+    line = _run(FIT)
+    assert line["correct"] is False and line["failed"] >= 1
+
+
+@pytest.mark.parametrize("name", ["sphere_repeat_1080p.frames_orbit",
+                                  "union_grid_4_1080p.fit_colours", FIT])
 def test_the_control_fails_the_limits(name):
     cell = _cell(name)
-    read = control.frames_readings if cell.traffic["loop"] == "frames" else control.fit_readings
-    readings = read(cell, SEED, "cpu")
+    readings = spec.loop(cell.traffic["loop"]).control_readings(cell, SEED, "cpu")
     numbers = {k: v for k, v in readings["control"].items() if k in cell.limits}
-    assert not all(c.ok for c in check.judge(numbers, cell.limits)[0])
+    assert not all(c.ok for c in check.judge(numbers, cell.limits))

@@ -56,7 +56,8 @@ def test_benchmark_json_keeps_its_contract():
     for w in b["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
         assert w["chips"] == 1 and w["config"] in names and TEXT.fullmatch(w["why"])
-        assert (BENCH / "traffic" / f"{w['traffic']}.json").is_file()
+        mix = json.loads((BENCH / "traffic" / f"{w['traffic']}.json").read_text())
+        assert (BENCH / "loops" / f"{mix['loop']}.py").is_file()
         assert (BENCH / "limits" / f"{w['name']}.json").is_file()
     end = {m["name"]: m for m in b["end_to_end"]}
     assert "setup_s" in end and end["setup_s"]["bound"] <= 0.25
@@ -85,9 +86,9 @@ def _digest(folder: pathlib.Path) -> dict:
 
 
 def test_a_new_config_mix_and_metric_are_found_by_name(tmp_path, monkeypatch):
-    """In a copy, a configuration, a traffic mix, a limits file and a
-    per-layer metric are added as new files and entries; the harness finds
-    each by its name, and no file that was there changes."""
+    """In a copy, a configuration, a traffic mix with a loop of its own, a
+    limits file and a per-layer metric are added as new files and entries;
+    the harness finds each by its name, and no file that was there changes."""
     copy = tmp_path / "checkout"
     shutil.copytree(BENCH, copy / "benchmark", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", copy / "BENCHMARK.json")
@@ -96,7 +97,9 @@ def test_a_new_config_mix_and_metric_are_found_by_name(tmp_path, monkeypatch):
     config.update(name="sphere_repeat_2160p", render={**config["render"], "width": 3840,
                                                       "height": 2160})
     (copy / "benchmark/configs/sphere_repeat_2160p.json").write_text(json.dumps(config))
-    (copy / "benchmark/traffic/frames_still.json").write_text(json.dumps({"loop": "frames"}))
+    (copy / "benchmark/traffic/frames_still.json").write_text(json.dumps({"loop": "still"}))
+    (copy / "benchmark/loops/still.py").write_text(
+        "def run(*args):\n    return 'still'\n\n\ndef control_readings(*args):\n    return {}\n")
     (copy / "benchmark/limits/sphere_repeat_2160p.frames_still.json").write_text(
         (copy / "benchmark/limits/sphere_repeat_1080p.frames_orbit.json").read_text())
     (copy / "benchmark/metrics/frames.count.frame.py").write_text(
@@ -116,7 +119,8 @@ def test_a_new_config_mix_and_metric_are_found_by_name(tmp_path, monkeypatch):
     monkeypatch.setattr(spec, "ROOT", copy)
     monkeypatch.setattr(spec, "HERE", copy / "benchmark")
     cell = spec.load_cell("sphere_repeat_2160p.frames_still", new_bench)
-    assert cell.config["render"]["width"] == 3840 and cell.traffic == {"loop": "frames"}
+    assert cell.config["render"]["width"] == 3840 and cell.traffic == {"loop": "still"}
+    assert spec.loop(cell.traffic["loop"]).run() == "still"
     assert [m["name"] for m in cell.per_layer if m["name"] == "frames.count.frame"]
     assert spec.metric_reader("frames.count.frame")({"count": 7}) == 7.0
     assert _digest(copy) == {**before, **{k: v for k, v in _digest(copy).items()
@@ -129,22 +133,25 @@ def test_the_last_line_has_the_contract_keys():
     ``checks``, each number beside its limit, last."""
     st.set_default_device("cpu")
     try:
-        for name in ("sphere_repeat_1080p.frames_orbit", "union_grid_200_1080p.fit_colours"):
+        for name in ("sphere_repeat_1080p.frames_orbit", "union_grid_4_1080p.fit_colours",
+                     "union_grid_200_1080p.fit_colours"):
             cell = spec.load_cell(name)
             cell.config["render"].update(width=32, height=18)
             for traced in (False, True):
                 line = result.run(cell, 2**33 + 5, 0.3, traced, "cpu", time.perf_counter())
                 keys = list(line)
                 assert keys[:5] == list(REQUIRED) and keys[-1] == "checks"
-                assert set(keys) == set(REQUIRED) | {"builds", "setup", "readings", "checks"} | (
+                assert set(keys) == set(REQUIRED) | {"builds", "setup", "checks"} | (
                     {"breakdown"} if traced else set())
                 assert line["correct"] is True
                 for c in line["checks"].values():
                     assert set(c) == {"value", "limit"}
                 names = {m["name"] for m in (cell.per_layer if traced else cell.end_to_end)}
                 assert set(line["metrics"]) <= names
-                if not traced:
-                    assert "setup_s" in line["metrics"]
+                if not traced:  # every end-to-end metric of the cell, "step_ms.small" too,
+                    # but a device clock, which a run on the CPU has nothing to read for
+                    on_card = {m["name"] for m in cell.end_to_end if m["source"] == "device_trace"}
+                    assert set(line["metrics"]) == names - on_card and "setup_s" in names
                 json.dumps(line)
     finally:
         st.set_default_device(None)
@@ -189,9 +196,10 @@ def test_a_chip_run_imports_no_jax_and_the_reference_none_of_the_program():
         "import benchmark.reference.render, benchmark.reference.sphere_repeat,"
         " benchmark.reference.union_grid;"
         "assert not [m for m in sys.modules if m.split('.')[0] == 'sdfkit_tpu_torch'];"
-        "import benchmark.harness.result, benchmark.harness.loops, benchmark.control,"
+        "import benchmark.harness.result, benchmark.harness.window, benchmark.control,"
         " benchmark.scenes.sphere_repeat, benchmark.scenes.union_grid;"
         "from benchmark.harness import spec;"
+        "[spec.loop(p.stem) for p in pathlib.Path('benchmark/loops').glob('[a-z]*.py')];"
         "[spec.metric_reader(p.stem) for p in pathlib.Path('benchmark/metrics').glob('*.py')];"
         "from benchmark.harness.result import forbidden_modules;"
         "print(forbidden_modules())")
