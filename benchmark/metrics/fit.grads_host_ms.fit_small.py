@@ -1,0 +1,6 @@
+"""``fit.grads_host_ms.fit``, its arithmetic and its reader, in the cells that report
+``step_ms.small``."""
+
+from benchmark.harness import spec
+
+read = spec.metric_reader("fit.grads_host_ms.fit")

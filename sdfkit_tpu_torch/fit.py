@@ -33,6 +33,7 @@ import torch
 
 from sdfkit_tpu_torch.render.raymarch import RayMarcher, resolve_backend
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
+from sdfkit_tpu_torch.utils.spans import span
 
 CHECKPOINTS_KEPT = 2
 
@@ -139,54 +140,61 @@ def fit(
     the same result. Rank 0 alone writes checkpoints; a resume restores on
     every rank from ``checkpoint_dir``, which every rank sees.
     """
-    from sdfkit_tpu_torch.parallel.distributed import Mesh, single
-    from sdfkit_tpu_torch.parallel.train import band_loss_and_grads, row_renderer
+    with span("sdf.fit.setup"):
+        from sdfkit_tpu_torch.parallel.distributed import Mesh, single
+        from sdfkit_tpu_torch.parallel.train import band_loss_and_grads, row_renderer
 
-    if mesh is not None and not isinstance(mesh, Mesh):
-        raise TypeError(f"mesh must be a sdfkit_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
-    backend = resolve_backend(backend, sdf)  # refuse a bad backend before the scene is copied
-    sdf = copy.deepcopy(sdf)
-    device = scene_device(sdf)
-    if not isinstance(target, torch.Tensor):
-        target = torch.from_numpy(np.array(target, dtype=np.float32))  # a copy it may own
-    target = target.to(device=device, dtype=torch.float32)
-    if target.ndim != 3 or target.shape[2] != 3:
-        raise ValueError(f"the target must be an (H, W, 3) image, got {tuple(target.shape)}")
-    height, width = target.shape[:2]
-    if view is not None:
-        view = torch.as_tensor(view, dtype=torch.float32, device=device)
-    marcher = RayMarcher(width, height, sdf, view=view, backend=backend, **cfg_kwargs)
-    mesh = single(device) if mesh is None else mesh
-    render = row_renderer(sdf, marcher.view, marcher.config, backend)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(
+                f"mesh must be a sdfkit_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
+        backend = resolve_backend(backend, sdf)  # refuse a bad backend before the scene is copied
+        sdf = copy.deepcopy(sdf)
+        device = scene_device(sdf)
+        if not isinstance(target, torch.Tensor):
+            target = torch.from_numpy(np.array(target, dtype=np.float32))  # a copy it may own
+        target = target.to(device=device, dtype=torch.float32)
+        if target.ndim != 3 or target.shape[2] != 3:
+            raise ValueError(f"the target must be an (H, W, 3) image, got {tuple(target.shape)}")
+        height, width = target.shape[:2]
+        if view is not None:
+            view = torch.as_tensor(view, dtype=torch.float32, device=device)
+        marcher = RayMarcher(width, height, sdf, view=view, backend=backend, **cfg_kwargs)
+        mesh = single(device) if mesh is None else mesh
+        render = row_renderer(sdf, marcher.view, marcher.config, backend)
 
-    params = leaves(sdf)
-    clip = optimizer is None
-    opt = torch.optim.Adam(params, lr=learning_rate) if clip else optimizer(params)
+        params = leaves(sdf)
+        clip = optimizer is None
+        opt = torch.optim.Adam(params, lr=learning_rate) if clip else optimizer(params)
 
-    start_step, resumed_from = 0, None
-    directory = None
-    if checkpoint_dir is not None:
-        directory = pathlib.Path(os.path.abspath(os.fspath(checkpoint_dir)))
-        directory.mkdir(parents=True, exist_ok=True)
-        found = _checkpoints(directory)
-        if found:
-            start_step = resumed_from = _restore(found[-1][1], params, opt)
+        start_step, resumed_from = 0, None
+        directory = None
+        if checkpoint_dir is not None:
+            directory = pathlib.Path(os.path.abspath(os.fspath(checkpoint_dir)))
+            directory.mkdir(parents=True, exist_ok=True)
+            found = _checkpoints(directory)
+            if found:
+                start_step = resumed_from = _restore(found[-1][1], params, opt)
 
     losses: list[float] = []
     for step in range(start_step, steps):
-        # Every leaf's gradient, also of those a caller's optimizer leaves out.
-        loss = band_loss_and_grads(mesh, render, params, target)
-        if clip:
-            clip_by_global_norm_(params, 1.0)
-        opt.step()
-        loss = loss.item()  # waits for the step, as the reference's loop does
-        losses.append(loss)
-        if progress is not None:
-            progress(step, loss)
-        if directory is not None and ((step + 1) % checkpoint_every == 0 or step + 1 == steps):
-            if mesh.rank == 0:
-                _save(directory, step + 1, params, opt)
-            mesh.barrier()
+        with span("sdf.fit.step", top=True):
+            # Every leaf's gradient, also of those a caller's optimizer leaves out.
+            loss = band_loss_and_grads(mesh, render, params, target)
+            with span("sdf.fit.optimizer"):
+                if clip:
+                    clip_by_global_norm_(params, 1.0)
+                opt.step()
+            with span("sdf.fit.sync"):
+                loss = loss.item()  # waits for the step, as the reference's loop does
+            losses.append(loss)
+            if progress is not None:
+                with span("sdf.fit.progress"):
+                    progress(step, loss)
+            if directory is not None and ((step + 1) % checkpoint_every == 0 or step + 1 == steps):
+                with span("sdf.fit.checkpoint"):
+                    if mesh.rank == 0:
+                        _save(directory, step + 1, params, opt)
+                    mesh.barrier()
     return FitResult(sdf=sdf, losses=losses, steps_run=steps - start_step,
                      resumed_from=resumed_from)
 

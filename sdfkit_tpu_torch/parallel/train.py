@@ -44,6 +44,7 @@ from sdfkit_tpu_torch.render.raymarch import (
 from sdfkit_tpu_torch.render.raymarch import resolve_backend as resolve_shard_backend
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
 from sdfkit_tpu_torch.utils.camera import camera_rays, default_view, inv_view_proj
+from sdfkit_tpu_torch.utils.spans import span
 from sdfkit_tpu_torch.utils.v3 import V3
 
 
@@ -149,21 +150,25 @@ def band_loss_and_grads(mesh: Mesh, render, params, target: torch.Tensor) -> tor
     gradients and the loss."""
     height, width = target.shape[:2]
     _, r0, count = band_rows(mesh, height)
-    for p in params:
-        p.grad = None
+    with span("sdf.fit.grads"):
+        for p in params:
+            p.grad = None
     loss = None
     if count:
-        band = render(r0, count)
-        loss = ((band - target[r0:r0 + count]) ** 2).sum() / (height * width * 3)
-        loss.backward()
-    parts = [torch.zeros_like(p).reshape(-1) if p.grad is None else p.grad.reshape(-1)
-             for p in params]
-    parts.append(target.new_zeros(1) if loss is None else loss.detach().reshape(1))
-    flat = mesh.all_reduce_sum(torch.cat(parts))
-    i = 0
-    for p in params:
-        p.grad = flat[i:i + p.numel()].view_as(p).clone()
-        i += p.numel()
+        with span("sdf.fit.forward"):
+            band = render(r0, count)
+            loss = ((band - target[r0:r0 + count]) ** 2).sum() / (height * width * 3)
+        with span("sdf.fit.backward"):
+            loss.backward()
+    with span("sdf.fit.grads"):
+        parts = [torch.zeros_like(p).reshape(-1) if p.grad is None else p.grad.reshape(-1)
+                 for p in params]
+        parts.append(target.new_zeros(1) if loss is None else loss.detach().reshape(1))
+        flat = mesh.all_reduce_sum(torch.cat(parts))
+        i = 0
+        for p in params:
+            p.grad = flat[i:i + p.numel()].view_as(p).clone()
+            i += p.numel()
     return flat[-1]
 
 

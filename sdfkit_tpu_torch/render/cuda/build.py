@@ -26,7 +26,8 @@ interface under ``sdfkit_tpu_torch/_build/``.
   (``csrc/raymarch_uniforms.cuh`` decides from ``SDF_N_PARAMS``): a scene of
   any size builds.
 * ``BUILDS`` counts nvcc runs in this process. Importing the package never
-  runs nvcc.
+  runs nvcc. ``LOADS`` counts the libraries loaded (built or not) and
+  ``LOAD_SECONDS`` their seconds, nvcc's included, summed over threads.
 * No ``--use_fast_math``: the kernels rely on IEEE ``/``, ``sqrtf`` and ``fmaf``.
   nvcc's default FMA contraction stays on, which is why a kernel matches
   the plain path distributionally and not per pixel.
@@ -46,6 +47,7 @@ import threading
 import time
 
 from sdfkit_tpu_torch.sdf.compile import Program
+from sdfkit_tpu_torch.utils.spans import span
 
 PACKAGE_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC = PACKAGE_DIR / "csrc"
@@ -55,6 +57,9 @@ NVCC_FLAGS = (
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 BUILDS = 0  # nvcc runs in this process
+LOADS = 0  # libraries loaded in this process (load_family's misses)
+LOAD_SECONDS = 0.0  # the seconds those loads took, nvcc's included, summed over threads
+_COUNTS = threading.Lock()
 
 
 @dataclasses.dataclass
@@ -246,11 +251,23 @@ def _compile(stem: str, unit: str) -> tuple[pathlib.Path, float | None, str]:
 
 def load_family(program: Program, family: str) -> KernelLib:
     """The library of ``family`` for ``program``, built on first use."""
+    global LOADS, LOAD_SECONDS
     fam = FAMILIES[family]
     name = program.adjoint_hash if fam.adjoint else program.hash
     lib = _LIBS.get((family, name))
     if lib is not None:
         return lib
+    t0 = time.perf_counter()
+    with span("sdf.build"):
+        lib = _LIBS[(family, name)] = _load(program, fam, family, name)
+    with _COUNTS:
+        LOADS += 1
+        LOAD_SECONDS += time.perf_counter() - t0
+    return lib
+
+
+def _load(program: Program, fam: Family, family: str, name: str) -> KernelLib:
+    """Build (where this checkout has not) and load the library of ``family``."""
     unit = translation_unit(program, family)
     headers = _BWD_HEADERS if fam.adjoint else _FWD_HEADERS
     digest = _source_digest(unit, (*headers, fam.prefix + ".cu"))
@@ -276,11 +293,8 @@ def load_family(program: Program, family: str) -> KernelLib:
                 f"the program has {program.n_params}"
             )
     registers, local = _ptxas(log)
-    lib = _LIBS[(family, name)] = KernelLib(
-        launch=fn, path=so, build_seconds=seconds, registers=registers, local_memory=local,
-        rows=rows, store=fam.store, resident=resident,
-    )
-    return lib
+    return KernelLib(launch=fn, path=so, build_seconds=seconds, registers=registers,
+                     local_memory=local, rows=rows, store=fam.store, resident=resident)
 
 
 def load(program: Program, store: bool = False) -> KernelLib:

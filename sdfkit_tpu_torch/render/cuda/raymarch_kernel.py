@@ -69,6 +69,7 @@ from sdfkit_tpu_torch.render.raymarch import RenderConfig
 from sdfkit_tpu_torch.sdf.compile import compile_scene, flat_params
 from sdfkit_tpu_torch.sdf.expr import SdfExpr
 from sdfkit_tpu_torch.utils.camera import inv_view_proj
+from sdfkit_tpu_torch.utils.spans import span
 from sdfkit_tpu_torch.utils.v3 import V3
 
 LAUNCHES = 0  # image forward launches
@@ -324,24 +325,27 @@ class _RenderImage(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, v19, program, cfg, want_color, pix0=0, n_rows=None):
-        params, v19 = params.detach().contiguous(), v19.detach().contiguous()
-        n_rows = cfg.height if n_rows is None else n_rows
-        out = launch(build.load(program), params, v19, cfg, want_color, pix0, n_rows * cfg.width)
-        ctx.save_for_backward(params, v19)
-        ctx.program, ctx.cfg, ctx.want_color = program, cfg, want_color
-        ctx.pix0, ctx.n_rows = pix0, n_rows
-        return out.view((n_rows, cfg.width, 3) if want_color else (n_rows, cfg.width))
+        with span("sdf.render.launch"):
+            params, v19 = params.detach().contiguous(), v19.detach().contiguous()
+            n_rows = cfg.height if n_rows is None else n_rows
+            out = launch(build.load(program), params, v19, cfg, want_color, pix0,
+                         n_rows * cfg.width)
+            ctx.save_for_backward(params, v19)
+            ctx.program, ctx.cfg, ctx.want_color = program, cfg, want_color
+            ctx.pix0, ctx.n_rows = pix0, n_rows
+            return out.view((n_rows, cfg.width, 3) if want_color else (n_rows, cfg.width))
 
     @staticmethod
     def backward(ctx, grad):
-        params, v19 = ctx.saved_tensors
-        _check_cuda_float32("the cotangent of a kernel render", grad)
-        npix = ctx.n_rows * ctx.cfg.width
-        grad = grad.contiguous().view((npix, 3) if ctx.want_color else (npix,))
-        out = launch_bwd(build.load_bwd(ctx.program), params, v19, ctx.cfg, ctx.want_color, grad,
-                         ctx.pix0, npix)
-        n = params.numel()
-        return out[:n], out[n:], None, None, None, None, None
+        with span("sdf.render.backward"):
+            params, v19 = ctx.saved_tensors
+            _check_cuda_float32("the cotangent of a kernel render", grad)
+            npix = ctx.n_rows * ctx.cfg.width
+            grad = grad.contiguous().view((npix, 3) if ctx.want_color else (npix,))
+            out = launch_bwd(build.load_bwd(ctx.program), params, v19, ctx.cfg, ctx.want_color,
+                             grad, ctx.pix0, npix)
+            n = params.numel()
+            return out[:n], out[n:], None, None, None, None, None
 
 
 class _RenderRays(torch.autograd.Function):
@@ -354,31 +358,34 @@ class _RenderRays(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, params, ox, oy, oz, dx, dy, dz, program, cfg, want_color, want_hit):
-        shape = ox.shape
-        params = params.detach().contiguous()
-        rays = tuple(c.detach().contiguous().view(-1) for c in (ox, oy, oz, dx, dy, dz))
-        out = launch_rays(build.load_rays(program), params, rays, cfg, want_color, want_hit)
-        ctx.hit = None
-        if want_hit:
-            out, ctx.hit = out
-        ctx.save_for_backward(params, *rays)
-        ctx.program, ctx.cfg, ctx.want_color, ctx.shape = program, cfg, want_color, shape
-        return out.view((*shape, 3) if want_color else shape)
+        with span("sdf.render.launch"):
+            shape = ox.shape
+            params = params.detach().contiguous()
+            rays = tuple(c.detach().contiguous().view(-1) for c in (ox, oy, oz, dx, dy, dz))
+            out = launch_rays(build.load_rays(program), params, rays, cfg, want_color, want_hit)
+            ctx.hit = None
+            if want_hit:
+                out, ctx.hit = out
+            ctx.save_for_backward(params, *rays)
+            ctx.program, ctx.cfg, ctx.want_color, ctx.shape = program, cfg, want_color, shape
+            return out.view((*shape, 3) if want_color else shape)
 
     @staticmethod
     def backward(ctx, grad):
-        params, *rays = ctx.saved_tensors
-        _check_cuda_float32("the cotangent of a kernel render", grad)
-        n = rays[0].numel()
-        grad = grad.contiguous().view((n, 3) if ctx.want_color else (n,))
-        g_params, g_rays = launch_rays_bwd(build.load_rays_bwd(ctx.program), params, rays,
-                                           ctx.cfg, ctx.want_color, grad, ctx.hit)
-        return (g_params, *(g.view(ctx.shape) for g in g_rays), None, None, None, None)
+        with span("sdf.render.backward"):
+            params, *rays = ctx.saved_tensors
+            _check_cuda_float32("the cotangent of a kernel render", grad)
+            n = rays[0].numel()
+            grad = grad.contiguous().view((n, 3) if ctx.want_color else (n,))
+            g_params, g_rays = launch_rays_bwd(build.load_rays_bwd(ctx.program), params, rays,
+                                               ctx.cfg, ctx.want_color, grad, ctx.hit)
+            return (g_params, *(g.view(ctx.shape) for g in g_rays), None, None, None, None)
 
 
 def _program_and_params(expr: SdfExpr):
-    program = compile_scene(expr)
-    params = flat_params(expr)
+    with span("sdf.render.params"):
+        program = compile_scene(expr)
+        params = flat_params(expr)
     if params.numel() != program.n_params:
         raise ValueError(f"{params.numel()} parameters for a program of {program.n_params} slots")
     return program, params
@@ -387,7 +394,9 @@ def _program_and_params(expr: SdfExpr):
 def _render(expr: SdfExpr, view: torch.Tensor, cfg: RenderConfig, want_color: bool):
     _check("view", view, (4, 4))
     program, params = _program_and_params(expr)
-    return _RenderImage.apply(params, view19(view, cfg), program, cfg, want_color)
+    with span("sdf.render.view"):
+        v19 = view19(view, cfg)
+    return _RenderImage.apply(params, v19, program, cfg, want_color)
 
 
 def render_image_kernel(expr: SdfExpr, view: torch.Tensor, cfg: RenderConfig) -> torch.Tensor:
@@ -409,7 +418,8 @@ def _render_rows(expr, ivp, cam, pix0, cfg, n_rows, want_color):
     pix0, n_rows = int(pix0), int(n_rows)
     _pixel_count(cfg, pix0, n_rows * cfg.width)
     program, params = _program_and_params(expr)
-    v19 = torch.cat([ivp.reshape(16), cam.reshape(3)])
+    with span("sdf.render.view"):
+        v19 = torch.cat([ivp.reshape(16), cam.reshape(3)])
     return _RenderImage.apply(params, v19, program, cfg, want_color, pix0, n_rows)
 
 

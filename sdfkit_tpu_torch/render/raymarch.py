@@ -26,6 +26,7 @@ import torch
 from sdfkit_tpu_torch import ops
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, scene_device
 from sdfkit_tpu_torch.utils.camera import camera_rays, default_view, look_at
+from sdfkit_tpu_torch.utils.spans import span
 from sdfkit_tpu_torch.utils.v3 import V3
 
 DEFAULT_NEAR = 1.0
@@ -223,20 +224,22 @@ class RayMarcher:
         return self.view if camera is None else self._check_view(camera)
 
     def render(self, camera=None) -> torch.Tensor:
-        view = self._view(camera)
-        if self.backend == "kernel":
-            from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_image_kernel
+        with span("sdf.frame", top=True):
+            view = self._view(camera)
+            if self.backend == "kernel":
+                from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_image_kernel
 
-            return render_image_kernel(self.sdf, view, self.config)
-        return render_image_torch(self.sdf, view, self.config)
+                return render_image_kernel(self.sdf, view, self.config)
+            return render_image_torch(self.sdf, view, self.config)
 
     def render_depth(self, camera=None) -> torch.Tensor:
-        view = self._view(camera)
-        if self.backend == "kernel":
-            from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_depth_image_kernel
+        with span("sdf.frame", top=True):
+            view = self._view(camera)
+            if self.backend == "kernel":
+                from sdfkit_tpu_torch.render.cuda.raymarch_kernel import render_depth_image_kernel
 
-            return render_depth_image_kernel(self.sdf, view, self.config)
-        return render_depth_image_torch(self.sdf, view, self.config)
+                return render_depth_image_kernel(self.sdf, view, self.config)
+            return render_depth_image_torch(self.sdf, view, self.config)
 
 
 def render(sdf: SdfExpr, width: int, height: int, camera_position=None,

@@ -39,6 +39,8 @@ import dataclasses
 import functools
 import hashlib
 import math
+import threading
+import time
 
 import numpy as np
 import torch
@@ -47,6 +49,7 @@ from torch import nn
 from sdfkit_tpu_torch import ops
 from sdfkit_tpu_torch.ops import Graph, SymTable, UnsupportedOpError
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
+from sdfkit_tpu_torch.utils.spans import span
 from sdfkit_tpu_torch.utils.v3 import V3
 
 
@@ -158,14 +161,23 @@ def _structure(node: SdfExpr) -> tuple:
 
 
 _PROGRAMS: dict[tuple, Program] = {}
+TRACES = 0  # compile_scene's misses in this process: the scenes traced
+TRACE_SECONDS = 0.0  # the seconds those traces took
+_COUNTS = threading.Lock()
 
 
 def compile_scene(expr: SdfExpr) -> Program:
     """The scene's program, traced once per structure."""
+    global TRACES, TRACE_SECONDS
     key = _structure(expr)
     prog = _PROGRAMS.get(key)
     if prog is None:
-        prog = _PROGRAMS[key] = trace(expr)
+        t0 = time.perf_counter()
+        with span("sdf.compile"):
+            prog = _PROGRAMS[key] = trace(expr)
+        with _COUNTS:
+            TRACES += 1
+            TRACE_SECONDS += time.perf_counter() - t0
     return prog
 
 
