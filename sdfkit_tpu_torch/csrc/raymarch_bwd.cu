@@ -186,7 +186,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   float acc[kNOut];  // the thread's running sums: parameters, then the view
 #pragma unroll kSdfAccUnroll
   for (int j = 0; j < kNOut; ++j) acc[j] = 0.0f;
-  const float* P = c_uniform;
+  const float* P = scene_params();
   const float* view19 = c_uniform + SDF_N_PARAMS;
   const long long stride = (long long)gridDim.x * blockDim.x;
 #if SDF_STORE
@@ -221,7 +221,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdMinBlocks)
   float gV[kViewScalars];
 #pragma unroll
   for (int j = 0; j < kViewScalars; ++j) gV[j] = 0.0f;
-  const float* P = c_uniform;
+  const float* P = scene_params();
   const float* view19 = c_uniform + SDF_N_PARAMS;
   const long long stride = (long long)gridDim.x * blockDim.x;
 #if SDF_STORE

@@ -60,10 +60,11 @@ constexpr int kThreads = 128;
 template <bool WANT_COLOR>
 __global__ void __launch_bounds__(kThreads)
     raymarch_fwd_kernel(RenderArgs a, float* __restrict__ out, float* __restrict__ store) {
+  const float* P = scene_params();
   const int local = blockIdx.x * blockDim.x + threadIdx.x;
   if (local >= a.local_npix) return;
-  shade_pixel<WANT_COLOR, kWantStore>(a.pix0 + local, c_uniform, c_uniform + SDF_N_PARAMS, a,
-                                      out, store);
+  shade_pixel<WANT_COLOR, kWantStore>(a.pix0 + local, P, c_uniform + SDF_N_PARAMS, a, out,
+                                      store);
 }
 
 // Blocks of the kernel one SM of the current device holds at once, or a

@@ -60,7 +60,7 @@ __global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)
   float acc[kNAcc];
 #pragma unroll kSdfAccUnroll
   for (int j = 0; j < kNAcc; ++j) acc[j] = 0.0f;
-  const float* P = c_uniform;
+  const float* P = scene_params();
   const long long n = a.local_npix;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
@@ -99,7 +99,7 @@ __global__ void __launch_bounds__(kBwdThreads, kRaysBwdMinBlocks)
                              float* __restrict__ partials) {
   const int lane = threadIdx.x & 31;
   float* row = partials + ((long long)blockIdx.x * kBwdWarps + (threadIdx.x >> 5)) * kNParams;
-  const float* P = c_uniform;
+  const float* P = scene_params();
   const long long n = a.local_npix;
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long first = blockIdx.x * blockDim.x + (threadIdx.x - lane); first < n;

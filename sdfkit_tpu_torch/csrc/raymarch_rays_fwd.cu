@@ -35,10 +35,11 @@ __global__ void __launch_bounds__(kRayThreads)
                              const float* __restrict__ dx, const float* __restrict__ dy,
                              const float* __restrict__ dz, RenderArgs a,
                              float* __restrict__ out, unsigned char* __restrict__ hit) {
+  const float* P = scene_params();
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.local_npix) return;
   const Ray r{ox[i], oy[i], oz[i], dx[i], dy[i], dz[i]};
-  shade_ray<WANT_COLOR, false, WANT_HIT>(r, c_uniform, a, out + (WANT_COLOR ? 3 : 1) * (long long)i,
+  shade_ray<WANT_COLOR, false, WANT_HIT>(r, P, a, out + (WANT_COLOR ? 3 : 1) * (long long)i,
                                          nullptr, 0, WANT_HIT ? hit + i : nullptr);
 }
 

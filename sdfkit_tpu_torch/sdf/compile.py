@@ -12,7 +12,10 @@ parameters from SMEM scalars). Here:
   the normal taps need only that) and for the colour-plus-distance outputs.
 * :func:`run` executes the program as torch ops (the CPU executor).
 * :func:`emit_cpp` writes the program as two C++ functions, ``sdf_dist`` and
-  ``sdf_eval``, for the hand-written kernel template in ``csrc/``.
+  ``sdf_eval``, for the hand-written kernel template in ``csrc/``. In a
+  program of the large tier a union of like children is written as one loop
+  over their parameter table (:class:`UnionLoop`): the same values, bit for
+  bit, from one child's code.
 * The adjoint replaces the ``jax.vjp`` the Pallas backward kernel ran on the
   traced body: a reverse sweep over the same program, with the per-op rules
   of ``jax.vjp`` and torch autograd (one rule table, :func:`_pullback`).
@@ -47,8 +50,8 @@ import torch
 from torch import nn
 
 from sdfkit_tpu_torch import ops
-from sdfkit_tpu_torch.ops import Graph, SymTable, UnsupportedOpError
-from sdfkit_tpu_torch.sdf.expr import SdfExpr, leaves, scene_device
+from sdfkit_tpu_torch.ops import Graph, Sym, SymTable, UnsupportedOpError
+from sdfkit_tpu_torch.sdf.expr import SdfExpr, Union, leaves, scene_device
 from sdfkit_tpu_torch.utils.spans import span
 from sdfkit_tpu_torch.utils.v3 import V3
 
@@ -67,6 +70,27 @@ class Program:
     adjoint_source: str = ""  # the C++ of the adjoints (sdf_dist_unit ... or sdf_dist_vjp ...)
     adjoint_hash: str = ""
     large: bool = False  # the backward's large-scene tier (``large_tier``)
+    loops: tuple = ()  # the UnionLoops emit_cpp writes as loops (the large tier only)
+    # (children, share of dist_live) that those loops cover; (0, 0.0) where none
+    looped: tuple = (0, 0.0)
+
+
+@dataclasses.dataclass(frozen=True)
+class UnionLoop:
+    """A tree of ``Union`` nodes over ``count`` like children, which
+    :func:`emit_cpp` writes as one loop over the children: child ``k`` is
+    ``child`` with its slot ``j`` read at ``base + stride * k + j``. ``point``
+    holds the node ids of the point the union is evaluated at, ``dist`` and
+    ``color`` the ids of its outputs in the traced program, which the loop
+    computes in place of the tree's nodes."""
+
+    point: tuple
+    dist: int
+    color: tuple
+    count: int
+    base: int
+    stride: int
+    child: Program
 
 
 def _deps(node: tuple) -> tuple:
@@ -78,20 +102,30 @@ def _deps(node: tuple) -> tuple:
     return node[1:]
 
 
-def _live(nodes, roots) -> tuple:
+def _live(nodes, roots, deps=None) -> tuple:
+    """The nodes that ``roots`` need; ``deps`` (node id -> ids) overrides
+    what a node needs."""
+    deps = deps or {}
     seen = set()
     stack = list(roots)
     while stack:
         i = stack.pop()
         if i not in seen:
             seen.add(i)
-            stack.extend(_deps(nodes[i]))
+            stack.extend(deps[i] if i in deps else _deps(nodes[i]))
     return tuple(sorted(seen))  # ids are created in topological order
 
 
-def _symbolic(node: SdfExpr, g: Graph, slot: int):
+def _symbolic(node: SdfExpr, g: Graph, slot: int, loops: list | None = None):
     """A copy of ``node`` whose parameters are symbolic slot loads (and
-    whose children are such copies), walked in ``leaves`` order."""
+    whose children are such copies), walked in ``leaves`` order. With
+    ``loops``, each union of like children (:func:`_like_children`) appends
+    its :class:`UnionLoop` there when it is evaluated."""
+    if loops is not None and type(node) is Union:
+        children = _union_children(node)
+        child = _like_children(children)
+        if child is not None:
+            return _looped(node, g, slot, loops, len(children), child)
     clone = object.__new__(type(node))
     clone.__dict__.update(node.__dict__)
     clone.__dict__.update(_parameters={}, _modules={}, _buffers={})
@@ -104,7 +138,7 @@ def _symbolic(node: SdfExpr, g: Graph, slot: int):
     for name in node.fields:
         v = getattr(node, name)
         if isinstance(v, SdfExpr):
-            sym, slot = _symbolic(v, g, slot)
+            sym, slot = _symbolic(v, g, slot, loops)
         elif isinstance(v, nn.ParameterList):
             items = []
             for p in v:
@@ -117,26 +151,37 @@ def _symbolic(node: SdfExpr, g: Graph, slot: int):
     return clone, slot
 
 
-def trace(expr: SdfExpr) -> Program:
-    """Trace ``expr.eval`` into a :class:`Program` (uncached)."""
-    g = Graph()
-    p = V3(g.input(0), g.input(1), g.input(2))
-    clone, n_params = _symbolic(expr, g, 0)
+def _outputs(g: Graph, clone, p: V3) -> tuple:
+    """(dist, (r, g, b)) of ``clone`` at ``p`` as Syms of ``g``; raises
+    where an output is a comparison."""
     color, dist = clone.eval(p)
     dist = g.lift(dist)
     color = tuple(g.lift(c) for c in (color.x, color.y, color.z))
     for s in (dist, *color):
         if g.is_bool[s.id]:
             raise UnsupportedOpError("a scene output is a comparison, not a float")
-    nodes, is_bool = tuple(g.nodes), tuple(g.is_bool)
-    dist_live = _live(nodes, [dist.id])
-    eval_live = _live(nodes, [dist.id, *(c.id for c in color)])
-    prog = Program(
-        nodes=nodes, is_bool=is_bool, dist=dist.id, color=tuple(c.id for c in color),
-        n_params=n_params, dist_live=dist_live, eval_live=eval_live,
-        source="", hash="",
+    return dist, color
+
+
+def _program(g: Graph, dist, color, n_params: int) -> Program:
+    nodes = tuple(g.nodes)
+    return Program(
+        nodes=nodes, is_bool=tuple(g.is_bool), dist=dist.id, color=tuple(c.id for c in color),
+        n_params=n_params, dist_live=_live(nodes, [dist.id]),
+        eval_live=_live(nodes, [dist.id, *(c.id for c in color)]), source="", hash="",
     )
+
+
+def trace(expr: SdfExpr) -> Program:
+    """Trace ``expr.eval`` into a :class:`Program` (uncached)."""
+    g = Graph()
+    p = V3(g.input(0), g.input(1), g.input(2))
+    loops = []
+    clone, n_params = _symbolic(expr, g, 0, loops)
+    prog = _program(g, *_outputs(g, clone, p), n_params)
     prog = dataclasses.replace(prog, large=large_tier(prog))
+    if prog.large:
+        prog = _with_loops(prog, loops)
     source = emit_cpp(prog)
     adjoint = emit_vjp_cpp(prog)
     return dataclasses.replace(
@@ -144,6 +189,139 @@ def trace(expr: SdfExpr) -> Program:
         adjoint_source=adjoint,
         adjoint_hash=hashlib.sha256((source + adjoint).encode()).hexdigest()[:16],
     )
+
+
+# ---------------------------------------------------------------------------
+# Unions of like children, written as loops.
+#
+# A union of n children that differ only in their parameters (the 200
+# translated spheres of scenes.union_grid_scene) is n copies of one child's
+# code in the straight-line form: at 200 spheres about 3,000 lines for one
+# distance, inlined at every call site of the kernels. The loop form runs
+# one child's code n times, reading child k's slot j at base + stride*k + j.
+#
+# It computes the tree's floats bit for bit wherever no child's distance is
+# NaN while another's is not: the distance is fminf of the children's, which
+# skips a NaN and, of children whose distances compare equal (+0 and -0
+# included), returns the same one however the tree pairs them (of two that
+# compare equal fminf returns a fixed side, or treats -0 as the less); the
+# colour is the last child's of those whose distance is the least
+# (``da < db ? a : b`` at every node of the tree picks that one, however it
+# pairs them); and where every distance is NaN both give NaN and the last
+# child's colour. A child whose distance alone is NaN (a parameter that is NaN) is
+# passed over as the tree's nodes pass it, but the colour then goes by the
+# loop's order: the tree's pairing would have to be replayed to follow it.
+# ---------------------------------------------------------------------------
+
+
+# The fewest like children a union takes the loop form with. The image
+# forward of union_grid_scene(n) on an H100 at 1920x1080x40 (parameters in
+# shared memory, tools/torch_kernel_probe.py --loops), loop / straight-line:
+# n = 12 0.891 / 0.627 ms, 16 1.179 / 0.860, 24 1.757 / 1.440, 32 2.323 /
+# 2.206, 48 3.459 / 3.966, 64 4.586 / 6.254, 100 7.048 / 11.554, 200 13.777
+# / 35.897. A child costs the loop 0.069-0.074 ms at every n; the
+# straight-line program's cost per child grows with n, its parameters all
+# constant-bank operands.
+LOOP_MIN_CHILDREN = 48
+# The loop's unroll. At n = 200, unrolled by 2 / not: the image forward 12.703
+# / 13.779 ms, the image backward 113.039 / 109.968 (its replay and taps run
+# the same loop). A fit step runs both, and the backward is most of it.
+LOOP_UNROLL = 1
+# A program with loops has the kernels copy its parameters into shared memory
+# once a block and read them there (csrc/raymarch_uniforms.cuh scene_params),
+# up to this many slots: 16 KB, which beside the store-fed backward's 24 KB
+# ring stays under the 48 KB a block may declare. A larger one reads the
+# constant bank (or device memory) as a straight-line program does.
+SHARED_PARAMS_MAX_SLOTS = 4096
+
+
+def _union_children(node: SdfExpr) -> list:
+    """The children of the tree of ``Union`` nodes at ``node``, left to
+    right (which is their slots' order)."""
+    if type(node) is not Union:
+        return [node]
+    return _union_children(node.a) + _union_children(node.b)
+
+
+def _slot_table(starts, stride: int) -> int | None:
+    """The base of the affine slot table that ``starts`` (each child's first
+    slot) is, child ``k`` at ``base + stride * k``; None where it is not."""
+    base = starts[0]
+    return base if all(s == base + stride * k for k, s in enumerate(starts)) else None
+
+
+def _like_children(children) -> Program | None:
+    """One child's program (:func:`_trace_child`) where there are
+    ``LOOP_MIN_CHILDREN`` or more children of one structure (``_structure``),
+    their slots an affine table and their programs, each traced with its
+    slots from 0, equal; else None."""
+    if (len(children) < max(LOOP_MIN_CHILDREN, 2)
+            or any(_structure(c) != _structure(children[0]) for c in children)):
+        return None
+    first = _trace_child(children[0])
+    if first is None or first.n_params == 0:
+        return None
+    starts = [0]
+    for c in children[:-1]:
+        starts.append(starts[-1] + sum(p.numel() for p in leaves(c)))
+    if _slot_table(starts, first.n_params) is None:
+        return None
+    return first if all(_trace_child(c) == first for c in children[1:]) else None
+
+
+def _trace_child(expr: SdfExpr) -> Program | None:
+    """``expr`` traced alone with its slots from 0, with the unions of like
+    children inside it as loops of their own; None where an output is a
+    comparison."""
+    g = Graph()
+    p = V3(g.input(0), g.input(1), g.input(2))
+    loops = []
+    clone, n_params = _symbolic(expr, g, 0, loops)
+    try:
+        outputs = _outputs(g, clone, p)
+    except UnsupportedOpError:
+        return None
+    return _with_loops(_program(g, *outputs, n_params), loops)
+
+
+def _looped(node, g: Graph, slot: int, loops: list, count: int, child: Program):
+    """The copy of the union tree ``node`` whose evaluation also appends its
+    :class:`UnionLoop` to ``loops``. The children's copies are not searched
+    for unions of their own: ``child`` holds those."""
+    clone, end = _symbolic(node, g, slot)
+
+    def evaluate(p: V3):
+        color, dist = Union.eval(clone, p)
+        point, outs = (p.x, p.y, p.z), (dist, color.x, color.y, color.z)
+        if all(isinstance(v, Sym) and v.graph is g for v in (*point, *outs)):
+            loops.append(UnionLoop(point=tuple(v.id for v in point), dist=dist.id,
+                                   color=tuple(v.id for v in outs[1:]), count=count,
+                                   base=slot, stride=child.n_params, child=child))
+        return color, dist
+
+    clone.__dict__["eval"] = evaluate
+    return clone, end
+
+
+def _loop_deps(loops) -> dict:
+    """For ``_live``: a loop's outputs need its point alone."""
+    return {i: lp.point for lp in loops for i in (lp.dist, *lp.color)}
+
+
+def _with_loops(program: Program, loops) -> Program:
+    """``program`` with the loops of ``loops`` that its outputs need (one
+    each: a union evaluated twice at one point is one loop), and their
+    cover: the children, and the share of ``dist_live`` that the loops
+    compute in place of the straight-line nodes."""
+    loops = tuple(lp for lp in {lp.dist: lp for lp in loops}.values()
+                  if lp.dist in program.eval_live)
+    if not loops:
+        return program
+    straight = _live(program.nodes, [program.dist], _loop_deps(loops))
+    outputs = {lp.dist for lp in loops}
+    covered = len(program.dist_live) - sum(i not in outputs for i in straight)
+    return dataclasses.replace(program, loops=loops, looped=(
+        sum(lp.count for lp in loops), covered / len(program.dist_live)))
 
 
 def _structure(node: SdfExpr) -> tuple:
@@ -162,13 +340,14 @@ def _structure(node: SdfExpr) -> tuple:
 
 _PROGRAMS: dict[tuple, Program] = {}
 TRACES = 0  # compile_scene's misses in this process: the scenes traced
+LOOPED = 0  # of those, the programs with a union of like children as a loop
 TRACE_SECONDS = 0.0  # the seconds those traces took
 _COUNTS = threading.Lock()
 
 
 def compile_scene(expr: SdfExpr) -> Program:
     """The scene's program, traced once per structure."""
-    global TRACES, TRACE_SECONDS
+    global TRACES, TRACE_SECONDS, LOOPED
     key = _structure(expr)
     prog = _PROGRAMS.get(key)
     if prog is None:
@@ -177,6 +356,7 @@ def compile_scene(expr: SdfExpr) -> Program:
             prog = _PROGRAMS[key] = trace(expr)
         with _COUNTS:
             TRACES += 1
+            LOOPED += bool(prog.loops)
             TRACE_SECONDS += time.perf_counter() - t0
     return prog
 
@@ -612,13 +792,14 @@ def _uniform(program: Program, live) -> set:
 
 def _emit_body(program: Program, live, keep_rows: bool = False, suffix: str = "",
                inputs=("px", "py", "pz"), params: str = "P",
-               record=None) -> tuple[list[str], dict]:
+               record=None, loops=()) -> tuple[list[str], dict]:
     """The forward lines of ``live`` and each node's C++ name. With
     ``keep_rows`` a gather also leaves its palette row in ``k<id>`` (-1 for
     no row), which the adjoint reads. ``suffix`` ends every name the lines
     declare and ``inputs`` names the point, so that one function can hold
     the forwards of two points; ``params`` names the parameter array, and
-    ``record(i, names)`` gives lines to follow node ``i``'s.
+    ``record(i, names)`` gives lines to follow node ``i``'s. The outputs of
+    ``loops`` are written as those loops (:func:`_emit_loop`).
 
     A division by a uniform value ``c`` (the cell size of a repetition, under
     a ``floor``) is written as the tail of the IEEE division with the
@@ -639,9 +820,14 @@ def _emit_body(program: Program, live, keep_rows: bool = False, suffix: str = ""
     lines = []
     uniform = _uniform(program, live)
     reciprocals = set()
+    loop_of = {i: lp for lp in loops for i in (lp.dist, *lp.color)}
     for i in live:
         node = program.nodes[i]
         op = node[0]
+        if i in loop_of:
+            if loop_of[i].dist not in names:
+                lines += _emit_loop(loop_of[i], names, live, suffix, params)
+            continue
         if op == "const":
             names[i] = ("true" if node[1] else "false") if program.is_bool[i] else _literal(node[1])
             continue
@@ -692,17 +878,71 @@ def _emit_body(program: Program, live, keep_rows: bool = False, suffix: str = ""
     return lines, names
 
 
+def _emit_program(program: Program, roots, suffix: str = "", inputs=("px", "py", "pz"),
+                  params: str = "P") -> tuple[list[str], dict]:
+    """The forward lines of what ``roots`` need, the program's loops
+    written as loops, and each node's C++ name (``_emit_body``)."""
+    live = _live(program.nodes, roots, _loop_deps(program.loops))
+    return _emit_body(program, live, suffix=suffix, inputs=inputs, params=params,
+                      loops=program.loops)
+
+
+def _emit_loop(lp: UnionLoop, names: dict, live, suffix: str, params: str) -> list[str]:
+    """The lines of the union ``lp``: its first child's distance, then the
+    others' in a rolled loop, ``fminf`` of each into the running distance;
+    where ``live`` holds the union's colour, the index of the child whose
+    colour the tree gives (the last of the least distances: taken where the
+    running distance is not less than the child's, so that a NaN distance
+    passes the colour on as the tree's selects do), and after the loop that
+    child's colour alone. Sets the names of the union's outputs."""
+    tag = f"{lp.dist}{suffix}"
+    point = tuple(names[j] for j in lp.point)
+    child = lp.child
+    want_color = any(c in live for c in lp.color)
+    dist, n, won = f"v{tag}", f"n{tag}", f"i{tag}"
+
+    def child_at(roots, sfx, table, slot):
+        body, cn = _emit_program(child, roots, f"_{sfx}{tag}", point, f"{table}{tag}")
+        return [f"const float* __restrict__ {table}{tag} = {params} + ({slot});", *body], cn
+
+    first, cn = child_at([child.dist], "f", "F", lp.base)
+    lines = [f"// {lp.count} like children of a union, child {n} reading its slot j at "
+             f"{params}[{lp.base} + {lp.stride} * {n} + j].", *first,
+             f"float {dist} = {_s(cn[child.dist])};"]
+    if want_color:
+        lines.append(f"int {won} = 0;")
+    body, cn = child_at([child.dist], "", "Q", f"{lp.base} + {lp.stride} * {n}")
+    lines += [f"#pragma unroll {LOOP_UNROLL}",
+              f"for (int {n} = 1; {n} < {lp.count}; ++{n}) {{", *(f"  {ln}" for ln in body)]
+    d = _s(cn[child.dist])
+    if want_color:
+        lines.append(f"  if (!({dist} < {d})) {won} = {n};")
+    lines += [f"  {dist} = fminf({dist}, {d});", "}"]
+    names[lp.dist] = dist
+    if want_color:
+        body, cn = child_at(child.color, "w", "W", f"{lp.base} + {lp.stride} * {won}")
+        lines += body
+        for i, c in zip(lp.color, child.color):
+            names[i] = cn[c]
+    return lines
+
+
 def emit_cpp(program: Program) -> str:
     """``sdf_dist`` (distance only) and ``sdf_eval`` (colour and distance)
-    as C++ for host and device; parameters are read as ``P[slot]``."""
+    as C++ for host and device; parameters are read as ``P[slot]``. The
+    program's unions of like children (``Program.loops``) are loops."""
     head = "__host__ __device__ __forceinline__ float"
-    dist_lines, dist_names = _emit_body(program, program.dist_live)
-    eval_lines, eval_names = _emit_body(program, program.eval_live)
+    dist_lines, dist_names = _emit_program(program, [program.dist])
+    eval_lines, eval_names = _emit_program(program, [program.dist, *program.color])
     r, g, b = (eval_names[c] for c in program.color)
     out = [
         "// Scene program emitted by sdfkit_tpu_torch.sdf.compile.",
         f"// {program.n_params} parameter slots; {len(program.dist_live)} "
         f"distance nodes, {len(program.eval_live)} colour+distance nodes.",
+        *([f"// Unions of like children as loops: {program.looped[0]} children, "
+           f"{program.looped[1]:.4f} of the distance nodes."] if program.loops else []),
+        *(["#define SDF_SHARED_PARAMS 1  // csrc/raymarch_uniforms.cuh scene_params"]
+          if program.loops and program.n_params <= SHARED_PARAMS_MAX_SLOTS else []),
         f"{head} sdf_dist(float px, float py, float pz, const float* __restrict__ P) {{",
         *(f"  {ln}" for ln in dist_lines),
         f"  return {dist_names[program.dist]};",
@@ -1274,6 +1514,6 @@ def emit_large_vjp_cpp(program: Program) -> str:
     return "\n".join(out)
 
 
-__all__ = ["Program", "compile_scene", "emit_cpp", "emit_large_vjp_cpp", "emit_vjp_cpp",
-           "flat_params", "large_tier", "operation_counts", "run", "run_unit", "run_vjp",
-           "trace"]
+__all__ = ["Program", "UnionLoop", "compile_scene", "emit_cpp", "emit_large_vjp_cpp",
+           "emit_vjp_cpp", "flat_params", "large_tier", "operation_counts", "run", "run_unit",
+           "run_vjp", "trace"]

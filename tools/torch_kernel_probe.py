@@ -3,6 +3,7 @@
 
     python3 tools/torch_kernel_probe.py [--against DIR ...] [--tag NAME] [--scenes NAME ...]
     python3 tools/torch_kernel_probe.py --tiers N ... | --budgets K ... | [--rows] [--taps N ...]
+    python3 tools/torch_kernel_probe.py --loops N ... [--against DIR ...]
 
 Builds the six kernel libraries for SphereRepeat (the image forward and
 backward, their depth-history builds, the ray-batch pair) and for one sphere,
@@ -70,6 +71,22 @@ SphereRepeat and of ``union_grid_scene(N)`` at each N with the six normal
 taps straight-line and a loop over the axes, one ``taps`` line per scene
 and form with whether the two frames agree bit for bit: the measurements
 the large tier's sums and the forward's taps are chosen from.
+
+``--loops N ...`` does only this: the RGB image forward of
+``union_grid_scene(N)`` at each N, of this checkout and of every
+``--against`` package, timed in turns at 1920x1080x40 from the default
+camera, one ``loops`` line per package, N and kernel family with the time
+per sphere, a forward's SASS size and loops, and whether its output is bit
+for bit the first ``--against`` package's; at the largest N every family
+(the image forward and backward, their depth-history builds, the ray-batch
+pair on the frame's rays, the backward with the forward's hit flags), and
+this checkout's forward and image backward built with the loops of the
+unions of like children unrolled by 2 (``unroll2``; ``unroll1`` where
+``LOOP_UNROLL`` is 2) and its forward reading the parameters from the
+constant bank instead of shared memory (``constant``), one
+``loops_variant`` line each. This checkout's program takes the loop form
+at every N here, whatever ``LOOP_MIN_CHILDREN`` says: the measurements the
+loop form's threshold, unroll and table's home are chosen from.
 
 ``--against DIR`` (repeatable) names a directory that holds another
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
@@ -151,6 +168,9 @@ def main() -> int:
     ap.add_argument("--taps", nargs="+", type=int, default=[],
                     help="sphere counts of union_grid_scene whose forward (and SphereRepeat's) "
                          "to time with the taps straight-line and a loop over the axes")
+    ap.add_argument("--loops", nargs="+", type=int, default=[],
+                    help="sphere counts of union_grid_scene whose forward to time in every "
+                         "package, with the loop form's variants at the largest")
     args = ap.parse_args()
 
     import numpy as np
@@ -207,6 +227,8 @@ def main() -> int:
 
     if args.tiers:
         return tier_sweep(this, args.tiers, say, events)
+    if args.loops:
+        return loops_sweep(packages, args.loops, say, events)
     if args.budgets:
         return budget_sweep(this, args.budgets, say, events)
     if args.rows or args.taps:
@@ -762,6 +784,122 @@ def taps_sweep(pkg, libs, counts, say, events) -> None:
                     form=form, nvcc_seconds=lib.build_seconds, registers=lib.registers,
                     local_memory=lib.local_memory, resident_blocks_per_sm=lib.resident(1),
                     ms=sum(times[form]) / 2, rounds=times[form], frames_bit_identical=same)
+
+
+def _sass_size(sass, lib) -> dict | None:
+    """The RGB kernel's SASS instructions and bytes (16 an instruction), and
+    its loops' instructions, own instructions and square roots."""
+    parsed = sass.library_sass(lib.path)
+    if parsed is None:
+        return None
+    rgb = parsed["rgb"]
+    return {"instructions": rgb["instructions"], "bytes": 16 * rgb["instructions"],
+            "loops": [[lp["instructions"], lp["own"], lp["rsq"]] for lp in rgb["loops"]]}
+
+
+def loops_sweep(packages, counts, say, events) -> int:
+    """The forwards of ``union_grid_scene(n)`` of every package for each n
+    (this checkout's in the loop form at every n), all six families at the
+    largest n, and this checkout's variants there (``unroll2``, or
+    ``unroll1`` where the loops are unrolled by 2: the forward and the image
+    backward with the other unroll; ``constant``: the forward reading the
+    parameters from the constant bank); all built in parallel, then timed in
+    turns. The
+    SASS is read of the forwards alone: a large backward's listing (hundreds
+    of thousands of instructions, thousands of loops) takes
+    ``sass.parse_sass`` minutes."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+
+    this = packages["this"]
+    this.compile.LOOP_MIN_CHILDREN = 2
+    top = max(counts)
+    exprs = {(label, n): p.scenes.union_grid_scene(n) for label, p in packages.items()
+             for n in counts}
+    programs = {key: packages[key[0]].compile.compile_scene(e) for key, e in exprs.items()}
+    jobs = [(label, n, "fwd") for label, n in programs]
+    jobs += [(label, top, f) for label in packages for f in this.build.FAMILIES if f != "fwd"]
+    work = pathlib.Path(tempfile.mkdtemp(prefix="loops"))
+    prog = programs[("this", top)]
+    shared = "#define SDF_SHARED_PARAMS 1"
+    pragma = f"#pragma unroll {this.compile.LOOP_UNROLL}\n"
+    if pragma not in prog.source or shared not in prog.source:
+        raise RuntimeError(f"union_grid_scene({top}) has no loop in shared memory")
+    other = 2 if this.compile.LOOP_UNROLL != 2 else 1
+    unrolled = dataclasses.replace(prog, source=prog.source.replace(
+        pragma, f"#pragma unroll {other}\n"))
+    constant = dataclasses.replace(prog, source=prog.source.replace(shared, shared[:-1] + "0"))
+    variant_jobs = {(f"unroll{other}", f): (unrolled, f, this.build.CSRC) for f in ("fwd", "bwd")}
+    variant_jobs[("constant", "fwd")] = (constant, "fwd", this.build.CSRC)
+
+    def load(job):
+        label, n, family = job
+        return packages[label].build.load_family(programs[(label, n)], family)
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        variants = pool.submit(build_variants, this, work, variant_jobs)
+        libs = dict(zip(jobs, pool.map(load, jobs)))
+        variants = variants.result()
+    failed = {k: v for k, v in variants.items() if isinstance(v, str)}
+    if failed:
+        raise RuntimeError(f"variant builds failed: {failed}")
+    view = this.st.look_at((0.0, 0.0, 5.0), (0.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+    cfg = this.st.RenderConfig(WIDTH, HEIGHT)
+    v19 = this.rk.view19(view, cfg)
+    ro, rd = this.camera.camera_rays(WIDTH, HEIGHT, view, cfg.vfov_degrees, cfg.near, cfg.far)
+    rays = [c.contiguous().view(-1) for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    cot = torch.rand((WIDTH * HEIGHT, 3), device="cuda", generator=gen)
+    params = {key: packages[key[0]].compile.flat_params(e).detach().contiguous()
+              for key, e in exprs.items()}
+    with torch.no_grad():
+        top_params = params[("this", top)]
+        _, store = this.rk.launch(libs[("this", top, "fwd_store")], top_params, v19, cfg, True,
+                                  want_store=True)
+        _, hit = this.rk.launch_rays(libs[("this", top, "rays_fwd")], top_params, rays, cfg, True,
+                                     want_hit=True)
+
+    def call(rk, lib, prm, family):
+        if family == "fwd":
+            return lambda: rk.launch(lib, prm, v19, cfg, True)
+        if family == "fwd_store":
+            return lambda: rk.launch(lib, prm, v19, cfg, True, want_store=True)[0]
+        if family == "rays_fwd":
+            return lambda: rk.launch_rays(lib, prm, rays, cfg, True)
+        if family == "bwd":
+            return lambda: rk.launch_bwd(lib, prm, v19, cfg, True, cot)
+        if family == "bwd_store":
+            return lambda: rk.launch_bwd(lib, prm, v19, cfg, True, cot, store=store)
+        return lambda: rk.launch_rays_bwd(lib, prm, rays, cfg, True, cot, hit=hit)[0]
+
+    runs = {key: call(packages[key[0]].rk, libs[key], params[key[:2]], key[2]) for key in jobs}
+    for (name, family), lib in variants.items():
+        runs[(name, top, family)] = call(this.rk, lib, top_params, family)
+    ref_label = next((label for label in packages if label != "this"), "this")
+    with torch.no_grad():
+        times = turns(runs, events)
+        outputs = {key: run() for key, run in runs.items()}
+
+    for key in runs:
+        label, n, family = key
+        lib = variants.get((label, family)) or libs[key]
+        ref, got = outputs[(ref_label, n, family)], outputs[key]
+        ms = sum(times[key]) / len(times[key])
+        prog_n = programs.get((label, n)) or programs[("this", n)]
+        say("loops_variant" if (label, family) in variants else "loops", package=label,
+            spheres=n, family=family, parameter_slots=prog_n.n_params,
+            looped=list(getattr(prog_n, "looped", (0, 0.0))), ms=ms, ms_per_sphere=ms / n,
+            rounds=times[key], nvcc_seconds=lib.build_seconds, registers=lib.registers,
+            local_memory=lib.local_memory, resident_blocks_per_sm=lib.resident(1),
+            sass=None if "bwd" in family else _sass_size(this.sass, lib), against=ref_label,
+            bit_identical=bool(torch.equal(got.view(torch.int32), ref.view(torch.int32))),
+            largest_difference_of_largest_entry=float((got - ref).abs().max()
+                                                      / ref.abs().max()))
+    shutil.rmtree(work, ignore_errors=True)
+    return 0
 
 
 if __name__ == "__main__":

@@ -16,7 +16,10 @@ end-to-end metric's median and quartiles a side
 process and prints, after the run's own lines, one JSON line: the first
 fit step's (or first frame's) spans by name (count, total and self ms), the
 spans outside any step (``sdf.fit.setup``, ``sdf.compile``, ``sdf.build``),
-and the scene compiler's and the library loads' counters.
+and the scene compiler's and the library loads' counters: among them the
+programs traced with a union of like children as a loop (``LOOPED``) and
+each program's ``looped`` (its loops' children and share of the distance's
+nodes, by the program's hash).
 
 Run from the root of a checkout on a machine with a CUDA card, as the
 benchmark is. ``run --spans on|off -- <run.py's arguments>`` is one such
@@ -69,6 +72,8 @@ def _run(spans_on: bool, first_step: bool, argv: list) -> int:
             "first_spans": {} if first is None else spans.summary([first.id], recs),
             "outside_steps": spans.summary([None], recs),
             "compile_traces": sc.TRACES, "compile_s": sc.TRACE_SECONDS,
+            "compile_looped": sc.LOOPED,
+            "looped": {prog.hash: list(prog.looped) for prog in sc._PROGRAMS.values()},
             "library_loads": build.LOADS, "libraries_s": build.LOAD_SECONDS,
             "dropped": spans.DROPPED}), flush=True)
     return rc
