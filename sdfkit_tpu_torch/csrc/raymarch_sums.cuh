@@ -21,6 +21,15 @@
 // (so in no fixed order: two launches differ) 164.60 ms; a row a warp in
 // shared memory, 22.7 KB a block, which leaves 9 blocks an SM, 223.33 ms.
 //
+// A union of like children that the forward writes as a loop (sdf/compile.py
+// UnionLoop) is pulled back as a loop too: one pass of a child's adjoint per
+// distinct child of least distance among the warp's lanes, at a slot the
+// warp shares, so that each slot takes the same lanes' values in the same
+// order as from the straight-line sweep. A warp in which some lane's point
+// has a tie or a NaN distance walks the tree of unions instead
+// (sdf_tree_share, sdf_tree_colour), which gives each child the cotangent
+// the straight-line sweep gives it, bit for bit.
+//
 // Compiled for the host (the CPU tests' g++ build), a "warp" is the one
 // thread and the row is the thread's own sums.
 //
@@ -86,4 +95,93 @@ __host__ __device__ __forceinline__ void sdf_acc_at(float* row, int slot, float 
 #else
   if (slot >= 0 && v != 0.0f) row[slot] += v;
 #endif
+}
+
+// The value v of the first lane of the warp where p holds; p holds on some
+// lane, and every lane makes the call.
+__host__ __device__ __forceinline__ int sdf_first(bool p, int v) {
+#ifdef __CUDA_ARCH__
+  return __shfl_sync(0xffffffffu, v, __ffs(__ballot_sync(0xffffffffu, p)) - 1);
+#else
+  return v;
+#endif
+}
+
+// Bit k of the bit set m (32 a word).
+__host__ __device__ __forceinline__ bool sdf_bit(const unsigned* m, int k) {
+  return (m[k >> 5] >> (k & 31)) & 1u;
+}
+
+// Whether the bit set m holds some / every one of lo, ..., hi - 1 (lo < hi).
+__host__ __device__ inline bool sdf_bits_any(const unsigned* m, int lo, int hi) {
+  for (int w = lo >> 5; w <= (hi - 1) >> 5; ++w) {
+    unsigned want = ~0u;
+    if (w == lo >> 5) want &= ~0u << (lo & 31);
+    if (w == (hi - 1) >> 5) want &= ~0u >> (31 - ((hi - 1) & 31));
+    if ((m[w] & want) != 0u) return true;
+  }
+  return false;
+}
+
+__host__ __device__ inline bool sdf_bits_all(const unsigned* m, int lo, int hi) {
+  for (int w = lo >> 5; w <= (hi - 1) >> 5; ++w) {
+    unsigned want = ~0u;
+    if (w == lo >> 5) want &= ~0u << (lo & 31);
+    if (w == (hi - 1) >> 5) want &= ~0u >> (31 - ((hi - 1) & 31));
+    if ((m[w] & want) != want) return false;
+  }
+  return true;
+}
+
+// The tree of unions over n children: split[i] is the first child of the
+// right side of the i-th Union in pre-order (its left side's Unions follow
+// it, then its right side's). `least` marks the children whose distance
+// equals the union's least, `nan` those whose distance is NaN: a side's
+// least distance is the union's where it holds a child of `least`, NaN
+// where every child is NaN, and greater otherwise. On the path from the top
+// to a child of `least` or `nan` those are all the comparisons the tree
+// makes, so both walks below give what its selects give.
+
+// The cotangent the tree passes child k of the cotangent c of its distance:
+// at each Union the min's rule (_pullback): all of it to the side whose
+// least is less, half of it (0.5 * c) to the left and the rest (c - half)
+// to the right where neither is less, the tree's own operations.
+__host__ __device__ inline float sdf_tree_share(const int* split, int n, int k, float c,
+                                                const unsigned* least, const unsigned* nan) {
+  int lo = 0, hi = n, i = 0;
+  while (hi - lo > 1 && c != 0.0f) {
+    const int mid = split[i];
+    const bool left = sdf_bits_any(least, lo, mid), right = sdf_bits_any(least, mid, hi);
+    const bool lt = left && !right && !sdf_bits_all(nan, mid, hi);
+    const bool gt = !left && right && !sdf_bits_all(nan, lo, mid);
+    const float to_left = lt ? c : (gt ? 0.0f : 0.5f * c);
+    if (k < mid) {
+      c = to_left;
+      hi = mid;
+      i += 1;
+    } else {
+      c = c - to_left;
+      i += mid - lo;
+      lo = mid;
+    }
+  }
+  return c;
+}
+
+// The child whose colour the tree gives (da < db ? a : b at each Union).
+__host__ __device__ inline int sdf_tree_colour(const int* split, int n, const unsigned* least,
+                                               const unsigned* nan) {
+  int lo = 0, hi = n, i = 0;
+  while (hi - lo > 1) {
+    const int mid = split[i];
+    if (sdf_bits_any(least, lo, mid) && !sdf_bits_any(least, mid, hi) &&
+        !sdf_bits_all(nan, mid, hi)) {
+      hi = mid;
+      i += 1;
+    } else {
+      i += mid - lo;
+      lo = mid;
+    }
+  }
+  return lo;
 }

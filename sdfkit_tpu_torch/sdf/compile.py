@@ -15,7 +15,8 @@ parameters from SMEM scalars). Here:
   ``sdf_eval``, for the hand-written kernel template in ``csrc/``. In a
   program of the large tier a union of like children is written as one loop
   over their parameter table (:class:`UnionLoop`): the same values, bit for
-  bit, from one child's code.
+  bit, from one child's code; the large tier's adjoints pull it back as a
+  loop too (:func:`_emit_loop_vjp`).
 * The adjoint replaces the ``jax.vjp`` the Pallas backward kernel ran on the
   traced body: a reverse sweep over the same program, with the per-op rules
   of ``jax.vjp`` and torch autograd (one rule table, :func:`_pullback`).
@@ -82,7 +83,10 @@ class UnionLoop:
     ``child`` with its slot ``j`` read at ``base + stride * k + j``. ``point``
     holds the node ids of the point the union is evaluated at, ``dist`` and
     ``color`` the ids of its outputs in the traced program, which the loop
-    computes in place of the tree's nodes."""
+    computes in place of the tree's nodes. ``splits`` is the tree's shape,
+    which the adjoints' rule for ties follows (:func:`_emit_loop_vjp`): for
+    each ``Union`` of the tree in pre-order, the first child of its right
+    side."""
 
     point: tuple
     dist: int
@@ -91,6 +95,7 @@ class UnionLoop:
     base: int
     stride: int
     child: Program
+    splits: tuple = ()
 
 
 def _deps(node: tuple) -> tuple:
@@ -211,6 +216,12 @@ def trace(expr: SdfExpr) -> Program:
 # child's colour. A child whose distance alone is NaN (a parameter that is NaN) is
 # passed over as the tree's nodes pass it, but the colour then goes by the
 # loop's order: the tree's pairing would have to be replayed to follow it.
+#
+# The large tier's adjoints replay it where it matters: a warp in which a
+# point has a tie or a NaN distance walks the tree (UnionLoop.splits) and
+# gives each child, colour and distance, the cotangent the tree's selects
+# give it (_emit_loop_vjp); only the forward's colour that such an adjoint
+# recomputes, which no pullback of a scene here reads, keeps the loop's.
 # ---------------------------------------------------------------------------
 
 
@@ -225,7 +236,9 @@ def trace(expr: SdfExpr) -> Program:
 LOOP_MIN_CHILDREN = 48
 # The loop's unroll. At n = 200, unrolled by 2 / not: the image forward 12.703
 # / 13.779 ms, the image backward 113.039 / 109.968 (its replay and taps run
-# the same loop). A fit step runs both, and the backward is most of it.
+# the same loop). A fit step runs both, and the backward is most of it. With
+# the adjoints' loops unrolled too (_emit_loop_vjp), the image backward reads
+# 45.715 / 48.205 ms: measured alone, not yet as a fit step.
 LOOP_UNROLL = 1
 # A program with loops has the kernels copy its parameters into shared memory
 # once a block and read them there (csrc/raymarch_uniforms.cuh scene_params),
@@ -241,6 +254,16 @@ def _union_children(node: SdfExpr) -> list:
     if type(node) is not Union:
         return [node]
     return _union_children(node.a) + _union_children(node.b)
+
+
+def _union_splits(node: SdfExpr, first: int = 0) -> list:
+    """For each ``Union`` of the tree at ``node`` in pre-order, the index of
+    the first child of its right side; ``first`` is the index of the tree's
+    first child."""
+    if type(node) is not Union:
+        return []
+    mid = first + len(_union_children(node.a))
+    return [mid, *_union_splits(node.a, first), *_union_splits(node.b, mid)]
 
 
 def _slot_table(starts, stride: int) -> int | None:
@@ -296,7 +319,8 @@ def _looped(node, g: Graph, slot: int, loops: list, count: int, child: Program):
         if all(isinstance(v, Sym) and v.graph is g for v in (*point, *outs)):
             loops.append(UnionLoop(point=tuple(v.id for v in point), dist=dist.id,
                                    color=tuple(v.id for v in outs[1:]), count=count,
-                                   base=slot, stride=child.n_params, child=child))
+                                   base=slot, stride=child.n_params, child=child,
+                                   splits=tuple(_union_splits(node))))
         return color, dist
 
     clone.__dict__["eval"] = evaluate
@@ -341,13 +365,14 @@ def _structure(node: SdfExpr) -> tuple:
 _PROGRAMS: dict[tuple, Program] = {}
 TRACES = 0  # compile_scene's misses in this process: the scenes traced
 LOOPED = 0  # of those, the programs with a union of like children as a loop
+LOOPED_ADJOINTS = 0  # of those, the programs whose adjoints pull such a union back as a loop
 TRACE_SECONDS = 0.0  # the seconds those traces took
 _COUNTS = threading.Lock()
 
 
 def compile_scene(expr: SdfExpr) -> Program:
     """The scene's program, traced once per structure."""
-    global TRACES, TRACE_SECONDS, LOOPED
+    global TRACES, TRACE_SECONDS, LOOPED, LOOPED_ADJOINTS
     key = _structure(expr)
     prog = _PROGRAMS.get(key)
     if prog is None:
@@ -357,6 +382,7 @@ def compile_scene(expr: SdfExpr) -> Program:
         with _COUNTS:
             TRACES += 1
             LOOPED += bool(prog.loops)
+            LOOPED_ADJOINTS += bool(_adjoint_loops(prog))
             TRACE_SECONDS += time.perf_counter() - t0
     return prog
 
@@ -792,14 +818,17 @@ def _uniform(program: Program, live) -> set:
 
 def _emit_body(program: Program, live, keep_rows: bool = False, suffix: str = "",
                inputs=("px", "py", "pz"), params: str = "P",
-               record=None, loops=()) -> tuple[list[str], dict]:
+               record=None, loops=(), loop_params: str | None = None,
+               track: bool = False) -> tuple[list[str], dict]:
     """The forward lines of ``live`` and each node's C++ name. With
     ``keep_rows`` a gather also leaves its palette row in ``k<id>`` (-1 for
     no row), which the adjoint reads. ``suffix`` ends every name the lines
     declare and ``inputs`` names the point, so that one function can hold
     the forwards of two points; ``params`` names the parameter array, and
     ``record(i, names)`` gives lines to follow node ``i``'s. The outputs of
-    ``loops`` are written as those loops (:func:`_emit_loop`).
+    ``loops`` are written as those loops (:func:`_emit_loop`), reading
+    ``loop_params`` (``params`` where None) and with ``track`` keeping what
+    the loop form of the adjoint reads.
 
     A division by a uniform value ``c`` (the cell size of a repetition, under
     a ``floor``) is written as the tail of the IEEE division with the
@@ -826,7 +855,8 @@ def _emit_body(program: Program, live, keep_rows: bool = False, suffix: str = ""
         op = node[0]
         if i in loop_of:
             if loop_of[i].dist not in names:
-                lines += _emit_loop(loop_of[i], names, live, suffix, params)
+                lines += _emit_loop(loop_of[i], names, live, suffix,
+                                    params if loop_params is None else loop_params, track)
             continue
         if op == "const":
             names[i] = ("true" if node[1] else "false") if program.is_bool[i] else _literal(node[1])
@@ -887,19 +917,26 @@ def _emit_program(program: Program, roots, suffix: str = "", inputs=("px", "py",
                       loops=program.loops)
 
 
-def _emit_loop(lp: UnionLoop, names: dict, live, suffix: str, params: str) -> list[str]:
+def _emit_loop(lp: UnionLoop, names: dict, live, suffix: str, params: str,
+               track: bool = False) -> list[str]:
     """The lines of the union ``lp``: its first child's distance, then the
     others' in a rolled loop, ``fminf`` of each into the running distance;
     where ``live`` holds the union's colour, the index of the child whose
     colour the tree gives (the last of the least distances: taken where the
     running distance is not less than the child's, so that a NaN distance
     passes the colour on as the tree's selects do), and after the loop that
-    child's colour alone. Sets the names of the union's outputs."""
+    child's colour alone. Sets the names of the union's outputs.
+
+    With ``track`` (the adjoints' forward, :func:`_emit_loop_vjp`) the loop
+    also keeps that index whatever ``live`` holds, ``tie<tag>``: whether a
+    second child's distance equals the least, and ``nan<tag>``: whether some
+    child's distance is NaN."""
     tag = f"{lp.dist}{suffix}"
     point = tuple(names[j] for j in lp.point)
     child = lp.child
     want_color = any(c in live for c in lp.color)
     dist, n, won = f"v{tag}", f"n{tag}", f"i{tag}"
+    tie, nan = f"tie{tag}", f"nan{tag}"
 
     def child_at(roots, sfx, table, slot):
         body, cn = _emit_program(child, roots, f"_{sfx}{tag}", point, f"{table}{tag}")
@@ -909,13 +946,19 @@ def _emit_loop(lp: UnionLoop, names: dict, live, suffix: str, params: str) -> li
     lines = [f"// {lp.count} like children of a union, child {n} reading its slot j at "
              f"{params}[{lp.base} + {lp.stride} * {n} + j].", *first,
              f"float {dist} = {_s(cn[child.dist])};"]
-    if want_color:
+    if want_color or track:
         lines.append(f"int {won} = 0;")
+    if track:
+        d0 = _s(cn[child.dist])
+        lines += [f"bool {tie} = false;", f"bool {nan} = !({d0} == {d0});"]
     body, cn = child_at([child.dist], "", "Q", f"{lp.base} + {lp.stride} * {n}")
     lines += [f"#pragma unroll {LOOP_UNROLL}",
               f"for (int {n} = 1; {n} < {lp.count}; ++{n}) {{", *(f"  {ln}" for ln in body)]
     d = _s(cn[child.dist])
-    if want_color:
+    if track:
+        lines += [f"  {nan} = {nan} || !({d} == {d});",
+                  f"  {tie} = {d} < {dist} ? false : ({tie} || {d} == {dist});"]
+    if want_color or track:
         lines.append(f"  if (!({dist} < {d})) {won} = {n};")
     lines += [f"  {dist} = fminf({dist}, {d});", "}"]
     names[lp.dist] = dist
@@ -1121,15 +1164,18 @@ def _flow(program: Program, live) -> dict:
     return consumers
 
 
-def _gating(program: Program, live, seed_ids) -> dict:
+def _gating(program: Program, live, seed_ids, gate_seeds: bool = False) -> dict:
     """The reverse sweep's structure for the large tier: which nodes a
     cotangent reaches from ``seed_ids``, each one's immediate dominator in
     the flow of cotangents (``root``, -1, above the seeds: every path from a
     seed to the node passes its dominator, so the node's cotangent is zero
     where its dominator's is), the gated nodes (whose cotangent a select
-    gives: it is often exactly zero) and each node's level: the nearest gated
+    gives: it is often exactly zero; with ``gate_seeds`` a seed is gated as
+    if a select gave its cotangent) and each node's level: the nearest gated
     dominator, in whose region the node's cotangent is complete and pulled
-    back."""
+    back. A union written as a loop (``loop`` and ``alias`` nodes,
+    :func:`_contracted`) is never gated: its pullback reads all its
+    outputs' cotangents."""
     consumers = _flow(program, live)
     reached, stack = set(seed_ids), list(seed_ids)
     feeds = {i: [] for i in live}
@@ -1163,7 +1209,8 @@ def _gating(program: Program, live, seed_ids) -> dict:
     head, nesting, gated = {root: root}, {root: 0}, set()
     for j in sorted(reached, reverse=True):
         parent = head[idom[j]]
-        if (j not in seed_ids and program.nodes[j][0] not in ("input", "param", "gather")
+        if ((gate_seeds or j not in seed_ids)
+                and program.nodes[j][0] not in ("input", "param", "gather", "loop", "alias")
                 and size[j] >= GATE_MIN_NODES and nesting[parent] < GATE_DEPTH
                 and all(program.nodes[c][0] in _SELECTS for c in consumers[j])):
             gated.add(j)
@@ -1221,7 +1268,9 @@ def _values_needed(program: Program, j: int) -> tuple:
     its kept comparisons instead, a gather its row)."""
     node = program.nodes[j]
     op = node[0]
-    if op in ("input", "const", "param", "add", "sub", "neg") or op in _SELECTS:
+    if op == "loop":
+        return tuple(node[1:])  # its point: the loop form's pullback reads it
+    if op in ("input", "const", "param", "add", "sub", "neg", "alias") or op in _SELECTS:
         return ()
     if op in ("gather", "sqrt"):
         return (j,)
@@ -1230,13 +1279,62 @@ def _values_needed(program: Program, j: int) -> tuple:
     return tuple(node[1:])  # mul, sin, cos
 
 
-def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str], dict, dict]:
+def _adjoint_loops(program: Program) -> tuple:
+    """The loops of ``program`` whose pullback takes the loop form
+    (:func:`_emit_loop_vjp`): those whose tree of unions hands its values to
+    the rest of the program through its outputs alone. A node of the tree
+    that a node outside it reads as well (an expression the scene shares
+    with the union's children) would take a cotangent from outside, which
+    the loop form does not pull back: the adjoints keep such a union in the
+    straight-line form."""
+    nodes = program.nodes
+    readers = {}
+    for c in program.eval_live:
+        for j in _deps(nodes[c]):
+            readers.setdefault(j, set()).add(c)
+    kept = []
+    for lp in program.loops:
+        outputs = {lp.dist, *lp.color}
+        inner = set(_live(nodes, outputs)) - set(_live(nodes, lp.point))
+        if all(readers.get(j, set()) <= inner for j in inner - outputs
+               if nodes[j][0] != "const"):
+            kept.append(lp)
+    return tuple(kept)
+
+
+def _contracted(program: Program, loops, live) -> tuple[Program, dict]:
+    """``program`` with each union of ``loops`` as one node of the reverse
+    sweep: the output of least id that ``live`` holds becomes ``("loop",
+    *point)``, whose pullback is the loop's, and each other output ``("alias",
+    that id)``, which gathers its own cotangent for that pullback. Its ids
+    stay topological: the union's other outputs, and every node that reads
+    one, come after it. Returns the program and that id -> loop."""
+    nodes = list(program.nodes)
+    heads = {}
+    for lp in loops:
+        outputs = sorted(i for i in set((lp.dist, *lp.color)) if i in live)
+        if not outputs:  # a union the distance does not read
+            continue
+        nodes[outputs[0]] = ("loop", *lp.point)
+        for i in outputs[1:]:
+            nodes[i] = ("alias", outputs[0])
+        heads[outputs[0]] = lp
+    return dataclasses.replace(program, nodes=tuple(nodes)), heads
+
+
+def _emit_gated(program: Program, live, seeds, points, leaf, params=("SDF_P", "P"),
+                accs=None, loops=(), gate_seeds: bool = False,
+                at=str) -> tuple[list[str], dict, dict]:
     """The body of one large-tier adjoint, for one or two points through the
-    same program. ``seeds`` are (node id, expression) pairs, ``points`` are
-    (suffix, input names) pairs, and ``leaf(lines, i, node, totals, rows)``
-    writes the add of a parameter's or a gather's cotangent (one total per
-    point; ``rows`` the gather's row names). Cotangents are ``a<id><suffix>``
-    and the points' ``g{x,y,z}<suffix>``.
+    same program. ``seeds`` are (node id, expression) pairs, the expression
+    a list of one per point where they differ, ``points`` are (suffix, input
+    names) pairs, and ``leaf(lines, i, node, totals, rows, at)`` writes the
+    add of a parameter's or a gather's cotangent (one total per point;
+    ``rows`` the gather's row names; ``at(slot)`` the C++ of a slot).
+    Cotangents are ``a<id><suffix>``, and the points' are added to ``accs``
+    (per point the names of x, y and z's, None for one that takes none;
+    ``g{x,y,z}<suffix>`` where not given). ``params`` names the parameter
+    array of the forward and of the regions' recomputes.
 
     The forward runs once, in full, and keeps the outcome of every select's
     comparisons as two bits of the words ``w<k><suffix>``, so that the
@@ -1246,28 +1344,52 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
     cotangent there that is not zero (``sdf_any``), and first recomputes the
     few forward values its own pullbacks read (a primitive's), in names that
     shadow the outer ones; so few values stay live across the sweep.
+
+    The unions of ``loops`` (``Program.loops``, :func:`_adjoint_loops`) are
+    the forward's loops (reading ``P``) and keep no bits: each is one node
+    of the sweep, pulled back where its outputs' cotangents are complete by
+    one pass of its child's adjoint per distinct child of least distance in
+    the warp (:func:`_emit_loop_vjp`).
+
     Returns the lines, the forward names, and counts: ``reverse``, the
     operations of the reverse sweep down the costliest path of regions,
     ``recompute``, the forward operations the regions on that path redo, and
     ``slots_added``, the parameter adds on it."""
+    heads = {}
+    if loops:
+        program, heads = _contracted(program, loops, live)
+        live = _live(program.nodes, [i for i, _ in seeds])
     nodes = program.nodes
-    g = _gating(program, live, [i for i, _ in seeds])
+    g = _gating(program, live, [i for i, _ in seeds], gate_seeds)
     root, level, gated = g["root"], g["level"], g["gated"]
     reached, consumers = g["reached"], g["consumers"]
     members = {}
     for j in reached:
         members.setdefault(level[j], []).append(j)
+    suffixes = [sfx for sfx, _ in points]
+    if accs is None:
+        accs = [tuple(f"g{c}{sfx}" for c in "xyz") for sfx in suffixes]
+    # A loop's pullback runs in a scope of its own: its outputs' cotangents
+    # are declared, zero, in the region where it runs, and its point's where
+    # the point's own pullback runs.
+    fixed, looped = {}, {i for i in reached if nodes[i][0] in ("loop", "alias")}
+    for h, lp in heads.items():
+        fixed.update((i, level[h]) for i in (lp.dist, *lp.color) if i in reached)
+        fixed.update((j, level[j]) for j in lp.point
+                     if j in reached and nodes[j][0] != "input")
     # A sum that takes a cotangent inside a nested region is declared, zero,
     # in the region where it is complete.
     preset = {}
     for i in reached:
-        if nodes[i][0] not in ("input", "const") and any(
+        if i in fixed:
+            preset.setdefault(fixed[i], []).append(i)
+        elif nodes[i][0] not in ("input", "const") and any(
                 (c if c in gated else level[c]) != level[i]
                 for c in consumers[i] if c in reached):
             preset.setdefault(level[i], []).append(i)
     kept = {j: k for k, j in enumerate(sorted(j for j in reached if nodes[j][0] in _SELECTS))}
     words = (len(kept) + 15) // 16
-    suffixes = [sfx for sfx, _ in points]
+    outer_names = []
 
     def bit(j, which, sfx):
         k = kept[j]
@@ -1290,9 +1412,10 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
 
     def add(i, exprs, lines):
         node = nodes[i]
-        for sfx, e in zip(suffixes, exprs):
+        for p, (sfx, e) in enumerate(zip(suffixes, exprs)):
             if node[0] == "input":
-                lines.append(f"g{'xyz'[node[1]]}{sfx} += {_s(e)};")
+                if accs[p][node[1]] is not None:
+                    lines.append(f"{accs[p][node[1]]} += {_s(e)};")
             elif i in declared:
                 lines.append(f"a{i}{sfx} += {_s(e)};")
             else:
@@ -1320,6 +1443,19 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
             return (be.mul(2.0, be.mul(total, args[0])), None)
         return _pullback(op, total, out, args, be, want)
 
+    def loop_pullback(h, names):
+        """The lines and path counts of the pullback of the loop at ``h``."""
+        lp = heads[h]
+        seeds_of = [[f"a{i}{sfx}" if i in reached else None for i in (lp.dist, *lp.color)]
+                    for sfx in suffixes]
+        point_accs = [tuple(None if j not in reached else accs[p][nodes[j][1]]
+                            if nodes[j][0] == "input" else f"a{j}{sfx}" for j in lp.point)
+                      for p, sfx in enumerate(suffixes)]
+        return _emit_loop_vjp(lp, [(sfx, tuple(nm[j] for j in lp.point))
+                                   for sfx, nm in zip(suffixes, names)],
+                              seeds_of, point_accs, leaf,
+                              any(c in reached for c in lp.color))
+
     def region(h):
         """(lines, forward names of the first point, path counts) of the
         region of gated node ``h`` (``root``: the whole function)."""
@@ -1342,19 +1478,25 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
                 j = stack.pop()
                 if j not in need:
                     need.add(j)
-                    stack.extend(_deps(nodes[j]))
-            fwd = sorted(need)
+                    if nodes[j][0] not in ("loop", "alias"):  # the forward's loop gave it
+                        stack.extend(_deps(nodes[j]))
+            fwd = sorted(j for j in need if nodes[j][0] not in ("loop", "alias"))
         recompute = sum(nodes[j][0] not in ("const", "input", "param") for j in fwd)
         names = []
-        for sfx, inputs in points:
+        for p, (sfx, inputs) in enumerate(points):
             # A region reads the parameters through P, which the compiler
             # cannot prove equal to the outer forward's SDF_P: so it cannot
             # merge the recomputed values with the outer ones and keep those
             # live across the sweep instead.
             body, nm = _emit_body(program, fwd, keep_rows=True, suffix=sfx, inputs=inputs,
-                                  params="SDF_P" if outer else "P",
-                                  record=record(sfx) if outer else None)
+                                  params=params[0] if outer else params[1],
+                                  record=record(sfx) if outer else None,
+                                  loops=loops if outer else (), loop_params="P", track=True)
             lines += body
+            if outer:
+                outer_names.append(nm)
+            else:
+                nm = {**{i: outer_names[p][i] for i in looped & need}, **nm}
             names.append(nm)
         be.lines = lines
         for i in preset.get(h, []):
@@ -1363,12 +1505,19 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
             declared.add(i)
         if outer:
             for i, e in seeds:
-                add(i, [e] * len(points), lines)
+                add(i, e if isinstance(e, list) else [e] * len(points), lines)
         n0, leaves0, below, below_leaves, paths = be.n, be.leaves, 0, 0, [(0, 0, 0)]
         for j in order:
             if j not in declared:
                 continue  # no cotangent reaches it
             node = nodes[j]
+            if node[0] == "alias":
+                continue  # its loop's pullback reads its cotangent
+            if node[0] == "loop":
+                inner, path = loop_pullback(j, names)
+                lines += inner
+                paths.append(path)
+                continue
             if j != h and j in gated:
                 n1, l1 = be.n, be.leaves
                 inner, _, path = region(j)
@@ -1385,7 +1534,7 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
             if node[0] in ("param", "gather"):
                 be.n += 1
                 be.leaves += 1
-                leaf(lines, j, node, totals, [f"k{j}{sfx}" for sfx in suffixes])
+                leaf(lines, j, node, totals, [f"k{j}{sfx}" for sfx in suffixes], at)
                 continue
             deps = node[1:]
             want = [nodes[d][0] not in _NO_COTANGENT for d in deps]
@@ -1403,47 +1552,176 @@ def _emit_gated(program: Program, live, seeds, points, leaf) -> tuple[list[str],
     return lines, names, {"reverse": reverse, "recompute": recompute, "slots_added": added}
 
 
+def _emit_loop_vjp(lp: UnionLoop, points, seeds, accs, leaf, want_color: bool):
+    """The pullback of the union ``lp`` in a large-tier adjoint whose forward
+    wrote it as its loop (:func:`_emit_loop` with ``track``). ``points`` are
+    (suffix, the names of the union's point) pairs; per point, ``seeds`` are
+    the names of the cotangents of the union's distance and colour (None for
+    one that takes none) and ``accs`` the names that take the point's
+    cotangent; ``leaf`` writes a parameter's add. Returns the lines and the
+    counts of one pass.
+
+    A union passes its distance's cotangent to the child of least distance
+    alone, and its colour's to the same child, unless two children's
+    distances compare equal or one's is NaN. A warp in which no lane that
+    takes a cotangent here has such a point loops over the distinct children
+    of least distance of its lanes and points: each pass broadcasts the first
+    pending lane's child ``k`` (``sdf_first``) and runs the child's own
+    adjoint (its program traced with its slots from 0, its own unions
+    straight-line) at every lane's point, from ``P + base + stride * k``,
+    seeded with the lane's cotangents where ``k`` is its child and zero
+    elsewhere, adding to slots ``base + stride * k + j`` at a slot the warp
+    shares. So a slot of a warp's row takes the sum of the same lanes'
+    values in the same order as from the straight-line sweep, whose other
+    children add exactly zero (``sdf_acc`` skips them), and the two forms
+    agree bit for bit wherever the children's values at the lanes' points
+    are finite.
+
+    A warp in which some such lane has a tie or a NaN distance follows the
+    tree's rule, which ``_pullback`` gives ``min`` and ``where``: at each
+    ``Union`` of the tree (``UnionLoop.splits``) the distance's cotangent
+    goes to the side whose least distance is less, and is halved between
+    the two where neither is less (equal, or a side whose every child is
+    NaN); the colour's goes left only where the left side's least is less.
+    Each lane marks its children whose distance equals the union's least and
+    those whose distance is NaN (two bit sets, from one more pass over the
+    children), from which each side's least compares as the tree compares
+    it; the warp then takes the children last first, as the straight-line
+    sweep reaches them, and a child that some lane's walk down the tree
+    (``sdf_tree_share``, ``sdf_tree_colour``) gives a cotangent takes a
+    pass. The walk repeats the tree's operations
+    (``0.5 * g`` to the left, ``g - ga`` to the right), so the cotangents
+    are the straight-line form's bit for bit where they are finite. A
+    cotangent that is not finite reaches the children of least distance
+    alone, where the tree's ``g - ga`` would give the others' NaN too."""
+    tag = f"L{lp.dist}"
+    count, words = lp.count, (lp.count + 31) // 32
+    child = dataclasses.replace(lp.child, loops=()) if lp.child.loops else lp.child
+    outs = ("d", "r", "g", "b")[:4 if want_color else 1]
+    sfxs = [sfx for sfx, _ in points]
+    state = [f"{lp.dist}{sfx}" for sfx in sfxs]  # the names _emit_loop gave the forward's loop
+    k = f"{tag}_k"
+    lines = [f"// The union of {count} like children (loop {lp.dist}) pulled back: one pass of "
+             "a child's adjoint per distinct child of least distance in the warp; the tree's "
+             "rule where some lane's point has a tie or a NaN distance.",
+             f"static const int {tag}_split[] = {{{', '.join(map(str, lp.splits))}}};"]
+    for sfx, s in zip(sfxs, seeds):
+        lines += [f"const float {tag}_{o}{sfx} = {e or '0.0f'};" for o, e in zip(outs, s)]
+        lines.append(f"bool {tag}_m{sfx} = "
+                     + " || ".join(f"{tag}_{o}{sfx} != 0.0f" for o in outs) + ";")
+    lines.append(f"const bool {tag}_x = sdf_any("
+                 + " || ".join(f"({tag}_m{sfx} && (tie{t} || nan{t}))"
+                               for sfx, t in zip(sfxs, state)) + ");")
+    lines += [f"unsigned {tag}_T{sfx}[{words}], {tag}_N{sfx}[{words}];" for sfx in sfxs]
+    if want_color:
+        lines += [f"int {tag}_c{sfx} = 0;" for sfx in sfxs]
+    lines.append(f"if ({tag}_x) {{")
+    for (sfx, point), t in zip(points, state):
+        least, nan, n = f"{tag}_T{sfx}", f"{tag}_N{sfx}", f"{tag}_n{sfx}"
+        body, cn = _emit_program(lp.child, [lp.child.dist], f"_m{tag}{sfx}", point,
+                                 f"{tag}_Q{sfx}")
+        d = _s(cn[lp.child.dist])
+        lines += [f"  for (int {n} = 0; {n} < {words}; ++{n}) {least}[{n}] = {nan}[{n}] = 0u;",
+                  "  #pragma unroll 1",
+                  f"  for (int {n} = 0; {n} < {count}; ++{n}) {{",
+                  f"    const float* __restrict__ {tag}_Q{sfx} = P + ({lp.base} + {lp.stride} * {n});",
+                  *(f"    {ln}" for ln in body),
+                  f"    {least}[{n} >> 5] |= ({d} == v{t} ? 1u : 0u) << ({n} & 31);",
+                  f"    {nan}[{n} >> 5] |= ({d} == {d} ? 0u : 1u) << ({n} & 31);",
+                  "  }"]
+        if want_color:
+            lines.append(f"  {tag}_c{sfx} = sdf_tree_colour({tag}_split, {count}, {least}, {nan});")
+    # The tie path takes the children last first, as the straight-line sweep
+    # reaches them, so that a point's cotangent sums their shares in its order.
+    lines += ["}", f"int {k} = {count};", "#pragma unroll 1", "while (true) {"]
+    lines += [f"  float {', '.join(f'{tag}_e{o}{sfx}' for o in outs)};" for sfx in sfxs]
+    lines += [f"  if ({tag}_x) {{", f"    if (--{k} < 0) break;"]
+    for sfx in sfxs:
+        least, nan = f"{tag}_T{sfx}", f"{tag}_N{sfx}"
+        lines.append(f"    {tag}_ed{sfx} = {tag}_m{sfx} && (sdf_bit({least}, {k}) || "
+                     f"sdf_bit({nan}, {k})) ? sdf_tree_share({tag}_split, {count}, {k}, "
+                     f"{tag}_d{sfx}, {least}, {nan}) : 0.0f;")
+        if want_color:
+            lines += [f"    {tag}_e{o}{sfx} = {tag}_m{sfx} && {tag}_c{sfx} == {k} ? "
+                      f"{tag}_{o}{sfx} : 0.0f;" for o in outs[1:]]
+    lines += ["    if (!sdf_any(" + " || ".join(f"{tag}_e{o}{sfx} != 0.0f" for sfx in sfxs
+                                                 for o in outs) + ")) continue;",
+              "  } else {"]
+    pending = " || ".join(f"{tag}_m{sfx}" for sfx in sfxs)
+    pick = f"i{state[-1]}"
+    for sfx, t in zip(sfxs[-2::-1], state[-2::-1]):
+        pick = f"{tag}_m{sfx} ? i{t} : {pick}"
+    lines += [f"    if (!sdf_any({pending})) break;",
+              f"    {k} = sdf_first({pending}, {pick});"]
+    for sfx, t in zip(sfxs, state):
+        on = f"{tag}_on{sfx}"
+        lines.append(f"    const bool {on} = {tag}_m{sfx} && i{t} == {k};")
+        lines += [f"    {tag}_e{o}{sfx} = {on} ? {tag}_{o}{sfx} : 0.0f;" for o in outs]
+        lines.append(f"    {tag}_m{sfx} = {tag}_m{sfx} && !{on};")
+    offset = f"{tag}_o"
+    lines += ["  }", f"  const int {offset} = {lp.base} + {lp.stride} * {k};",
+              f"  const float* __restrict__ {tag}_K = P + {offset};"]
+    # The straight-line sweep reaches the union's outputs in descending id.
+    child_seeds = sorted(zip((lp.dist, *lp.color), (child.dist, *child.color), outs),
+                         key=lambda x: -x[0])
+    body, _, counts = _emit_gated(
+        child, child.eval_live if want_color else child.dist_live,
+        [(c, [f"{tag}_e{o}{sfx}" for sfx in sfxs]) for _, c, o in child_seeds],
+        [(f"_p{tag}{sfx}", point) for sfx, point in points], leaf,
+        params=(f"{tag}_K", f"{tag}_K"), accs=accs, gate_seeds=True,
+        at=lambda slot: f"{offset} + {slot}")
+    lines += [f"  {ln}" for ln in body]
+    lines.append("}")
+    forward = sum(child.nodes[i][0] not in ("const", "input", "param")
+                  for i in (child.eval_live if want_color else child.dist_live))
+    return (["{", *(f"  {ln}" for ln in lines), "}"],
+            (counts["reverse"], counts["recompute"] + forward, counts["slots_added"]))
+
+
 @functools.lru_cache(maxsize=4)
 def _large_parts(program: Program) -> dict:
     """The large tier's three adjoints: name -> (lines, forward names, counts)."""
     point = [("", ("px", "py", "pz"))]
     pair = [("a", ("pxa", "pya", "pza")), ("b", ("pxb", "pyb", "pzb"))]
+    loops = _adjoint_loops(program)
 
-    def row(node, k):
+    def row(node, k, at):
         _, base, _, channel, _ = node
-        return f"{k} >= 0 ? {base} + 3 * {k} + {channel} : -1"
+        return f"{k} >= 0 ? {at(base)} + 3 * {k} + {channel} : -1"
 
-    def scaled(lines, i, node, totals, rows):
+    def scaled(lines, i, node, totals, rows, at):
         """The distance's: g times the unit cotangent."""
         if node[0] == "param":
-            lines.append(f"sdf_acc(gP, {node[1]}, g * {totals[0]});")
+            lines.append(f"sdf_acc(gP, {at(node[1])}, g * {totals[0]});")
         else:
-            lines.append(f"sdf_acc_at(gP, {row(node, rows[0])}, g * {totals[0]});")
+            lines.append(f"sdf_acc_at(gP, {row(node, rows[0], at)}, g * {totals[0]});")
 
-    def paired(lines, i, node, totals, rows):
+    def paired(lines, i, node, totals, rows, at):
         """A pair of taps': g times the difference of their unit cotangents,
         taken before the scaling where both read the same slot."""
         ta, tb = totals
         if node[0] == "param":
-            lines.append(f"sdf_acc(gP, {node[1]}, g * ({ta} - {tb}));")
+            lines.append(f"sdf_acc(gP, {at(node[1])}, g * ({ta} - {tb}));")
             return
         ka, kb = rows
-        lines.append(f"sdf_acc_at(gP, {row(node, ka)}, {ka} == {kb} ? g * ({ta} - {tb}) "
+        lines.append(f"sdf_acc_at(gP, {row(node, ka, at)}, {ka} == {kb} ? g * ({ta} - {tb}) "
                      f": g * {ta});")
-        lines.append(f"sdf_acc_at(gP, {kb} != {ka} ? ({row(node, kb)}) : -1, -(g * {tb}));")
+        lines.append(f"sdf_acc_at(gP, {kb} != {ka} ? ({row(node, kb, at)}) : -1, -(g * {tb}));")
 
-    def seeded(lines, i, node, totals, rows):
+    def seeded(lines, i, node, totals, rows, at):
         """The colour-and-distance adjoint's: the cotangent as it is."""
         if node[0] == "param":
-            lines.append(f"sdf_acc(gP, {node[1]}, {totals[0]});")
+            lines.append(f"sdf_acc(gP, {at(node[1])}, {totals[0]});")
         else:
-            lines.append(f"sdf_acc_at(gP, {row(node, rows[0])}, {totals[0]});")
+            lines.append(f"sdf_acc_at(gP, {row(node, rows[0], at)}, {totals[0]});")
 
     seeds = [*zip(program.color, ("gr", "gg", "gb")), (program.dist, "gd")]
     return {
-        "dist": _emit_gated(program, program.dist_live, [(program.dist, "u")], point, scaled),
-        "pair": _emit_gated(program, program.dist_live, [(program.dist, "u")], pair, paired),
-        "eval": _emit_gated(program, program.eval_live, seeds, point, seeded),
+        "dist": _emit_gated(program, program.dist_live, [(program.dist, "u")], point, scaled,
+                            loops=loops),
+        "pair": _emit_gated(program, program.dist_live, [(program.dist, "u")], pair, paired,
+                            loops=loops),
+        "eval": _emit_gated(program, program.eval_live, seeds, point, seeded, loops=loops),
     }
 
 
@@ -1467,7 +1745,15 @@ def emit_large_vjp_cpp(program: Program) -> str:
 
     Each runs its reverse sweep region by region (:func:`_emit_gated`) and is
     a function of its own (``SDF_SPARSE``: not inlined on the card), so that
-    its source is compiled once however many call sites it has."""
+    its source is compiled once however many call sites it has. A union of
+    like children that the forward writes as a loop (``Program.loops``) is
+    a loop in the adjoints' forward too, which keeps each point's child of
+    least distance and whether it has a tie or a NaN distance, and one node
+    of their sweep: pulled back by one pass of its child's adjoint per
+    distinct child of least distance in the warp, or where some lane has a
+    tie by the tree's own rule (:func:`_emit_loop_vjp`), bit for bit the
+    straight-line form's. A large program without such a loop keeps the
+    straight-line form, source and all."""
     parts = _large_parts(program)
     head = "SDF_SPARSE"
     dist_lines, dist_names, _ = parts["dist"]

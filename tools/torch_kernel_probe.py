@@ -84,9 +84,20 @@ this checkout's forward and image backward built with the loops of the
 unions of like children unrolled by 2 (``unroll2``; ``unroll1`` where
 ``LOOP_UNROLL`` is 2) and its forward reading the parameters from the
 constant bank instead of shared memory (``constant``), one
-``loops_variant`` line each. This checkout's program takes the loop form
-at every N here, whatever ``LOOP_MIN_CHILDREN`` says: the measurements the
-loop form's threshold, unroll and table's home are chosen from.
+``loops_variant`` line each. At every N below the largest, this
+checkout's image backward, whose adjoints pull the union back as a loop,
+and the same built with the straight-line adjoints (``straight_adjoint``,
+the program's loops dropped from its adjoints alone): where the loop form
+overtakes. At the largest N the image backward once more, built with
+counters in its adjoints (``counted``, the adjoint source edited in a copy:
+the program's own build counts nothing), on the fit's frame: per adjoint
+(``sdf_dist_vjp``, ``sdf_dist_vjp_pair``, ``sdf_eval_vjp``) the warp-calls
+that reach the union's pullback with some lane's cotangent, the share of
+them that take the tree's rule at a tie, and the passes of a child's
+adjoint per warp-call, one ``loops_counted`` line. This checkout's program
+takes the loop form at every N here, whatever ``LOOP_MIN_CHILDREN`` says:
+the measurements the loop form's threshold, unroll and table's home are
+chosen from.
 
 ``--against DIR`` (repeatable) names a directory that holds another
 ``sdfkit_tpu_torch`` (an earlier commit unpacked beside this one, e.g.
@@ -797,6 +808,57 @@ def _sass_size(sass, lib) -> dict | None:
             "loops": [[lp["instructions"], lp["own"], lp["rsq"]] for lp in rgb["loops"]]}
 
 
+# The three adjoints of the large tier, in the order the compiler writes them.
+ADJOINTS = ("sdf_dist_vjp", "sdf_dist_vjp_pair", "sdf_eval_vjp")
+_COUNTERS = """
+__device__ unsigned long long sdf_probe_counts[12];
+extern "C" int sdf_probe_counts_read(unsigned long long* out, int reset) {
+  cudaError_t err = cudaMemcpyFromSymbol(out, sdf_probe_counts, sizeof(sdf_probe_counts));
+  if (err == cudaSuccess && reset) {
+    unsigned long long zero[12] = {0};
+    err = cudaMemcpyToSymbol(sdf_probe_counts, zero, sizeof(zero));
+  }
+  return (int)err;
+}
+"""
+
+
+def counted_adjoint(source: str) -> str:
+    """The large tier's adjoint ``source`` with counters of its unions'
+    pullbacks (``--loops``): per adjoint f (``ADJOINTS``), at
+    ``sdf_probe_counts[4 f + c]``, the warp-calls in which some lane's point
+    takes a cotangent at the union (c = 0), those of them that take the
+    tree's rule at a tie (1), and the passes of a child's adjoint outside
+    that rule (2) and in it (3); lane 0 counts for the warp."""
+    import re
+
+    include = '#include "raymarch_sums.cuh"\n'
+    if include not in source or "_x = sdf_any(" not in source:
+        raise ValueError("no union pulled back as a loop in this adjoint")
+    starts = [source.index(f" {name}(") for name in ADJOINTS]
+    out, at = [], 0
+    for line in source.splitlines(keepends=True):
+        out.append(line)
+        at += len(line)
+        f = sum(at > s for s in starts) - 1
+        m = re.match(r"(\s*)const bool (L\d+)_x = sdf_any\(", line)
+        if m:
+            pad, tag = m.groups()
+            pending = " || ".join(sorted(set(re.findall(rf"bool ({tag}_m\w*) = ",
+                                                        "".join(out[-40:])))))
+            out.append(f"#ifdef __CUDA_ARCH__\n{pad}if (__any_sync(0xffffffffu, {pending}) && "
+                       f"(threadIdx.x & 31) == 0) {{ atomicAdd(sdf_probe_counts + {4 * f}, 1ull); "
+                       f"if ({tag}_x) atomicAdd(sdf_probe_counts + {4 * f + 1}, 1ull); }}\n"
+                       "#endif\n")
+        m = re.match(r"(\s*)const float\* __restrict__ (L\d+)_K = ", line)
+        if m:
+            pad, tag = m.groups()
+            out.append(f"#ifdef __CUDA_ARCH__\n{pad}if ((threadIdx.x & 31) == 0) "
+                       f"atomicAdd(sdf_probe_counts + {4 * f} + ({tag}_x ? 3 : 2), 1ull);\n"
+                       "#endif\n")
+    return "".join(out).replace(include, include + _COUNTERS, 1)
+
+
 def loops_sweep(packages, counts, say, events) -> int:
     """The forwards of ``union_grid_scene(n)`` of every package for each n
     (this checkout's in the loop form at every n), all six families at the
@@ -822,6 +884,7 @@ def loops_sweep(packages, counts, say, events) -> int:
     programs = {key: packages[key[0]].compile.compile_scene(e) for key, e in exprs.items()}
     jobs = [(label, n, "fwd") for label, n in programs]
     jobs += [(label, top, f) for label in packages for f in this.build.FAMILIES if f != "fwd"]
+    jobs += [("this", n, "bwd") for n in counts if n != top]
     work = pathlib.Path(tempfile.mkdtemp(prefix="loops"))
     prog = programs[("this", top)]
     shared = "#define SDF_SHARED_PARAMS 1"
@@ -832,8 +895,17 @@ def loops_sweep(packages, counts, say, events) -> int:
     unrolled = dataclasses.replace(prog, source=prog.source.replace(
         pragma, f"#pragma unroll {other}\n"))
     constant = dataclasses.replace(prog, source=prog.source.replace(shared, shared[:-1] + "0"))
-    variant_jobs = {(f"unroll{other}", f): (unrolled, f, this.build.CSRC) for f in ("fwd", "bwd")}
-    variant_jobs[("constant", "fwd")] = (constant, "fwd", this.build.CSRC)
+    variant_jobs = {(f"unroll{other}", top, f): (unrolled, f, this.build.CSRC)
+                    for f in ("fwd", "bwd")}
+    variant_jobs[("constant", top, "fwd")] = (constant, "fwd", this.build.CSRC)
+    for n in counts:
+        if n != top:  # the same program with its adjoints straight-line
+            p_n = programs[("this", n)]
+            variant_jobs[("straight_adjoint", n, "bwd")] = (dataclasses.replace(
+                p_n, adjoint_source=this.compile.emit_large_vjp_cpp(
+                    dataclasses.replace(p_n, loops=()))), "bwd", this.build.CSRC)
+    counted = dataclasses.replace(prog, adjoint_source=counted_adjoint(prog.adjoint_source))
+    variant_jobs[("counted", top, "bwd")] = (counted, "bwd", this.build.CSRC)
 
     def load(job):
         label, n, family = job
@@ -876,20 +948,48 @@ def loops_sweep(packages, counts, say, events) -> int:
         return lambda: rk.launch_rays_bwd(lib, prm, rays, cfg, True, cot, hit=hit)[0]
 
     runs = {key: call(packages[key[0]].rk, libs[key], params[key[:2]], key[2]) for key in jobs}
-    for (name, family), lib in variants.items():
-        runs[(name, top, family)] = call(this.rk, lib, top_params, family)
+    for (name, n, family), lib in variants.items():
+        if name != "counted":  # its counters would slow it: run apart, below
+            runs[(name, n, family)] = call(this.rk, lib, params[("this", n)], family)
     ref_label = next((label for label in packages if label != "this"), "this")
     with torch.no_grad():
         times = turns(runs, events)
         outputs = {key: run() for key, run in runs.items()}
+        counted_lib = variants[("counted", top, "bwd")]
+        read = ctypes.CDLL(str(counted_lib.path)).sdf_probe_counts_read
+        read.restype, read.argtypes = ctypes.c_int, [ctypes.c_void_p, ctypes.c_int]
+        tally = (ctypes.c_ulonglong * 12)()
+        read(tally, 1)
+        counted_out = call(this.rk, counted_lib, top_params, "bwd")()
+        torch.cuda.synchronize()
+        if read(tally, 0) != 0:
+            raise RuntimeError("could not read the counted build's counters")
+    per = {}
+    for f, name in enumerate(ADJOINTS):
+        calls, ties, passes, tie_passes = tally[4 * f:4 * f + 4]
+        per[name] = {"warp_calls": calls, "tie_warp_calls": ties,
+                     "tie_share": ties / calls if calls else None,
+                     "passes_per_warp_call": passes / (calls - ties) if calls > ties else None,
+                     "tie_passes_per_tie_warp_call": tie_passes / ties if ties else None}
+    say("loops_counted", spheres=top, family="bwd", adjoints=per,
+        bit_identical_to_uncounted=bool(torch.equal(
+            counted_out.view(torch.int32), outputs[("this", top, "bwd")].view(torch.int32))))
+
+    def reference(key):
+        """The output ``key``'s is held to: the first --against package's, or
+        below the largest N the image backward of the other adjoint form."""
+        label, n, family = key
+        if (ref_label, n, family) in outputs:
+            return outputs[(ref_label, n, family)]
+        return outputs[("straight_adjoint" if label == "this" else "this", n, family)]
 
     for key in runs:
         label, n, family = key
-        lib = variants.get((label, family)) or libs[key]
-        ref, got = outputs[(ref_label, n, family)], outputs[key]
+        lib = variants.get(key) or libs[key]
+        ref, got = reference(key), outputs[key]
         ms = sum(times[key]) / len(times[key])
         prog_n = programs.get((label, n)) or programs[("this", n)]
-        say("loops_variant" if (label, family) in variants else "loops", package=label,
+        say("loops_variant" if key in variants else "loops", package=label,
             spheres=n, family=family, parameter_slots=prog_n.n_params,
             looped=list(getattr(prog_n, "looped", (0, 0.0))), ms=ms, ms_per_sphere=ms / n,
             rounds=times[key], nvcc_seconds=lib.build_seconds, registers=lib.registers,

@@ -17,7 +17,8 @@ process and prints, after the run's own lines, one JSON line: the first
 fit step's (or first frame's) spans by name (count, total and self ms), the
 spans outside any step (``sdf.fit.setup``, ``sdf.compile``, ``sdf.build``),
 and the scene compiler's and the library loads' counters: among them the
-programs traced with a union of like children as a loop (``LOOPED``) and
+programs traced with a union of like children as a loop (``LOOPED``), those
+of them whose adjoints pull it back as a loop (``LOOPED_ADJOINTS``) and
 each program's ``looped`` (its loops' children and share of the distance's
 nodes, by the program's hash).
 
@@ -72,7 +73,7 @@ def _run(spans_on: bool, first_step: bool, argv: list) -> int:
             "first_spans": {} if first is None else spans.summary([first.id], recs),
             "outside_steps": spans.summary([None], recs),
             "compile_traces": sc.TRACES, "compile_s": sc.TRACE_SECONDS,
-            "compile_looped": sc.LOOPED,
+            "compile_looped": sc.LOOPED, "compile_looped_adjoints": sc.LOOPED_ADJOINTS,
             "looped": {prog.hash: list(prog.looped) for prog in sc._PROGRAMS.values()},
             "library_loads": build.LOADS, "libraries_s": build.LOAD_SECONDS,
             "dropped": spans.DROPPED}), flush=True)
