@@ -31,10 +31,12 @@ parameters from SMEM scalars). Here:
 The program is cached by the tree's structure (node types, callbacks, flags
 and parameter shapes), and its hash is that of the emitted source, which
 holds parameter slots and never parameter values: editing a value changes
-nothing here and rebuilds nothing. A callback that closes over a Python
-value is structure, as it was for the JAX package's ``jit``. The adjoint's
-source and hash are fields of their own, so a scene that is only rendered
-never pays for the backward's build.
+nothing here and rebuilds nothing. Each tree also keeps its program and
+leaves until an edit of a scene's structure (``sdf/expr.py``), so a frame
+or fit step on an unchanged tree walks none of it. A callback that closes
+over a Python value is structure, as it was for the JAX package's ``jit``.
+The adjoint's source and hash are fields of their own, so a scene that is
+only rendered never pays for the backward's build.
 """
 
 from __future__ import annotations
@@ -45,13 +47,16 @@ import hashlib
 import math
 import threading
 import time
+import weakref
 
 import numpy as np
 import torch
 from torch import nn
+from torch._utils import _flatten_dense_tensors
 
 from sdfkit_tpu_torch import ops
 from sdfkit_tpu_torch.ops import Graph, Sym, SymTable, UnsupportedOpError
+from sdfkit_tpu_torch.sdf import expr as sdf_expr
 from sdfkit_tpu_torch.sdf.expr import SdfExpr, Union, leaves, scene_device
 from sdfkit_tpu_torch.utils.spans import span
 from sdfkit_tpu_torch.utils.v3 import V3
@@ -370,8 +375,13 @@ TRACE_SECONDS = 0.0  # the seconds those traces took
 _COUNTS = threading.Lock()
 
 
-def compile_scene(expr: SdfExpr) -> Program:
-    """The scene's program, traced once per structure."""
+# Each tree's (edit count, program table, program, leaves) as of its last
+# walk; a tree's entry goes with the tree.
+_SCENES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _lookup(expr: SdfExpr) -> Program:
+    """The program of ``expr``'s structure, traced on a miss."""
     global TRACES, TRACE_SECONDS, LOOPED, LOOPED_ADJOINTS
     key = _structure(expr)
     prog = _PROGRAMS.get(key)
@@ -387,13 +397,35 @@ def compile_scene(expr: SdfExpr) -> Program:
     return prog
 
 
+def _scene(expr: SdfExpr) -> tuple:
+    """``(program, leaves)`` of ``expr``, the leaves in slot order. The tree
+    is walked again only after an edit of some scene's structure
+    (``sdf_expr.EDITS``) or with another program table in place."""
+    memo = _SCENES.get(expr)
+    if memo is not None and memo[0] == sdf_expr.EDITS and memo[1] is _PROGRAMS:
+        return memo[2], memo[3]
+    edits, programs = sdf_expr.EDITS, _PROGRAMS  # before the walk: an edit during it misses next
+    prog, ls = _lookup(expr), leaves(expr)
+    _SCENES[expr] = (edits, programs, prog, ls)
+    return prog, ls
+
+
+def compile_scene(expr: SdfExpr) -> Program:
+    """The scene's program, traced once per structure and looked up once
+    per tree until a structure is edited (``sdf/expr.py``)."""
+    return _scene(expr)[0]
+
+
 def flat_params(expr: SdfExpr) -> torch.Tensor:
-    """All parameters as one contiguous float32 vector, in slot order
-    (differentiable: a torch.cat of the leaves)."""
-    ls = leaves(expr)
+    """All parameters as one contiguous float32 vector, in slot order, read
+    from the leaves' current tensors (differentiable: a concatenation of the
+    leaves, made in one call)."""
+    ls = _scene(expr)[1]
     if not ls:
         return torch.zeros(0, dtype=torch.float32, device=scene_device(expr))
-    return torch.cat([leaf.reshape(-1) for leaf in ls])
+    if len(ls) == 1:  # _flatten_dense_tensors would return a view of the leaf
+        return torch.cat([ls[0].reshape(-1)])
+    return _flatten_dense_tensors(ls)
 
 
 # ---------------------------------------------------------------------------

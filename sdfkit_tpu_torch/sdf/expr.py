@@ -20,6 +20,14 @@ Evaluation protocol (structure-of-arrays):
 gives for the same tree in the JAX package (each class's ``fields`` is its
 ``@sdf_node`` data-field order), so weights cross between the packages with
 ``load_leaves``.
+
+An edit of any scene's structure counts in ``EDITS``: a field, child,
+parameter or static set on a node (``setattr``, ``add_module``,
+``register_parameter``, ``del``), an edit of a scalar list, and a move
+(``.to(...)`` and every other ``nn.Module._apply``). The scene compiler keeps
+each tree's program and leaves until the count moves (``compile_scene``). An
+edit of values alone (``load_leaves``, an optimizer's step in place) does not
+count: the flat parameters read the current tensors.
 """
 
 from __future__ import annotations
@@ -33,6 +41,55 @@ from torch import nn
 from sdfkit_tpu_torch import ops
 from sdfkit_tpu_torch.device import default_device, resolve
 from sdfkit_tpu_torch.utils.v3 import V3, vmod
+
+
+EDITS = 0  # edits of any scene's structure in this process (module docstring)
+
+
+def _edited() -> None:
+    global EDITS
+    EDITS += 1
+
+
+class _CountsEdits:
+    """Counts in ``EDITS`` every way ``nn.Module`` lets a caller change what
+    a module holds, after the change: a walk that reads the count before it
+    starts then never keeps a structure older than the count says. A plain
+    ``nn.ParameterList`` set on a node becomes a ``ScalarList``."""
+
+    def __setattr__(self, name, value):
+        super().__setattr__(name, _scalar_list(value))
+        _edited()
+
+    def __delattr__(self, name):
+        super().__delattr__(name)
+        _edited()
+
+    def add_module(self, name, module):
+        super().add_module(name, _scalar_list(module))
+        _edited()
+
+    def register_parameter(self, name, param):
+        super().register_parameter(name, param)
+        _edited()
+
+    def _apply(self, fn, recurse=True):
+        out = super()._apply(fn, recurse)  # may put new Parameter objects in place
+        _edited()
+        return out
+
+
+class ScalarList(_CountsEdits, nn.ParameterList):
+    """A node's scalar list (``scalar_lists``): an ``nn.ParameterList`` whose
+    edits count as edits of the scene's structure."""
+
+
+def _scalar_list(value):
+    """``value``, a plain ``nn.ParameterList`` made a ``ScalarList`` in place
+    (the caller's handle stays the node's list)."""
+    if type(value) is nn.ParameterList:
+        value.__class__ = ScalarList
+    return value
 
 
 def _param(v, device: torch.device) -> nn.Parameter:
@@ -55,7 +112,7 @@ def _vec3(x, y, z) -> torch.Tensor:
     return torch.tensor([float(x), float(y), float(z)], dtype=torch.float32)
 
 
-class SdfExpr(nn.Module):
+class SdfExpr(_CountsEdits, nn.Module):
     """Base class: a differentiable signed distance field.
 
     Subclasses list their parameter-or-child fields in ``fields`` (JAX
@@ -92,7 +149,7 @@ class SdfExpr(nn.Module):
                 continue
             device = resolve(device)  # raises when there is no card and no request
             if name in self.scalar_lists:
-                self.add_module(name, nn.ParameterList([_param(s, device) for s in v]))
+                self.add_module(name, ScalarList([_param(s, device) for s in v]))
             else:
                 self.register_parameter(name, _param(v, device))
         for name in self.statics:
